@@ -4,22 +4,31 @@
 Run from the root of a checkout: ``python3 chip_smoke.py``.  Phases, any
 of which fails the script:
 
-1. build the CUDA kernels from ``src/repro_torch/kernels/*/csrc`` with nvcc;
-2. hold each kernel against its plain PyTorch version at granite-3-8b
-   attention shapes (KV=8, G=4, hd=128, bs=128, B=8, M=32): the paged
-   decode kernel fused at depths 1, 2 and 4 (asserted bit-identical) and
-   over split pools, with W in {1, 4}, holes and a sliding window; the
-   ragged kernel on a mixed batch of unaligned prefill rows and decode
-   rows.  Each kernel is timed with CUDA events beside its bound, its
-   plain version and one PyTorch library call (SDPA on the gathered K/V,
-   a yardstick the port never calls);
+1. build the CUDA kernels from ``src/repro_torch/kernels/*/csrc`` with nvcc,
+   one nvcc process per source, all at once;
+2. hold each kernel against its plain PyTorch version on the card:
+   - at granite-3-8b attention shapes (KV=8, G=4, hd=128, bs=128, B=8,
+     M=32) the paged decode kernel fused at depths 1, 2 and 4 (asserted
+     bit-identical) and over split pools, with W in {1, 4}, holes and a
+     sliding window; the ragged kernel on a mixed batch of unaligned
+     prefill rows and decode rows;
+   - at DeepSeek-V2 shapes (H=128, rank=512, rope=64, bs=128, B=8, M=16)
+     the absorbed-MLA paged decode kernel, with W in {1, 4}, holes and a
+     slot of length 0.
+   Each kernel is timed with CUDA events beside its bound, its plain
+   version and one PyTorch library call (SDPA on the gathered keys, a
+   yardstick the port never calls);
 3. serve granite-3-8b at full width and depth (random f32 weights from a
    seeded generator) through the chunked path (decode through the paged
    decode kernel) and the ragged path (ragged kernel), each against the
    same engine with ``page_impl="ref"`` as the token oracle, and check
-   the kernels' launch counts on those runs.
+   the kernels' launch counts on those runs;
+4. serve DeepSeek-V2 at its published widths, cut to 4 layers (layer 0
+   dense, 1-3 MoE; random f32 weights), through monolithic prefill and
+   paged MLA decode (the MLA kernel) against ``page_impl="ref"``, and
+   check the MLA kernel ran once per layer per decode step.
 
-Prints the card's name and power limit, tokens/s per path, one
+Prints the card's name and power limit, tokens/s per run, one
 ``{"kernels": [...]}`` JSON line and, last, ``{"ok": true, "device":
 {...}}``.  Exits non-zero, printing no result, without a CUDA device or
 without the rest of the repository beside it.
@@ -28,6 +37,7 @@ without the rest of the repository beside it.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import math
 import statistics
@@ -43,6 +53,8 @@ PEAK_F32_S = 67e12          # H100 SXM float32 outside the tensor cores
 TOL = 2e-5                  # f32: kernel and plain version sum in other orders
 PA = "src/repro/kernels/paged_attention/paged_attention.py"
 CU = "src/repro_torch/kernels/paged_attention/csrc/paged_attention.cu"
+MLA_PY = "src/repro/kernels/mla_attention/mla_attention.py"
+MLA_CU = "src/repro_torch/kernels/mla_attention/csrc/mla_attention.cu"
 
 # granite-3-8b attention geometry (configs/granite_3_8b.py)
 KV, G, HD, BS = 8, 4, 128, 128
@@ -353,12 +365,113 @@ def kernel_phase(torch, seed: int) -> list[dict]:
     return [a, b]
 
 
+# --------------------------------------------------------- MLA kernel phase
+# DeepSeek-V2 absorbed-MLA geometry (configs/deepseek_v2_236b.py)
+MLA_H, RANK, ROPE, MLA_B, MLA_M = 128, 512, 64, 8, 16
+MLA_SCALE = (128 + ROPE) ** -0.5            # (nope_hd + rope_hd)^-0.5
+
+
+def mla_case(torch, gen, *, W):
+    """Random latents; holes in the odd slots, slot 0 full, the last slot
+    of length 0 (it sees nothing and must come out 0)."""
+    dev = DEVICE
+    N = MLA_B * MLA_M + 16
+    phys = torch.randperm(N, generator=gen, device=dev)[:MLA_B * MLA_M]
+    tables = phys.reshape(MLA_B, MLA_M).to(torch.int32)
+    lengths = torch.randint(1, MLA_M * BS + 1, (MLA_B,), generator=gen,
+                            device=dev, dtype=torch.int32)
+    lengths[0] = MLA_M * BS
+    lengths[-1] = 0
+    for b in range(1, MLA_B - 1, 2):
+        tables[b, [1, 3, 7]] = -1
+    return dict(
+        q_lat=torch.randn(MLA_B, MLA_H, RANK, generator=gen, device=dev),
+        q_rope=torch.randn(MLA_B, MLA_H, ROPE, generator=gen, device=dev),
+        c=torch.randn(N, BS, RANK, generator=gen, device=dev),
+        kr=torch.randn(N, BS, ROPE, generator=gen, device=dev),
+        tables=tables, stack=stack_tables(torch, tables, W), lengths=lengths)
+
+
+def mla_work(c):
+    """(visible tokens, bytes, flops) this case's data needs: each visible
+    latent row read once, the queries read, the context written."""
+    tables = c["tables"].cpu().numpy()
+    tokens = sum(1 for b, n in enumerate(c["lengths"].cpu().tolist())
+                 for pos in range(n) if tables[b, pos // BS] >= 0)
+    nbytes = (tokens * (RANK + ROPE) * 4
+              + MLA_B * MLA_H * (2 * RANK + ROPE) * 4
+              + tables.size * 4 + MLA_B * 4)
+    flops = tokens * MLA_H * (2 * (RANK + ROPE) + 2 * RANK)
+    return tokens, nbytes, flops
+
+
+def sdpa_mla(torch, c):
+    """One SDPA call: q = [q_lat | q_rope], k = [c | kr], v = c over the
+    gathered latents, the kernel's scale (setup untimed)."""
+    import torch.nn.functional as F
+    S = MLA_M * BS
+    rows = c["tables"].clamp(min=0).long()
+    lat = c["c"][rows].reshape(MLA_B, 1, S, RANK)
+    k = torch.cat([lat, c["kr"][rows].reshape(MLA_B, 1, S, ROPE)], dim=-1)
+    q = torch.cat([c["q_lat"], c["q_rope"]], dim=-1)[:, :, None]
+    pos = torch.arange(S, device=DEVICE)
+    vis = (pos < c["lengths"][:, None]) & (
+        c["tables"].repeat_interleave(BS, 1) >= 0)
+    mask = vis[:, None, None, :]
+    k = k.expand(MLA_B, MLA_H, S, RANK + ROPE)
+    v = lat.expand(MLA_B, MLA_H, S, RANK)
+    return lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                                  scale=MLA_SCALE)
+
+
+def mla_kernel_phase(torch, seed: int) -> dict:
+    from repro_torch.kernels.mla_attention import mla_attention as mk
+    from repro_torch.kernels.mla_attention import ref as mref
+    gen = torch.Generator(device=DEVICE).manual_seed(seed + 1)
+    err = 0.0
+    for W in (1, 4):
+        c = mla_case(torch, gen, W=W)
+        args = (c["q_lat"], c["q_rope"], c["c"], c["kr"], c["stack"],
+                c["lengths"])
+        o = mk.mla_paged_ctx_fwd(*args, scale=MLA_SCALE)
+        plain = mref.mla_paged_ctx_ref(*args, scale=MLA_SCALE)
+        torch.cuda.synchronize()
+        if not torch.isfinite(o).all():
+            fail(f"MLA kernel output not finite (W={W})")
+        if o[-1].abs().max().item() != 0.0:
+            fail("MLA kernel wrote non-zero context for a slot of length 0")
+        e = (o - plain).abs().max().item()
+        if not math.isfinite(e) or e > TOL:
+            fail(f"MLA W={W}: max abs err {e} > {TOL}")
+        err = max(err, e)
+        print(f"mla W={W} holes=True zero-length slot: max abs err vs plain "
+              f"{e:.3g}")
+    c = mla_case(torch, gen, W=1)
+    args = (c["q_lat"], c["q_rope"], c["c"], c["kr"], c["stack"],
+            c["lengths"])
+    tokens, nbytes, flops = mla_work(c)
+    b_ms, b_by = bound(nbytes, flops)
+    ms = time_ms(torch, lambda: mk.mla_paged_ctx_fwd(*args, scale=MLA_SCALE))
+    plain_ms = time_ms(torch, lambda: mref.mla_paged_ctx_ref(
+        *args, scale=MLA_SCALE))
+    lib_ms = time_ms(torch, sdpa_mla(torch, c))
+    print(f"mla: {ms:.4f} ms (bound {b_ms:.4f} ms by {b_by}, plain "
+          f"{plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms; {tokens} visible "
+          f"latent rows, {flops / ms / 1e9:.2f} TFLOP/s)")
+    return dict(name="mla_ctx_kernel", route="cuda", source=MLA_CU,
+                replaces=f"{MLA_PY}:86", launches=0, max_abs_err=err, ms=ms,
+                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=lib_ms)
+
+
 # ----------------------------------------------------------- engine phase
 PROMPT_LENS = (300, 2500, 777, 1503, 1029, 451, 2085, 1234)
 NEW_TOKENS = 16
+ENTRY_POINTS = ("prefill", "prefill_chunk", "decode_step", "ragged_step")
 
 
-def serve(torch, cfg, params, *, ragged: bool, page_impl: str, seed: int):
+def serve(torch, cfg, params, *, prompt_lens, page_impl: str, seed: int,
+          **engine_kw):
     """One engine run; returns tokens by request, the snapshot, decode
     steps, seconds, each (request, token index)'s top-2 logit margin and
     the seconds of the device timeline spanned by each model entry point
@@ -371,11 +484,10 @@ def serve(torch, cfg, params, *, ragged: bool, page_impl: str, seed: int):
     from repro_torch.serving.engine import Engine
 
     eng = Engine(cfg, params, config=EngineConfig(
-        num_blocks=256, max_batch=8, max_seq_len=2560, admission="fcfs",
-        chunked_prefill=True, prefill_chunk=2, ragged_kernel=ragged,
-        page_impl=page_impl, device=DEVICE))
+        max_batch=8, admission="fcfs", page_impl=page_impl, device=DEVICE,
+        **engine_kw))
     rng = np.random.RandomState(seed)
-    for i, n in enumerate(PROMPT_LENS):
+    for i, n in enumerate(prompt_lens):
         eng.submit(rng.randint(1, cfg.vocab, size=n),
                    max_new_tokens=NEW_TOKENS, stream=f"s{i % 2}",
                    group_id=i % 2 + 1)
@@ -391,8 +503,7 @@ def serve(torch, cfg, params, *, ragged: bool, page_impl: str, seed: int):
             if not finite[slot]:
                 bad.append((r.rid, len(r.generated)))
 
-    events: dict = {"prefill_chunk": [], "decode_step": [],
-                    "ragged_step": []}
+    events: dict = {name: [] for name in ENTRY_POINTS}
 
     def timed(name):
         fn = getattr(tfm, name)
@@ -422,7 +533,8 @@ def serve(torch, cfg, params, *, ragged: bool, page_impl: str, seed: int):
 
     with mock.patch.object(tfm, "decode_step", decode), \
             mock.patch.object(tfm, "ragged_step", ragged_step), \
-            mock.patch.object(tfm, "prefill_chunk", run["prefill_chunk"]):
+            mock.patch.object(tfm, "prefill_chunk", run["prefill_chunk"]), \
+            mock.patch.object(tfm, "prefill", run["prefill"]):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         while not eng.sched.idle and eng.steps < 10_000:
@@ -434,13 +546,28 @@ def serve(torch, cfg, params, *, ragged: bool, page_impl: str, seed: int):
     spent = {name: sum(s.elapsed_time(e) for s, e in pairs) / 1e3
              for name, pairs in events.items()}
     toks = {r.rid: list(map(int, r.generated)) for r in eng.sched.done}
-    if len(toks) != len(PROMPT_LENS):
-        fail(f"{len(toks)} of {len(PROMPT_LENS)} requests completed")
+    if len(toks) != len(prompt_lens):
+        fail(f"{len(toks)} of {len(prompt_lens)} requests completed")
     out = (toks, eng.metrics.snapshot(), eng.decode_steps, secs, margins,
            spent)
-    del eng
+    del eng                   # the engine's bus holds reference cycles
+    gc.collect()
     torch.cuda.empty_cache()
     return out
+
+
+def reset_launches() -> None:
+    from repro_torch.kernels.mla_attention import mla_attention as mk
+    from repro_torch.kernels.paged_attention import paged_attention as pa
+    pa.reset_launches()
+    mk.reset_launches()
+
+
+def launch_counts() -> dict:
+    """Every kernel's launches since :func:`reset_launches`."""
+    from repro_torch.kernels.mla_attention import mla_attention as mk
+    from repro_torch.kernels.paged_attention import paged_attention as pa
+    return {**pa.LAUNCHES, **mk.LAUNCHES}
 
 
 def check_tokens(got, want, margins, what: str) -> None:
@@ -460,7 +587,6 @@ def check_tokens(got, want, margins, what: str) -> None:
 
 def engine_phase(torch, layers: int, seed: int) -> dict:
     from repro_torch.configs import get_config
-    from repro_torch.kernels.paged_attention import paged_attention as pa
     from repro_torch.models import transformer as tfm
 
     cfg = get_config("granite-3-8b")
@@ -477,15 +603,18 @@ def engine_phase(torch, layers: int, seed: int) -> dict:
     launches = {}
     for ragged, kernel in ((False, "paged_decode"), (True, "ragged")):
         path = "ragged" if ragged else "chunked"
-        pa.reset_launches()
+        kw = dict(prompt_lens=PROMPT_LENS, seed=seed, num_blocks=256,
+                  max_seq_len=2560, chunked_prefill=True, prefill_chunk=2,
+                  ragged_kernel=ragged)
+        reset_launches()
         toks, snap, decode_steps, secs, _, spent = serve(
-            torch, cfg, params, ragged=ragged, page_impl="kernel", seed=seed)
-        counts = dict(pa.LAUNCHES)
+            torch, cfg, params, page_impl="kernel", **kw)
+        counts = launch_counts()
         steps = (snap["engine.kernel.ragged_steps"] if ragged
                  else decode_steps)
         want = cfg.n_layers * steps
-        other = "paged_decode" if ragged else "ragged"
-        if counts[kernel] != want or counts[other] != 0:
+        if counts[kernel] != want or any(
+                v for k, v in counts.items() if k != kernel):
             fail(f"{path} path launches {counts}, expected {kernel} = "
                  f"{cfg.n_layers} layers x {steps} steps = {want}")
         if ragged and snap["engine.kernel.kernel_calls"] != want:
@@ -496,7 +625,7 @@ def engine_phase(torch, layers: int, seed: int) -> dict:
                  f"shape signatures, expected 1")
         launches[kernel] = counts[kernel]
         ref_toks, _, _, ref_secs, margins, _ = serve(
-            torch, cfg, params, ragged=ragged, page_impl="ref", seed=seed)
+            torch, cfg, params, page_impl="ref", **kw)
         check_tokens(toks, ref_toks, margins, path)
         n = sum(len(t) for t in toks.values())
         print(f"engine {path}: {n} tokens, kernel {n / secs:.2f} tokens/s "
@@ -507,6 +636,74 @@ def engine_phase(torch, layers: int, seed: int) -> dict:
         print(f"engine {path} kernel run, device time spanned: {split}, "
               f"rest {secs - sum(spent.values()):.2f} s")
     return launches
+
+
+# DeepSeek-V2 cut to 4 layers: layer 0 dense, 1-3 MoE (13.3 B params,
+# 53 GB in f32 — the most that leaves room on an 80 GB card)
+DS_LAYERS = 4
+DS_PROMPT_LENS = (200, 1500, 777, 1029, 451, 1234)
+
+
+def deepseek_phase(torch, seed: int) -> int:
+    """Serve DeepSeek-V2 (MLA + MoE) through monolithic prefill and paged
+    MLA decode, kernel against the ``page_impl="ref"`` oracle; returns the
+    MLA kernel's launches on the kernel run."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models import transformer as tfm
+
+    L = DS_LAYERS
+    cfg = get_config("deepseek-v2-236b").with_(
+        n_layers=L, mixers=("mla",) * L, ffns=("dense",) + ("moe",) * (L - 1))
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=DEVICE).manual_seed(seed + 2)
+    params = tfm.init_params(cfg, generator=gen, device=DEVICE,
+                             dtype=torch.float32)
+    torch.cuda.synchronize()
+    n_params = tfm.param_count(params)
+    print(f"deepseek-v2-236b: {L} of 60 layers, d_model {cfg.d_model}, "
+          f"{cfg.n_heads} heads, kv_lora {cfg.mla.kv_lora_rank}, "
+          f"{cfg.moe.num_experts} experts top-{cfg.moe.top_k}, "
+          f"{n_params / 1e9:.3f} B params ({n_params * 4 / 1e9:.1f} GB f32), "
+          f"made in {time.perf_counter() - t0:.1f} s")
+    kw = dict(prompt_lens=DS_PROMPT_LENS, seed=seed, num_blocks=128,
+              max_seq_len=2048)
+    reset_launches()
+    toks, snap, decode_steps, secs, _, spent = serve(
+        torch, cfg, params, page_impl="kernel", **kw)
+    counts = launch_counts()
+    want = L * decode_steps
+    if counts["mla_ctx"] != want or any(
+            v for k, v in counts.items() if k != "mla_ctx"):
+        fail(f"deepseek-v2 launches {counts}, expected mla_ctx = {L} "
+             f"layers x {decode_steps} decode steps = {want}")
+    ref_toks, _, _, ref_secs, margins, ref_spent = serve(
+        torch, cfg, params, page_impl="ref", **kw)
+    check_tokens(toks, ref_toks, margins, "deepseek-v2")
+    n = sum(len(t) for t in toks.values())
+    print(f"engine deepseek-v2: {n} tokens, kernel {n / secs:.2f} tokens/s "
+          f"({secs:.2f} s), oracle {n / ref_secs:.2f} tokens/s "
+          f"({ref_secs:.2f} s); mla_ctx launches {counts['mla_ctx']} = {L} x "
+          f"{decode_steps} decode steps; {snap['engine.prefill_traces']} "
+          f"prefill shapes; tokens match the oracle")
+    for name, sp, total in (("kernel", spent, secs),
+                            ("oracle", ref_spent, ref_secs)):
+        split = ", ".join(f"{k} {v:.3f} s" for k, v in sp.items() if v)
+        print(f"engine deepseek-v2 {name} run, device time spanned: {split}, "
+              f"rest {total - sum(sp.values()):.3f} s")
+    # the reference's dispatch runs every expert at capacity >= 4 per step
+    ffn = tfm.layer_params(params, cfg, 1)["ffn"]
+    x = torch.randn(8, 1, cfg.d_model, generator=gen, device=DEVICE)
+    moe_ms = time_ms(torch, lambda: moe_mod.moe_ffn(ffn, x, cfg), reps=10)
+    mo = cfg.moe
+    w_bytes = 3 * mo.num_experts * cfg.d_model * mo.d_expert * 4
+    print(f"moe_ffn at decode shape (8 tokens, {mo.num_experts} experts x "
+          f"capacity {moe_mod.capacity_for(8, mo.top_k, mo.num_experts)}): "
+          f"{moe_ms:.3f} ms, {w_bytes / 1e9:.2f} GB of routed-expert "
+          f"weights read, {w_bytes / moe_ms / 1e9:.2f} TB/s; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.1f} GB")
+    return counts["mla_ctx"]
 
 
 def main() -> int:
@@ -530,7 +727,6 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     try:
         from repro_torch.kernels import _build
-        from repro_torch.kernels.paged_attention import paged_attention as pa
     except ImportError as e:
         print(f"chip_smoke: the repro_torch package is missing beside this "
               f"script ({e})", file=sys.stderr)
@@ -541,15 +737,21 @@ def main() -> int:
           f"{torch.cuda.get_device_name(0)}")
 
     t0 = time.perf_counter()
-    lib = _build.build(pa._SOURCES)
-    print(f"built {lib.name} in {time.perf_counter() - t0:.1f} s")
+    libs = _build.build_all()
+    print(f"built {', '.join(lib.name for lib in libs)} in "
+          f"{time.perf_counter() - t0:.1f} s (one nvcc per source, in "
+          f"parallel)")
     kernels = kernel_phase(torch, args.seed)
+    kernels.append(mla_kernel_phase(torch, args.seed))
     if args.skip_engine:                     # no main-path run: no result
         print(f"card: {card_line()}")
         return 0
     launches = engine_phase(torch, args.layers, args.seed)
-    kernels[0]["launches"] = launches["paged_decode"]
-    kernels[1]["launches"] = launches["ragged"]
+    gc.collect()                             # granite's weights go first
+    torch.cuda.empty_cache()
+    launches["mla_ctx"] = deepseek_phase(torch, args.seed)
+    for k, name in zip(kernels, ("paged_decode", "ragged", "mla_ctx")):
+        k["launches"] = launches[name]
     print(f"card: {card_line()}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -21,7 +21,10 @@ def _tensor(a, device, dtype=None) -> torch.Tensor:
 
 def _tree(x, device, dtype):
     if isinstance(x, dict):
-        return {k: _tree(v, device, dtype) for k, v in x.items()}
+        # the MoE router stays f32 whatever the model dtype, as the
+        # reference inits it
+        return {k: _tree(v, device, None if k == "router" else dtype)
+                for k, v in x.items()}
     if isinstance(x, (list, tuple)):
         return [_tree(v, device, dtype) for v in x]
     return _tensor(x, device, dtype)
@@ -42,7 +45,8 @@ def _leading(tree) -> int:
 def params_from_jax(tree: dict, *, device="cuda", dtype=None) -> dict:
     """A ``repro.models.transformer.init_params`` tree of NumPy arrays →
     the port's params dict (same keys; ``body[j]`` a list over blocks).
-    ``dtype`` casts floating leaves (default: keep)."""
+    ``dtype`` casts floating leaves (default: keep), except the MoE
+    ``router``, which stays f32."""
     out = {k: _tree(v, device, dtype) for k, v in tree.items()
            if k not in ("prefix", "body")}
     out["prefix"] = [_tree(lp, device, dtype) for lp in tree["prefix"]]

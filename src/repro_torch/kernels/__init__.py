@@ -7,9 +7,10 @@ Each kernel package holds:
     ops.py      public entry points (layouts, descriptors)
     ref.py      plain PyTorch versions the kernels are held against
 
-``_build.py`` compiles the sources with nvcc at first use.
+``_build.py`` compiles each source with nvcc at first use.
 
 Kernels:
     paged_attention  decode and ragged prefill+decode over the FPR paged
                      KV cache (block tables)
+    mla_attention    absorbed-MLA paged decode over the latent pages
 """

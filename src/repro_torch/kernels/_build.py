@@ -1,12 +1,13 @@
-"""Build the port's CUDA sources into a shared library and load it.
+"""Build the port's CUDA sources into shared libraries and load them.
 
 The sources have a plain C interface (one ``extern "C"`` launcher per
-kernel that returns ``cudaGetLastError()``), so the build is one ``nvcc``
-call of a few seconds: no PyTorch headers, no extension machinery.  The
-library lands in ``build/repro_torch_kernels/lib<hash>.so`` at the root of
-the checkout, keyed by a hash of the sources and flags, and is built at
-first use.  Nothing here runs at import time, so the package imports on a
-machine without ``nvcc``.
+kernel that returns ``cudaGetLastError()``), so each build is one ``nvcc``
+call of a few seconds: no PyTorch headers, no extension machinery.  Each
+source of :data:`SOURCES` is its own library in
+``build/repro_torch_kernels/lib<hash>.so`` at the root of the checkout,
+keyed by a hash of the source and flags, built at first use (or all at
+once, in parallel, by :func:`build_all`).  Nothing here runs at import
+time, so the package imports on a machine without ``nvcc``.
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 #: sm_90a keeps wgmma/setmaxnreg available; no --use_fast_math, so expf
@@ -25,6 +27,11 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
+
+_KERNELS = Path(__file__).resolve().parent
+#: every CUDA source of the port, one library each
+SOURCES = (_KERNELS / "paged_attention" / "csrc" / "paged_attention.cu",
+           _KERNELS / "mla_attention" / "csrc" / "mla_attention.cu")
 
 _LOADED: dict[str, ctypes.CDLL] = {}
 
@@ -69,6 +76,13 @@ def build(sources) -> Path:
         if os.path.exists(tmp):
             os.unlink(tmp)
     return out
+
+
+def build_all(sources=SOURCES) -> list[Path]:
+    """Build one library per source, all nvcc processes at once; returns
+    the libraries in the order of ``sources``."""
+    with ThreadPoolExecutor(max_workers=len(sources)) as pool:
+        return list(pool.map(lambda src: build((src,)), sources))
 
 
 def load(sources) -> ctypes.CDLL:

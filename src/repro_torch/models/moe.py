@@ -1,0 +1,139 @@
+"""Mixture-of-Experts FFN — DeepSeek-style shared + routed top-k experts.
+
+PyTorch counterpart of ``repro.models.moe`` for one routing group (the
+reference's expert- and data-parallel sharding constraints are
+distributed work and are not here).  Dispatch is the same sort-based,
+capacity-bounded scheme:
+
+  1. top-k routing per token in f32, gates renormalised over the chosen k,
+  2. flatten (token, k) slots and sort them stably by expert id,
+  3. position-in-expert from segment arithmetic,
+  4. add kept slots into an (E, C, D) buffer (dropped slots add 0),
+  5. batched expert SwiGLU as ``torch.bmm`` over the expert dim,
+  6. gather back through the inverse permutation, weight by gates, sum
+     over k.
+
+Capacity drops make every token's output depend on the whole group, so
+callers route exactly the token stream the reference routes, padding
+included.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.models.layers import init_dense, rms_norm
+
+
+def _init_experts(E: int, d_in: int, d_out: int, *, generator, device,
+                  dtype) -> torch.Tensor:
+    """(E, d_in, d_out) unit normals over sqrt(d_in), scaled in place (a
+    full-size expert stack is gigabytes; no second copy is made)."""
+    w = torch.randn(E, d_in, d_out, generator=generator, device=device,
+                    dtype=torch.float32)
+    return w.mul_(1.0 / math.sqrt(d_in)).to(dtype)
+
+
+def init_moe(cfg, *, generator: torch.Generator, device,
+             dtype=torch.bfloat16) -> dict:
+    mo = cfg.moe
+    D = cfg.d_model
+    de = mo.d_expert or cfg.d_ff
+    E = mo.num_experts
+    kw = dict(generator=generator, device=device, dtype=dtype)
+    p = {"norm": torch.ones(D, device=device, dtype=dtype),
+         # routing in f32 whatever the model dtype
+         "router": init_dense(D, E, generator=generator, device=device,
+                              dtype=torch.float32),
+         "w_gate": _init_experts(E, D, de, **kw),
+         "w_up": _init_experts(E, D, de, **kw),
+         "w_down": _init_experts(E, de, D, **kw)}
+    if mo.num_shared:
+        ds = de * mo.num_shared
+        p["s_gate"] = init_dense(D, ds, **kw)
+        p["s_up"] = init_dense(D, ds, **kw)
+        p["s_down"] = init_dense(ds, D, **kw)
+    return p
+
+
+def capacity_for(tokens_per_group: int, top_k: int, num_experts: int,
+                 capacity_factor: float = 1.25, min_capacity: int = 4) -> int:
+    c = int(tokens_per_group * top_k * capacity_factor / num_experts) + 1
+    # round up to a multiple of 4, as the reference does
+    return max(min_capacity, (c + 3) & ~3)
+
+
+def _route(router: torch.Tensor, x: torch.Tensor, top_k: int):
+    """x: (T, D) → gates (T, k) f32, experts (T, k) int64, aux-loss scalar.
+
+    A stable descending sort keeps ``jax.lax.top_k``'s order: the larger
+    probability first, the lower expert index first among equals."""
+    probs = torch.softmax(x.float() @ router.float(), dim=-1)   # (T, E)
+    gates, eidx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    gates, eidx = gates[:, :top_k], eidx[:, :top_k]
+    gates = gates / gates.sum(-1, keepdim=True).clamp(min=1e-9)
+    # Switch-style load-balance aux: E · Σ_e f_e · P_e
+    E = router.shape[1]
+    me = probs.mean(dim=0)
+    ce = torch.bincount(eidx.reshape(-1), minlength=E).float() / eidx.numel()
+    return gates, eidx, E * torch.sum(me * ce)
+
+
+def _dispatch_compute(x: torch.Tensor, gates: torch.Tensor,
+                      eidx: torch.Tensor, w_gate, w_up, w_down,
+                      capacity: int) -> torch.Tensor:
+    """x: (T, D); gates/eidx: (T, k) → (T, D) routed-expert output."""
+    T, D = x.shape
+    k = eidx.shape[1]
+    E = w_gate.shape[0]
+    eflat = eidx.reshape(-1)                           # (T·k,)
+    order = torch.argsort(eflat, stable=True)
+    sorted_e = eflat[order]
+    counts = torch.bincount(eflat, minlength=E)
+    seg_start = torch.cumsum(counts, 0) - counts
+    pos_in_e = torch.arange(T * k, device=x.device) - seg_start[sorted_e]
+    keep = pos_in_e < capacity
+    dest = sorted_e * capacity + torch.where(keep, pos_in_e, 0)
+    token_of = order // k                              # source token per slot
+    contrib = torch.where(keep[:, None], x[token_of], 0)
+    # each destination gets one kept row plus zeros: the sum is exact
+    buf = torch.zeros(E * capacity, D, device=x.device, dtype=x.dtype)
+    buf = buf.index_add_(0, dest, contrib).reshape(E, capacity, D)
+    h = F.silu(torch.bmm(buf, w_gate)) * torch.bmm(buf, w_up)
+    out = torch.bmm(h, w_down).reshape(E * capacity, D)
+    slot_out = torch.where(keep[:, None], out[dest], 0)   # (T·k, D)
+    inv = torch.empty_like(order)
+    inv[order] = torch.arange(T * k, device=x.device)
+    slot_out = slot_out[inv].reshape(T, k, D)
+    return torch.einsum("tkd,tk->td", slot_out.float(),
+                        gates).to(x.dtype)
+
+
+def moe_mix(params: dict, x: torch.Tensor, cfg, *,
+            capacity_factor: float = 1.25):
+    """MoE FFN body on pre-normed x: (B, S, D) → (out, aux_loss).  All
+    B·S tokens form one routing group."""
+    mo = cfg.moe
+    B, S, D = x.shape
+    T = B * S
+    xf = x.reshape(T, D)
+    cap = capacity_for(T, mo.top_k, mo.num_experts, capacity_factor)
+    gates, eidx, aux = _route(params["router"], xf, mo.top_k)
+    out = _dispatch_compute(xf, gates, eidx, params["w_gate"],
+                            params["w_up"], params["w_down"], cap)
+    out = out.reshape(B, S, D)
+    if mo.num_shared:
+        sh = (F.silu(xf @ params["s_gate"]) * (xf @ params["s_up"])
+              ) @ params["s_down"]
+        out = out + sh.reshape(B, S, D)
+    return out, aux * mo.router_aux_coef
+
+
+def moe_ffn(params: dict, x: torch.Tensor, cfg):
+    """Pre-norm residual MoE block: (B, S, D) → (x + out, aux)."""
+    h = rms_norm(x, params["norm"], cfg.norm_eps)
+    out, aux = moe_mix(params, h, cfg)
+    return x + out, aux

@@ -1,13 +1,16 @@
 """Model assembly for the serving path: init, prefill, chunked prefill,
 decode step and the ragged mixed step.
 
-PyTorch counterpart of the attention-only, dense-FFN subset of
-``repro.models.transformer``.  The decode state is a dict of tensors:
+PyTorch counterpart of the serving subset of ``repro.models.transformer``:
+attention (GQA) and MLA mixers, dense and MoE FFNs.  The decode state is
+a dict of tensors:
 
-  kv:      fused K/V (L_attn, N, bs, KV*2, hd) paged GQA cache, head-
-           interleaved (K even, V odd)
-  tables:  (W, Bs, M) int32 shard stack or (B, M) — FPR block tables
-  lengths: (B,) int32
+  kv:       fused K/V (L_attn, N, bs, KV*2, hd) paged GQA cache, head-
+            interleaved (K even, V odd)
+  mla_c:    (L, N, bs, rank) paged MLA latents, indexed by absolute layer
+  mla_rope: (L, N, bs, rope_hd) paged MLA rope keys
+  tables:   (W, Bs, M) int32 shard stack or (B, M) — FPR block tables
+  lengths:  (B,) int32
 
 Differences from the reference, all internal: the layer scan is a
 Python loop over layers, and the pools are updated **in place** (the
@@ -17,9 +20,11 @@ padding rows, columns past the table) are masked out explicitly: torch
 indexing has no drop mode and wraps negative indices.
 
 ``page_impl`` picks the decode/ragged attention: ``"kernel"`` (the CUDA
-kernels in ``kernels/paged_attention``; their plain versions on the CPU)
-or ``"ref"`` (the gather oracle).  MoE, MLA, mamba, rwkv6 and
-encoder-decoder models raise ``NotImplementedError``.
+kernels in ``kernels/paged_attention`` and ``kernels/mla_attention``;
+their plain versions on the CPU) or ``"ref"`` (the gather oracles).
+MLA models prefill monolithically (``prefill_chunk`` and ``ragged_step``
+take attention mixers only, as in the reference).  Mamba, rwkv6,
+encoder-decoder and multimodal models raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -27,6 +32,8 @@ from __future__ import annotations
 import torch
 
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import mla as mla_mod
+from repro_torch.models import moe as moe_mod
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (dense_ffn, embed, init_embed,
                                        init_swiglu, rms_norm, unembed)
@@ -35,23 +42,19 @@ BLOCK_SIZE = 128   # tokens per physical KV block
 
 PAGE_IMPLS = ("ref", "kernel")
 
-_QUEUE_ITEM = {"moe": "ROADMAP Queue 1 item 6 (models/moe.py)",
-               "mla": "ROADMAP Queue 1 item 7 (MLA decode)",
-               "mamba": "ROADMAP Queue 1 item 8 (mamba)",
+_QUEUE_ITEM = {"mamba": "ROADMAP Queue 1 item 8 (mamba)",
                "rwkv6": "ROADMAP Queue 1 item 8 (rwkv6)",
                "enc_dec": "ROADMAP Queue 1 item 9 (encoder-decoder)",
                "frontend": "ROADMAP Queue 1 item 9 (multimodal frontends)"}
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise NotImplementedError for anything outside this port's slice:
-    attention mixers with dense FFNs, decoder-only, text-only."""
-    for kind in sorted(set(cfg.mixers) - {"attn"}):
+    """Raise NotImplementedError for anything outside this port's slices:
+    attention or MLA mixers with dense or MoE FFNs, decoder-only,
+    text-only."""
+    for kind in sorted(set(cfg.mixers) - {"attn", "mla"}):
         raise NotImplementedError(f"{kind} mixers are not ported yet: "
                                   f"{_QUEUE_ITEM[kind]}")
-    if "moe" in cfg.ffns:
-        raise NotImplementedError(f"MoE FFNs are not ported yet: "
-                                  f"{_QUEUE_ITEM['moe']}")
     if cfg.enc_dec:
         raise NotImplementedError(f"encoder-decoder models are not ported "
                                   f"yet: {_QUEUE_ITEM['enc_dec']}")
@@ -61,11 +64,17 @@ def check_supported(cfg: ModelConfig) -> None:
 
 
 # ============================================================ initialisation
-def _init_layer(cfg: ModelConfig, *, generator, device, dtype) -> dict:
+def _init_layer(cfg: ModelConfig, i: int, *, generator, device,
+                dtype) -> dict:
     kw = dict(generator=generator, device=device, dtype=dtype)
-    ffn = init_swiglu(cfg.d_model, cfg.dense_d_ff or cfg.d_ff, **kw)
-    ffn["norm"] = torch.ones(cfg.d_model, device=device, dtype=dtype)
-    return {"mix": attn_mod.init_attn(cfg, **kw), "ffn": ffn}
+    mix, ffn_kind = cfg.layer_sig(i)
+    if ffn_kind == "moe":
+        ffn = moe_mod.init_moe(cfg, **kw)
+    else:
+        ffn = init_swiglu(cfg.d_model, cfg.dense_d_ff or cfg.d_ff, **kw)
+        ffn["norm"] = torch.ones(cfg.d_model, device=device, dtype=dtype)
+    init_mix = mla_mod.init_mla if mix == "mla" else attn_mod.init_attn
+    return {"mix": init_mix(cfg, **kw), "ffn": ffn}
 
 
 def init_params(cfg: ModelConfig, *, generator: torch.Generator,
@@ -84,10 +93,10 @@ def init_params(cfg: ModelConfig, *, generator: torch.Generator,
                                        dtype=dtype)}
     if not cfg.tie_embeddings:
         params["unembed"] = init_embed(cfg.vocab, cfg.d_model, **kw)
-    params["prefix"] = [_init_layer(cfg, **kw) for _ in range(prefix)]
+    params["prefix"] = [_init_layer(cfg, i, **kw) for i in range(prefix)]
     n_blocks = (cfg.n_layers - prefix) // period if period else 0
-    params["body"] = [[_init_layer(cfg, **kw) for _ in range(n_blocks)]
-                      for _ in range(period)]
+    params["body"] = [[_init_layer(cfg, prefix + b * period + j, **kw)
+                       for b in range(n_blocks)] for j in range(period)]
     return params
 
 
@@ -111,6 +120,21 @@ def _unembed_table(params: dict, cfg: ModelConfig) -> torch.Tensor:
     return params["embed"] if cfg.tie_embeddings else params["unembed"]
 
 
+def _ffn(lp: dict, x: torch.Tensor, cfg: ModelConfig, i: int) -> torch.Tensor:
+    """Layer ``i``'s FFN on (B, S, D).  An MoE layer routes all B·S tokens
+    as one group, padding included, exactly as the reference does."""
+    if cfg.ffns[i] == "moe":
+        return moe_mod.moe_ffn(lp["ffn"], x, cfg)[0]
+    return dense_ffn(lp["ffn"], x, cfg.norm_eps)
+
+
+def _check_attn_only(cfg: ModelConfig, what: str) -> None:
+    if any(m != "attn" for m in cfg.mixers):
+        raise NotImplementedError(
+            f"{what} supports attention-mixer models; got "
+            f"mixers={cfg.mixers}")
+
+
 # ============================================================= decode state
 def attn_layer_ids(cfg: ModelConfig) -> list[int]:
     return [i for i in range(cfg.n_layers) if cfg.mixers[i] == "attn"]
@@ -129,6 +153,10 @@ def cache_spec(cfg: ModelConfig, batch: int, max_len: int,
     N = ((N + round_to - 1) // round_to) * round_to
     spec = {"tables": ((batch, M), torch.int32),
             "lengths": ((batch,), torch.int32)}
+    if "mla" in cfg.mixers:
+        m = cfg.mla
+        spec["mla_c"] = ((cfg.n_layers, N, bs, m.kv_lora_rank), dtype)
+        spec["mla_rope"] = ((cfg.n_layers, N, bs, m.rope_head_dim), dtype)
     n_attn = len(attn_layer_ids(cfg))
     if n_attn:
         spec["kv"] = ((n_attn, N, bs, 2 * cfg.n_kv_heads, cfg.head_dim),
@@ -168,7 +196,8 @@ def init_decode_state(cfg: ModelConfig, batch: int, max_len: int,
         st["tables"] = tables
     else:
         (_, M), _ = spec["tables"]
-        N = spec["kv"][0][1] if "kv" in spec else batch * M
+        pool = spec.get("kv", spec.get("mla_c"))
+        N = pool[0][1] if pool else batch * M
         st["tables"] = sp_identity_tables(batch, M, N, batch_shards,
                                           seq_shards, device)
     if lengths is not None:
@@ -235,14 +264,33 @@ def _paged_attn(q, kv_pool, tables, lengths, *, page_impl, window):
         return pa_ops.paged_attention(q, kv_pool, tables, lengths,
                                       window=window,
                                       buffer_depth=tuned.buffer_depth)
-    if page_impl != "ref":
-        raise ValueError(f"page_impl must be one of {PAGE_IMPLS}, "
-                         f"got {page_impl!r}")
+    _check_page_impl(page_impl)
     B = q.shape[0]
     k_pool, v_pool = attn_mod.split_fused_kv(kv_pool)
     return attn_mod.paged_decode_attention_ref(
         q, k_pool, v_pool, attn_mod.assemble_shard_tables(tables)[:B],
         lengths, window=window)
+
+
+def _check_page_impl(page_impl: str) -> None:
+    if page_impl not in PAGE_IMPLS:
+        raise ValueError(f"page_impl must be one of {PAGE_IMPLS}, "
+                         f"got {page_impl!r}")
+
+
+def _mla_paged_decode(lp, x, positions, st, layer, cfg, *, page_impl):
+    """Absorbed-MLA decode of layer ``layer`` over the latent pools:
+    ``"kernel"`` walks the table (either layout) in the CUDA kernel;
+    ``"ref"`` gathers through the monolithic view of the table."""
+    c_pool, rope_pool = st["mla_c"][layer], st["mla_rope"][layer]
+    if page_impl == "kernel":
+        from repro_torch.kernels.mla_attention import ops as mla_ops
+        return mla_ops.mla_paged_decode(lp, x, positions, c_pool, rope_pool,
+                                        st["tables"], st["lengths"] + 1, cfg)
+    _check_page_impl(page_impl)
+    tables = attn_mod.assemble_shard_tables(st["tables"])[:x.shape[0]]
+    return mla_mod.mla_decode_ref(lp, x, positions, c_pool, rope_pool,
+                                  tables, st["lengths"] + 1, cfg)
 
 
 def decode_step(params, cfg: ModelConfig, state: dict, tokens: torch.Tensor,
@@ -265,15 +313,22 @@ def decode_step(params, cfg: ModelConfig, state: dict, tokens: torch.Tensor,
     attn_ids = attn_layer_ids(cfg)
     for i in range(cfg.n_layers):
         lp = layer_params(params, cfg, i)
-        a = attn_ids.index(i)
         h = rms_norm(x[:, None], lp["mix"]["norm"], cfg.norm_eps)
-        q, k, v = attn_mod.qkv_proj(lp["mix"], h, cfg, positions)
-        _scatter_rows(st["kv"][a], targets,
-                      attn_mod.fuse_kv(k[:, 0], v[:, 0]))
-        o = _paged_attn(q[:, 0], st["kv"][a], st["tables"], pos + 1,
-                        page_impl=page_impl, window=cfg.attn.window)
-        x = x + o.reshape(B, -1) @ lp["mix"]["wo"]
-        x = dense_ffn(lp["ffn"], x[:, None], cfg.norm_eps)[:, 0]
+        if cfg.mixers[i] == "mla":
+            c_kv, k_rope = mla_mod.latent_kv(lp["mix"], h, cfg, positions)
+            _scatter_rows(st["mla_c"][i], targets, c_kv[:, 0])
+            _scatter_rows(st["mla_rope"][i], targets, k_rope[:, 0, 0])
+            x = _mla_paged_decode(lp["mix"], x, pos, st, i, cfg,
+                                  page_impl=page_impl)
+        else:
+            a = attn_ids.index(i)
+            q, k, v = attn_mod.qkv_proj(lp["mix"], h, cfg, positions)
+            _scatter_rows(st["kv"][a], targets,
+                          attn_mod.fuse_kv(k[:, 0], v[:, 0]))
+            o = _paged_attn(q[:, 0], st["kv"][a], st["tables"], pos + 1,
+                            page_impl=page_impl, window=cfg.attn.window)
+            x = x + o.reshape(B, -1) @ lp["mix"]["wo"]
+        x = _ffn(lp, x[:, None], cfg, i)[:, 0]
     h = rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = unembed(h[:, None], _unembed_table(params, cfg))[:, 0]
     st["lengths"] = pos + 1
@@ -294,20 +349,31 @@ def prefill(params, cfg: ModelConfig, tokens: torch.Tensor, state: dict):
     tables = attn_mod.assemble_shard_tables(st["tables"])[:B]
     M_used = -(-S // bs)
     tab = tables[:, :M_used].reshape(-1)
+
+    def scatter_seq(pool, seq):
+        """seq (B, S, ...) → the prompt's pool rows; <0 entries drop."""
+        pad = [0, 0] * (seq.dim() - 2) + [0, M_used * bs - S]
+        seq = torch.nn.functional.pad(seq, pad)
+        _scatter_blocks(pool, tab,
+                        seq.reshape((B * M_used, bs) + seq.shape[2:]))
+
     attn_ids = attn_layer_ids(cfg)
     for i in range(cfg.n_layers):
         lp = layer_params(params, cfg, i)
         h = rms_norm(x, lp["mix"]["norm"], cfg.norm_eps)
-        q, k, v = attn_mod.qkv_proj(lp["mix"], h, cfg, positions)
-        o = attn_mod.chunked_attention(q, k, v, causal=True,
-                                       window=cfg.attn.window)
-        x = x + o.reshape(B, S, -1) @ lp["mix"]["wo"]
-        seq = attn_mod.fuse_kv(k, v)
-        seq = torch.nn.functional.pad(
-            seq, (0, 0, 0, 0, 0, M_used * bs - S))
-        _scatter_blocks(st["kv"][attn_ids.index(i)], tab,
-                        seq.reshape((B * M_used, bs) + seq.shape[2:]))
-        x = dense_ffn(lp["ffn"], x, cfg.norm_eps)
+        if cfg.mixers[i] == "mla":
+            # the cache holds the latents of the layer's input
+            c_kv, k_rope = mla_mod.latent_kv(lp["mix"], h, cfg, positions)
+            x = mla_mod.mla_layer(lp["mix"], x, positions, cfg)
+            scatter_seq(st["mla_c"][i], c_kv)
+            scatter_seq(st["mla_rope"][i], k_rope[:, :, 0])
+        else:
+            q, k, v = attn_mod.qkv_proj(lp["mix"], h, cfg, positions)
+            o = attn_mod.chunked_attention(q, k, v, causal=True,
+                                           window=cfg.attn.window)
+            x = x + o.reshape(B, S, -1) @ lp["mix"]["wo"]
+            scatter_seq(st["kv"][attn_ids.index(i)], attn_mod.fuse_kv(k, v))
+        x = _ffn(lp, x, cfg, i)
     h = rms_norm(x[:, -1], params["final_norm"], cfg.norm_eps)
     logits = unembed(h[:, None], _unembed_table(params, cfg))[:, 0]
     st["lengths"] = torch.full((B,), S, dtype=torch.int32,
@@ -327,9 +393,10 @@ def prefill_chunk(params, cfg: ModelConfig, tokens: torch.Tensor,
     rows that the mask turns into exact zeros (``exp(NEG_INF - m)``
     underflows to 0.0), so every real query row matches :func:`prefill`.
     Returns the state; logits are not computed (the first decode step
-    rewrites position S−1 and produces them).
+    rewrites position S−1 and produces them).  Attention mixers only.
     """
     check_supported(cfg)
+    _check_attn_only(cfg, "prefill_chunk")
     B, C = tokens.shape
     bs = BLOCK_SIZE
     if C % bs:
@@ -365,7 +432,7 @@ def prefill_chunk(params, cfg: ModelConfig, tokens: torch.Tensor,
                                            window=cfg.attn.window,
                                            q_offset=start)
         x = x + o.reshape(B, C, -1) @ lp["mix"]["wo"]
-        x = dense_ffn(lp["ffn"], x, cfg.norm_eps)
+        x = _ffn(lp, x, cfg, i)
     return st
 
 
@@ -386,9 +453,12 @@ def ragged_step(params, cfg: ModelConfig, state: dict, tokens: torch.Tensor,
     (-1 = inactive slot: garbage logits row, length untouched).  Returns
     (logits (num_slots, V) at each slot's last token, state).  Each
     layer scatters the incoming K/V rows before attending, so a chunk
-    attends its own tokens, matching :func:`prefill_chunk`.
+    attends its own tokens, matching :func:`prefill_chunk`.  Attention
+    mixers only; an MoE layer routes the whole fixed-capacity stream,
+    padding included, as one group.
     """
     check_supported(cfg)
+    _check_attn_only(cfg, "ragged_step")
     T = tokens.shape[0]
     st = dict(state)
     tables = st["tables"]
@@ -406,9 +476,7 @@ def ragged_step(params, cfg: ModelConfig, state: dict, tokens: torch.Tensor,
             return pa_ops.ragged_paged_attention(
                 q, kvp, tables, tile_row, tile_pos, kv_lens,
                 window=cfg.attn.window)
-        if page_impl != "ref":
-            raise ValueError(f"page_impl must be one of {PAGE_IMPLS}, "
-                             f"got {page_impl!r}")
+        _check_page_impl(page_impl)
         from repro_torch.kernels.paged_attention.ref import ragged_fused_ref
         return ragged_fused_ref(q, kvp, tables, token_row, token_pos,
                                 kv_lens, window=cfg.attn.window)
@@ -422,7 +490,7 @@ def ragged_step(params, cfg: ModelConfig, state: dict, tokens: torch.Tensor,
         _scatter_rows(kvp, targets, attn_mod.fuse_kv(k[0], v[0]))
         o = ragged_attn(q[0], kvp)                       # (T, H, hd)
         x = x + o.reshape(T, -1) @ lp["mix"]["wo"]
-        x = dense_ffn(lp["ffn"], x[None], cfg.norm_eps)[0]
+        x = _ffn(lp, x[None], cfg, i)[0]
     h = rms_norm(x, params["final_norm"], cfg.norm_eps)  # (T, D)
     h_last = h[last_index.clamp(min=0).long()]           # (slots, D)
     logits = unembed(h_last[:, None], _unembed_table(params, cfg))[:, 0]

@@ -157,8 +157,9 @@ class Engine:
                                         watermarks=config.watermarks)
         self.metrics.register("fpr.eviction", self.evictor.counters)
         self.steps = 0
-        # decode_step calls (one paged-decode kernel launch per attention
-        # layer each); not in the snapshot, which stays the reference's
+        # decode_step calls (one paged-decode or MLA kernel launch per
+        # attention or MLA layer each); not in the snapshot, which stays
+        # the reference's
         self.decode_steps = 0
         self.tokens_generated = 0
         self.wall_s = 0.0

@@ -75,3 +75,25 @@ def ragged_case(seed, *, W, window, KV=2, G=2, hd=16, bs=128):
 
 RAGGED = [dict(W=1, window=None), dict(W=2, window=None),
           dict(W=4, window=None), dict(W=2, window=50)]
+
+
+def mla_case(seed, *, B=5, H=4, rank=32, rope=8, bs=128, M=4, W=1):
+    """Absorbed-MLA decode inputs: holes in the even slots, one slot whose
+    pages are all holes and one slot of length 0 (both see nothing and
+    give 0)."""
+    rng = np.random.RandomState(seed)
+    N = B * M + 3
+    mono, _ = tables(rng, B, M, N, 1)
+    lengths = rng.randint(1, M * bs + 1, B).astype(np.int32)
+    for b in range(0, B, 2):
+        mono[b, rng.randint(M)] = -1
+    mono[1] = -1
+    lengths[-1] = 0
+    return dict(q_lat=rand(rng, B, H, rank), q_rope=rand(rng, B, H, rope),
+                c=rand(rng, N, bs, rank), kr=rand(rng, N, bs, rope),
+                mono=mono, stack=shard_stack(mono, W), lengths=lengths,
+                scale=float((16 + rope) ** -0.5))
+
+
+MLA = [dict(W=1), dict(W=2), dict(W=4), dict(W=4, B=7, M=3),
+       dict(W=1, H=16, rank=512, rope=64, M=2, B=3)]

@@ -51,6 +51,12 @@ def test_importing_the_port_loads_no_jax():
         "repro_torch." + str(p.relative_to(PORT).with_suffix("")).replace(
             os.sep, ".").removesuffix(".__init__")
         for p in PORT.rglob("*.py"))
+    # the serving slices: GQA paged attention, MLA + MoE
+    assert {"repro_torch.models.mla", "repro_torch.models.moe",
+            "repro_torch.kernels.mla_attention.mla_attention",
+            "repro_torch.kernels.mla_attention.ops",
+            "repro_torch.kernels.mla_attention.ref",
+            "repro_torch.kernels.paged_attention.ops"} <= set(mods)
     code = ("import sys, importlib\n"
             "import repro_torch, repro_torch.serving.engine\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"

@@ -1,5 +1,5 @@
-"""The CUDA paged-attention kernels against their plain versions, on the
-card.  These skip without a CUDA device; on a machine with one run them
+"""The CUDA kernels (paged attention, absorbed-MLA paged decode) against
+their plain versions, on the card.  These skip without a CUDA device; on a machine with one run them
 with ``python -m pytest -q -m cuda tests/test_torch_kernels_cuda.py``
 (the file imports no JAX)."""
 
@@ -10,9 +10,11 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.kernels.mla_attention import mla_attention as tmk  # noqa: E402
 from repro_torch.kernels.paged_attention import ops as tops  # noqa: E402
 from repro_torch.kernels.paged_attention import paged_attention as tpa  # noqa: E402
-from _torch_cases import PAGED, RAGGED, paged_case, ragged_case  # noqa: E402
+from _torch_cases import (MLA, PAGED, RAGGED, mla_case, paged_case,  # noqa: E402
+                          ragged_case)
 
 TOL = dict(rtol=2e-5, atol=2e-5)
 
@@ -69,3 +71,20 @@ def test_ragged_kernel_matches_plain_on_card(cuda, case):
     real = t(d["token_row"] >= 0)
     assert torch.isfinite(got).all()
     close(got.cpu()[real], plain[real].numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", MLA, ids=str)
+def test_mla_kernel_matches_plain_on_card(cuda, case):
+    c = mla_case(12, **case)
+    args = [t(c[k], cuda) for k in ("q_lat", "q_rope", "c", "kr", "stack",
+                                    "lengths")]
+    before = tmk.LAUNCHES["mla_ctx"]
+    got = tmk.mla_paged_ctx_fwd(*args, scale=c["scale"])
+    assert tmk.LAUNCHES["mla_ctx"] == before + 1
+    plain = tmk.mla_paged_ctx_fwd(*(a.cpu() for a in args), scale=c["scale"])
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    close(got, plain.numpy())
+    seen_nothing = t((c["mono"] < 0).all(1) | (c["lengths"] == 0))
+    assert not got.cpu()[seen_nothing].any()

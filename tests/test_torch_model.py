@@ -2,7 +2,8 @@
 ``repro.models.transformer``: the logits of ``decode_step``, ``prefill``,
 ``ragged_step`` and (through the decode step after it) ``prefill_chunk``
 agree within 1e-4, the written KV pools within 2e-5, and greedy decoding
-gives identical tokens over W ∈ {1, 2, 4} table shards.  Parameters are
+gives identical tokens over W ∈ {1, 2, 4} table shards, on the tiny,
+granite and DeepSeek-MoE (MoE FFNs) smoke configs.  Parameters are
 made on the reference side and bridged (no PRNG parity); the port runs
 on the CPU, where ``page_impl="kernel"`` takes the kernels' plain
 versions."""
@@ -19,11 +20,13 @@ torch = pytest.importorskip("torch")
 # workers from oversubscribing the cores
 torch.set_num_threads(1)
 
+from repro.configs import deepseek_moe_16b as jdsm  # noqa: E402
 from repro.configs import granite_3_8b as jgranite  # noqa: E402
 from repro.kernels.paged_attention import ops as jops  # noqa: E402
 from repro.models import transformer as jtfm  # noqa: E402
 from repro.models.config import ModelConfig as JCfg  # noqa: E402
 from repro_torch.bridge import params_from_jax, state_from_jax  # noqa: E402
+from repro_torch.configs import deepseek_moe_16b as tdsm  # noqa: E402
 from repro_torch.configs import granite_3_8b as tgranite  # noqa: E402
 from repro_torch.models import transformer as ttfm  # noqa: E402
 from repro_torch.models.config import ModelConfig as TCfg  # noqa: E402
@@ -38,12 +41,15 @@ BS = 128
 SLOTS, M, N = 4, 4, 20
 
 
-@pytest.fixture(scope="module", params=["tiny", "granite-smoke"])
+@pytest.fixture(scope="module",
+                params=["tiny", "granite-smoke", "deepseek-moe-smoke"])
 def model(request):
     if request.param == "tiny":
         jcfg, tcfg = JCfg(**_TINY), TCfg(**_TINY)
-    else:
+    elif request.param == "granite-smoke":
         jcfg, tcfg = jgranite.smoke(), tgranite.smoke()
+    else:                       # attention + MoE FFNs (dense layer 0)
+        jcfg, tcfg = jdsm.smoke(), tdsm.smoke()
     jp = jtfm.init_params(jax.random.PRNGKey(0), jcfg, jnp.float32)
     tp = params_from_jax(jax.tree.map(np.asarray, jp), device="cpu")
     return jcfg, tcfg, jp, tp
@@ -182,8 +188,9 @@ def test_greedy_tokens_match_reference(model, W):
 def test_unsupported_models_raise():
     g = torch.Generator().manual_seed(0)
     for cfg in (TCfg(**_TINY, mixers=("mamba",)),
-                TCfg(**_TINY, ffns=("moe",)),
-                TCfg(**_TINY, enc_dec=True)):
+                TCfg(**_TINY, mixers=("rwkv6",)),
+                TCfg(**_TINY, enc_dec=True),
+                TCfg(**_TINY, frontend="vision")):
         with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
             ttfm.init_params(cfg, generator=g, device="cpu")
 
