@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port of the FPR serving path on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port on one NVIDIA GPU: the FPR serving path and
+the full-sequence forward of the hybrid families.
 
 Run from the root of a checkout: ``python3 chip_smoke.py``.  Phases, any
 of which fails the script:
@@ -12,12 +13,17 @@ of which fails the script:
      bit-identical) and over split pools, with W in {1, 4}, holes and a
      sliding window; the ragged kernel on a mixed batch of unaligned
      prefill rows and decode rows;
+   - flash attention at Jamba's attention widths (causal, S=4096, H=32,
+     KV=8, hd=128) and h2o-danube-3-4b's (window 4096, S=6144, hd=120);
    - at DeepSeek-V2 shapes (H=128, rank=512, rope=64, bs=128, B=8, M=16)
      the absorbed-MLA paged decode kernel, with W in {1, 4}, holes and a
-     slot of length 0.
+     slot of length 0;
+   - the Mamba selective scan at Jamba's widths (B=2, S=2000, DI=8192,
+     N=16) and the RWKV-6 WKV scan at RWKV-6-7B's (B=2, S=2000, 64 heads
+     of 64), nonzero initial states.
    Each kernel is timed with CUDA events beside its bound, its plain
-   version and one PyTorch library call (SDPA on the gathered keys, a
-   yardstick the port never calls);
+   version and, for the attention kernels, one PyTorch library call (SDPA,
+   a yardstick the port never calls);
 3. serve granite-3-8b at full width and depth (random f32 weights from a
    seeded generator) through the chunked path (decode through the paged
    decode kernel) and the ragged path (ragged kernel), each against the
@@ -26,12 +32,20 @@ of which fails the script:
 4. serve DeepSeek-V2 at its published widths, cut to 4 layers (layer 0
    dense, 1-3 MoE; random f32 weights), through monolithic prefill and
    paged MLA decode (the MLA kernel) against ``page_impl="ref"``, and
-   check the MLA kernel ran once per layer per decode step.
+   check the MLA kernel ran once per layer per decode step;
+5. Jamba-v0.1 at its published widths cut to one 8-layer period, then
+   RWKV-6-7B whole (random f32 weights): ``prefill(impl="kernel")`` of 2
+   prompts of 1000 tokens and 16 greedy ``decode_step``s against the
+   ``impl="chunked"``/``page_impl="ref"`` oracle, ``loss_fn(impl=
+   "kernel")`` on a (2, 1024) batch against ``impl="chunked"``, and for
+   Jamba ``attn_layer(impl="kernel")`` (flash attention) on its attention
+   layer; each path's launches are counted on their own.
 
 Prints the card's name and power limit, tokens/s per run, one
-``{"kernels": [...]}`` JSON line and, last, ``{"ok": true, "device":
-{...}}``.  Exits non-zero, printing no result, without a CUDA device or
-without the rest of the repository beside it.
+``{"kernels": [...]}`` JSON line (one entry per TPU kernel of the
+reference) and, last, ``{"ok": true, "device": {...}}``.  Exits non-zero,
+printing no result, without a CUDA device or without the rest of the
+repository beside it.
 """
 
 from __future__ import annotations
@@ -317,11 +331,14 @@ def kernel_phase(torch, seed: int) -> list[dict]:
         print(f"decode {name}: {ms:.4f} ms (bound {b_ms:.4f} ms by {b_by}, "
               f"plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms; "
               f"{tokens} visible K/V rows)")
-    main = variants[1]
-    a = dict(name="paged_decode_kernel", route="cuda", source=CU,
-             replaces=f"{PA}:352", launches=0, max_abs_err=a_err,
-             ms=main["ms"], plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-             library_ms=lib_ms, variants=variants)
+    # one line per TPU kernel: split (:152), fused (:239) and the pipelined
+    # fused kernel (:352) at depth 2, with depth 4 as a variant
+    decode = [dict(name=f"paged_decode_kernel ({v['name']})", route="cuda",
+                   source=CU, replaces=v["replaces"], launches=0,
+                   max_abs_err=a_err, ms=v["ms"], plain_ms=plain_ms,
+                   bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+              for v in (variants[3], variants[0], variants[1])]
+    decode[2]["variants"] = [variants[2]]
 
     # ---- ragged kernel: mixed batch, real rows only, with and without window
     b_err = 0.0
@@ -362,7 +379,7 @@ def kernel_phase(torch, seed: int) -> list[dict]:
              replaces=f"{PA}:464", launches=0, max_abs_err=b_err, ms=ms,
              plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
              library_ms=lib_ms)
-    return [a, b]
+    return decode + [b]
 
 
 # --------------------------------------------------------- MLA kernel phase
@@ -464,6 +481,171 @@ def mla_kernel_phase(torch, seed: int) -> dict:
                 library_ms=lib_ms)
 
 
+# ------------------------------------------ scan and flash kernel phases
+MS_PY = "src/repro/kernels/mamba_scan/mamba_scan.py"
+MS_CU = "src/repro_torch/kernels/mamba_scan/csrc/mamba_scan.cu"
+RK_PY = "src/repro/kernels/rwkv6_scan/rwkv6_scan.py"
+RK_CU = "src/repro_torch/kernels/rwkv6_scan/csrc/rwkv6_scan.cu"
+FA_PY = "src/repro/kernels/flash_attention/flash_attention.py"
+FA_CU = "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu"
+# the reference's kernel-test tolerances (tests/test_kernels.py), scaled by
+# max(1, max|want|)
+MS_TOL, RK_TOL = 1e-5, 2e-4
+SCAN_B, SCAN_S = 2, 2000      # not a multiple of the ops' chunks: pads
+MS_DI, MS_N = 8192, 16        # Jamba: d_inner, d_state
+RK_NH, RK_HD = 64, 64         # RWKV-6-7B: heads, head size
+# flash: Jamba's attention (causal) and h2o-danube-3-4b (window 4096)
+FLASH_CASES = (dict(name="jamba causal", B=1, S=4096, H=32, KV=8, hd=128,
+                    window=None),
+               dict(name="danube window", B=1, S=6144, H=32, KV=8, hd=120,
+                    window=4096))
+
+
+def scaled_err(got, want) -> tuple[float, float]:
+    """(max abs error, its gate's scale max(1, max|want|))."""
+    return ((got - want).abs().max().item(),
+            max(1.0, want.abs().max().item()))
+
+
+def scan_kernel_phase(torch, seed: int) -> list[dict]:
+    """The Mamba and RWKV-6 scans at full width (B=2, S=2000, nonzero
+    initial states), held against their plain versions and timed."""
+    from repro_torch.kernels.mamba_scan import mamba_scan as msk
+    from repro_torch.kernels.mamba_scan import ops as msops
+    from repro_torch.kernels.mamba_scan import ref as msref
+    from repro_torch.kernels.rwkv6_scan import ops as rkops
+    from repro_torch.kernels.rwkv6_scan import ref as rkref
+    from repro_torch.kernels.rwkv6_scan import rwkv6_scan as rkk
+    gen = torch.Generator(device=DEVICE).manual_seed(seed + 3)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=DEVICE)
+
+    out = []
+    B, S, DI, N = SCAN_B, SCAN_S, MS_DI, MS_N
+    args = (torch.nn.functional.softplus(randn(B, S, DI)),
+            -torch.exp(0.2 * randn(DI, N)), randn(B, S, N), randn(B, S, N),
+            randn(B, S, DI), randn(B, DI, N))
+    y, h = msops.mamba_scan(*args)
+    wy, wh = msref.mamba_scan_ref(*args)
+    torch.cuda.synchronize()
+    err = 0.0
+    for what, got, want in (("y", y, wy), ("h_last", h, wh)):
+        e, sc = scaled_err(got, want)
+        if not math.isfinite(e) or e > MS_TOL * sc:
+            fail(f"mamba_scan {what}: max abs err {e} > {MS_TOL} x {sc:.3g}")
+        err = max(err, e)
+    # the kernel at the padded shapes ops gives it (S to a multiple of 64)
+    dt, A, Bc, Cc, x, h0 = args
+    dt, Bc, Cc, x = (torch.nn.functional.pad(t, (0, 0, 0, (-S) % 64))
+                     for t in (dt, Bc, Cc, x))
+    ms = time_ms(torch, lambda: msk.mamba_scan_fwd(dt, A, Bc, Cc, x, h0))
+    plain_ms = time_ms(torch, lambda: msref.mamba_scan_ref(*args), reps=3,
+                       warmup=1)
+    nbytes = 4 * (3 * B * S * DI + 2 * B * S * N + DI * N + 2 * B * DI * N)
+    b_ms, b_by = bound(nbytes, 7 * B * S * DI * N)
+    print(f"mamba_scan B={B} S={S} DI={DI} N={N}: max abs err vs plain "
+          f"{err:.3g}; {ms:.4f} ms (bound {b_ms:.4f} ms by {b_by}, plain "
+          f"{plain_ms:.4f} ms, no library call)")
+    out.append(dict(name="mamba_scan_kernel", route="cuda", source=MS_CU,
+                    replaces=f"{MS_PY}:57", launches=0, max_abs_err=err,
+                    ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                    library_ms=None))
+
+    nH, hd = RK_NH, RK_HD
+    sh = (B, S, nH, hd)
+    args = (randn(*sh), randn(*sh), randn(*sh),
+            torch.exp(-torch.exp(0.5 * randn(*sh) - 0.5)),
+            0.1 * randn(nH, hd), 0.1 * randn(B, nH, hd, hd))
+    y, st = rkops.rwkv6_scan(*args)
+    wy, wst = rkref.rwkv6_scan_ref(*args)
+    torch.cuda.synchronize()
+    err = 0.0
+    for what, got, want in (("y", y, wy), ("S_last", st, wst)):
+        e, sc = scaled_err(got, want)
+        if not math.isfinite(e) or e > RK_TOL * sc:
+            fail(f"rwkv6_scan {what}: max abs err {e} > {RK_TOL} x {sc:.3g}")
+        err = max(err, e)
+    # the kernel at the heads-major padded shapes ops gives it (S to a
+    # multiple of 32, w = 1 in the padding)
+    hm = [torch.nn.functional.pad(t.transpose(1, 2), (0, 0, 0, (-S) % 32),
+                                  value=1.0 if i == 3 else 0.0).contiguous()
+          for i, t in enumerate(args[:4])]
+    ms = time_ms(torch, lambda: rkk.rwkv6_scan_fwd(*hm, *args[4:]))
+    plain_ms = time_ms(torch, lambda: rkref.rwkv6_scan_ref(*args), reps=3,
+                       warmup=1)
+    nbytes = 4 * (5 * B * S * nH * hd + nH * hd + 2 * B * nH * hd * hd)
+    b_ms, b_by = bound(nbytes, 5 * B * nH * S * hd * hd)
+    print(f"rwkv6_scan B={B} S={S} nH={nH} hd={hd}: max abs err vs plain "
+          f"{err:.3g}; {ms:.4f} ms (bound {b_ms:.4f} ms by {b_by}, plain "
+          f"{plain_ms:.4f} ms, no library call)")
+    out.append(dict(name="rwkv6_scan_kernel", route="cuda", source=RK_CU,
+                    replaces=f"{RK_PY}:80", launches=0, max_abs_err=err,
+                    ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                    library_ms=None))
+    return out
+
+
+def flash_kernel_phase(torch, seed: int) -> dict:
+    """Flash attention at Jamba's (causal) and danube's (window) widths
+    against its plain version and one SDPA call (a yardstick the port
+    never calls); the Jamba case is the row's time."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import flash_attention as fak
+    from repro_torch.kernels.flash_attention import ops as faops
+    from repro_torch.kernels.flash_attention import ref as faref
+    gen = torch.Generator(device=DEVICE).manual_seed(seed + 4)
+    err, row = 0.0, None
+    for c in FLASH_CASES:
+        B, S, H, KV, hd, W = (c[k] for k in ("B", "S", "H", "KV", "hd",
+                                              "window"))
+        q = torch.randn(B, S, H, hd, generator=gen, device=DEVICE)
+        k = torch.randn(B, S, KV, hd, generator=gen, device=DEVICE)
+        v = torch.randn(B, S, KV, hd, generator=gen, device=DEVICE)
+        got = faops.flash_attention(q, k, v, causal=True, window=W)
+        want = faref.flash_attention_ref(q, k, v, causal=True, window=W)
+        torch.cuda.synchronize()
+        e, sc = scaled_err(got, want)
+        if not math.isfinite(e) or e > TOL * sc:
+            fail(f"flash {c['name']}: max abs err {e} > {TOL} x {sc:.3g}")
+        err = max(err, e)
+        del want
+        qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        ms = time_ms(torch, lambda: fak.flash_attention_fwd(
+            qh, kh, vh, causal=True, window=W))
+        plain_ms = time_ms(torch, lambda: faref.flash_attention_ref(
+            q, k, v, causal=True, window=W), reps=5, warmup=1)
+        if W is None:
+            sdpa = dict(is_causal=True)
+        else:
+            pos = torch.arange(S, device=DEVICE)
+            sdpa = dict(attn_mask=(pos[:, None] >= pos)
+                        & (pos[:, None] - pos < W))
+        lib_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
+            qh, kh, vh, enable_gqa=True, **sdpa))
+        pairs = sum(min(i + 1, W or S) for i in range(S))
+        b_ms, b_by = bound(4 * B * S * (2 * H + 2 * KV) * hd,
+                           4 * hd * pairs * H * B)
+        print(f"flash {c['name']} B={B} S={S} H={H} KV={KV} hd={hd} "
+              f"window={W}: max abs err vs plain {e:.3g}; {ms:.4f} ms (bound "
+              f"{b_ms:.4f} ms by {b_by}, plain {plain_ms:.4f} ms, sdpa "
+              f"{lib_ms:.4f} ms; {4 * hd * pairs * H * B / ms / 1e9:.2f} "
+              f"TFLOP/s)")
+        if row is None:
+            row = dict(name="flash_fwd_kernel", route="cuda", source=FA_CU,
+                       replaces=f"{FA_PY}:93", launches=0, ms=ms,
+                       plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                       library_ms=lib_ms, variants=[])
+        else:
+            row["variants"].append(dict(name=c["name"], ms=ms,
+                                        plain_ms=plain_ms, bound_ms=b_ms,
+                                        bound_by=b_by, library_ms=lib_ms))
+        del q, k, v, qh, kh, vh, got
+        torch.cuda.empty_cache()
+    row["max_abs_err"] = err
+    return row
+
+
 # ----------------------------------------------------------- engine phase
 PROMPT_LENS = (300, 2500, 777, 1503, 1029, 451, 2085, 1234)
 NEW_TOKENS = 16
@@ -556,18 +738,22 @@ def serve(torch, cfg, params, *, prompt_lens, page_impl: str, seed: int,
     return out
 
 
+def kernel_modules() -> list:
+    """The wrapper module of every CUDA kernel (each has LAUNCHES)."""
+    import importlib
+    return [importlib.import_module(f"repro_torch.kernels.{k}.{k}")
+            for k in ("paged_attention", "mla_attention", "mamba_scan",
+                      "rwkv6_scan", "flash_attention")]
+
+
 def reset_launches() -> None:
-    from repro_torch.kernels.mla_attention import mla_attention as mk
-    from repro_torch.kernels.paged_attention import paged_attention as pa
-    pa.reset_launches()
-    mk.reset_launches()
+    for mod in kernel_modules():
+        mod.reset_launches()
 
 
 def launch_counts() -> dict:
     """Every kernel's launches since :func:`reset_launches`."""
-    from repro_torch.kernels.mla_attention import mla_attention as mk
-    from repro_torch.kernels.paged_attention import paged_attention as pa
-    return {**pa.LAUNCHES, **mk.LAUNCHES}
+    return {k: v for mod in kernel_modules() for k, v in mod.LAUNCHES.items()}
 
 
 def check_tokens(got, want, margins, what: str) -> None:
@@ -706,6 +892,171 @@ def deepseek_phase(torch, seed: int) -> int:
     return counts["mla_ctx"]
 
 
+# ------------------------------------------------- hybrid forward phases
+# Jamba-v0.1 at its published widths cut to one period of 8 layers (7 Mamba,
+# attention at offset 4, MoE on the odd layers: 13.3 B params, 53.2 GB f32);
+# RWKV-6-7B at full width and depth (32 layers, 8.9 B params, 35.5 GB f32)
+HYBRID_LAYERS = {"jamba-v0.1-52b": 8, "rwkv6-7b": 32}
+HYBRID_B, HYBRID_PROMPT, HYBRID_NEW = 2, 1000, 16
+LOSS_SHAPE = (2, 1024)
+LOSS_RTOL = 1e-4
+ATTN_TOL = 1e-4      # attn_layer adds o @ wo: a 4096-long f32 sum per output
+
+
+def hybrid_config(name: str):
+    from repro_torch.configs import get_config
+    cfg = get_config(name)
+    L = HYBRID_LAYERS[name]
+    return cfg.with_(n_layers=L, mixers=cfg.mixers[:L], ffns=cfg.ffns[:L])
+
+
+def greedy(torch, cfg, params, prompts, *, impl: str, page_impl: str):
+    """``prefill(impl)`` then HYBRID_NEW greedy ``decode_step``s; returns
+    tokens by batch row, each (row, token index)'s top-2 logit margin, the
+    launches of the prefill and of the decode steps, and their seconds."""
+    from repro_torch.models import transformer as tfm
+    B, S = prompts.shape
+    st = tfm.init_decode_state(cfg, B, S + HYBRID_NEW + 1,
+                               dtype=torch.float32, device=DEVICE)
+    toks, margins, launches, secs = [], {}, [], []
+
+    def take(lg):
+        top = torch.topk(lg, 2, dim=-1).values
+        for b, gap in enumerate((top[:, 0] - top[:, 1]).tolist()):
+            margins[(b, len(toks))] = gap
+        if not torch.isfinite(lg).all():
+            fail(f"{cfg.name}: non-finite logits at token {len(toks)}")
+        tok = lg.argmax(-1).to(torch.int32)
+        toks.append(tok.tolist())
+        return tok
+
+    for phase in ("prefill", "decode"):
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if phase == "prefill":
+            lg, st = tfm.prefill(params, cfg, prompts, st, impl=impl)
+            tok = take(lg)
+        else:
+            for _ in range(HYBRID_NEW):
+                lg, st = tfm.decode_step(params, cfg, st, tok,
+                                         page_impl=page_impl)
+                tok = take(lg)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        launches.append(launch_counts())
+    by_row = {b: [t[b] for t in toks] for b in range(B)}
+    return by_row, margins, launches, secs
+
+
+def expect_launches(counts: dict, want: dict, what: str) -> None:
+    got = {k: v for k, v in counts.items() if v}
+    if got != {k: v for k, v in want.items() if v}:
+        fail(f"{what}: kernel launches {got}, expected {want}")
+
+
+def hybrid_phase(torch, name: str, seed: int) -> dict:
+    """Forward of a hybrid family through the kernels against the
+    ``impl="chunked"`` / ``page_impl="ref"`` oracle: prefill and greedy
+    decode (tokens equal but for near-ties), ``loss_fn`` (relative 1e-4),
+    and for Jamba ``attn_layer(impl="kernel")`` (flash attention) on layer
+    4 against ``impl="chunked"``.  Returns each kernel's launches on the
+    kernel runs."""
+    import numpy as np
+    from repro_torch.models import attention as attn_mod
+    from repro_torch.models import transformer as tfm
+    cfg = hybrid_config(name)
+    scan = "mamba_scan" if "mamba" in cfg.mixers else "rwkv6_scan"
+    n_scan = sum(m in ("mamba", "rwkv6") for m in cfg.mixers)
+    n_attn = len(tfm.attn_layer_ids(cfg))
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=DEVICE).manual_seed(seed + 5)
+    params = tfm.init_params(cfg, generator=gen, device=DEVICE,
+                             dtype=torch.float32)
+    torch.cuda.synchronize()
+    n_params = tfm.param_count(params)
+    print(f"{name}: {cfg.n_layers} layers ({n_scan} {scan.split('_')[0]}, "
+          f"{n_attn} attention, {cfg.ffns.count('moe')} MoE), d_model "
+          f"{cfg.d_model}, {n_params / 1e9:.3f} B params "
+          f"({n_params * 4 / 1e9:.1f} GB f32), made in "
+          f"{time.perf_counter() - t0:.1f} s")
+    rng = np.random.RandomState(seed)
+    prompts = torch.as_tensor(rng.randint(1, cfg.vocab, (HYBRID_B,
+                                                         HYBRID_PROMPT)),
+                              dtype=torch.int32, device=DEVICE)
+    launches = {scan: 0, "paged_decode": 0, "flash_attention": 0}
+    with torch.no_grad():
+        toks, _, (pre, dec), secs = greedy(torch, cfg, params, prompts,
+                                           impl="kernel", page_impl="kernel")
+        expect_launches(pre, {scan: n_scan}, f"{name} prefill")
+        expect_launches(dec, {"paged_decode": n_attn * HYBRID_NEW},
+                        f"{name} decode")
+        launches[scan] += pre[scan]
+        launches["paged_decode"] += dec["paged_decode"]
+        want, margins, _, ref_secs = greedy(torch, cfg, params, prompts,
+                                            impl="chunked", page_impl="ref")
+        check_tokens(toks, want, margins, name)
+        n = HYBRID_B * (HYBRID_NEW + 1)
+        print(f"{name} prefill {HYBRID_B}x{HYBRID_PROMPT} + {HYBRID_NEW} "
+              f"greedy decode steps: {n} tokens equal the oracle; kernel "
+              f"prefill {secs[0]:.3f} s, decode {secs[1]:.3f} s; oracle "
+              f"prefill {ref_secs[0]:.3f} s, decode {ref_secs[1]:.3f} s; "
+              f"launches prefill {pre[scan]} {scan}, decode "
+              f"{dec['paged_decode']} paged_decode")
+
+        tokens = torch.as_tensor(rng.randint(1, cfg.vocab, LOSS_SHAPE),
+                                 dtype=torch.int32, device=DEVICE)
+        labels = torch.roll(tokens, -1, dims=1)
+        labels[:, -1] = -100
+        batch = {"tokens": tokens, "labels": labels}
+        loss = {}
+        for impl in ("kernel", "chunked"):
+            reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss[impl] = tfm.loss_fn(params, cfg, batch, impl=impl).item()
+            loss[impl + " s"] = time.perf_counter() - t0
+            if impl == "kernel":
+                counts = launch_counts()
+                expect_launches(counts, {scan: n_scan}, f"{name} loss_fn")
+                launches[scan] += counts[scan]
+        rel = abs(loss["kernel"] - loss["chunked"]) / abs(loss["chunked"])
+        if not math.isfinite(rel) or rel > LOSS_RTOL:
+            fail(f"{name} loss_fn: kernel {loss['kernel']} vs chunked "
+                 f"{loss['chunked']} (relative {rel:.3g} > {LOSS_RTOL})")
+        print(f"{name} loss_fn on {LOSS_SHAPE[0]}x{LOSS_SHAPE[1]}: kernel "
+              f"{loss['kernel']:.6f} ({loss['kernel s']:.3f} s), chunked "
+              f"{loss['chunked']:.6f} ({loss['chunked s']:.3f} s), relative "
+              f"difference {rel:.3g}")
+
+        for i in tfm.attn_layer_ids(cfg)[:1]:
+            lp = tfm.layer_params(params, cfg, i)["mix"]
+            S = FLASH_CASES[0]["S"]
+            x = torch.randn(1, S, cfg.d_model, generator=gen, device=DEVICE)
+            pos = torch.arange(S, device=DEVICE)[None]
+            reset_launches()
+            got = attn_mod.attn_layer(lp, x, pos, cfg, impl="kernel")
+            torch.cuda.synchronize()
+            expect_launches(launch_counts(), {"flash_attention": 1},
+                            f"{name} attn_layer")
+            launches["flash_attention"] += 1
+            want_o = attn_mod.attn_layer(lp, x, pos, cfg, impl="chunked")
+            e, sc = scaled_err(got, want_o)
+            if not math.isfinite(e) or e > ATTN_TOL * sc:
+                fail(f"{name} attn_layer layer {i}: max abs err {e} > "
+                     f"{ATTN_TOL} x {sc:.3g}")
+            print(f"{name} attn_layer(impl='kernel') layer {i} on (1, {S}, "
+                  f"{cfg.d_model}): max abs err vs chunked {e:.3g}, one "
+                  f"flash launch")
+    print(f"{name}: peak memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.1f} GB")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--layers", type=int, default=40,
@@ -741,8 +1092,11 @@ def main() -> int:
     print(f"built {', '.join(lib.name for lib in libs)} in "
           f"{time.perf_counter() - t0:.1f} s (one nvcc per source, in "
           f"parallel)")
+    # one line per TPU kernel, in the order of PERF.md's table
     kernels = kernel_phase(torch, args.seed)
+    kernels.append(flash_kernel_phase(torch, args.seed))
     kernels.append(mla_kernel_phase(torch, args.seed))
+    kernels += scan_kernel_phase(torch, args.seed)
     if args.skip_engine:                     # no main-path run: no result
         print(f"card: {card_line()}")
         return 0
@@ -750,8 +1104,21 @@ def main() -> int:
     gc.collect()                             # granite's weights go first
     torch.cuda.empty_cache()
     launches["mla_ctx"] = deepseek_phase(torch, args.seed)
-    for k, name in zip(kernels, ("paged_decode", "ragged", "mla_ctx")):
-        k["launches"] = launches[name]
+    gc.collect()
+    torch.cuda.empty_cache()
+    for name in HYBRID_LAYERS:
+        for k, n in hybrid_phase(torch, name, args.seed).items():
+            launches[k] = launches.get(k, 0) + n
+    # the paged decode launches go to the row of the depth the models run
+    # (the tuned depth; 2 without a tuning entry), the other rows get none
+    from repro_torch.kernels.paged_attention import autotune
+    depth = autotune.get_tuning(KV, HD, BS).buffer_depth
+    decode_row = 1 if depth == 1 else 2
+    for i, name in enumerate(("paged_decode", "paged_decode",
+                              "paged_decode", "ragged", "flash_attention",
+                              "mla_ctx", "mamba_scan", "rwkv6_scan")):
+        if name != "paged_decode" or i == decode_row:
+            kernels[i]["launches"] = launches[name]
     print(f"card: {card_line()}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -19,11 +19,14 @@ def _tensor(a, device, dtype=None) -> torch.Tensor:
     return t.to(device=device, dtype=dtype if t.is_floating_point() else None)
 
 
+#: leaves the reference makes f32 whatever the model dtype: the MoE
+#: router, Mamba's A_log and D, RWKV-6's u and ln_x
+F32_LEAVES = ("router", "A_log", "D", "u", "ln_x")
+
+
 def _tree(x, device, dtype):
     if isinstance(x, dict):
-        # the MoE router stays f32 whatever the model dtype, as the
-        # reference inits it
-        return {k: _tree(v, device, None if k == "router" else dtype)
+        return {k: _tree(v, device, None if k in F32_LEAVES else dtype)
                 for k, v in x.items()}
     if isinstance(x, (list, tuple)):
         return [_tree(v, device, dtype) for v in x]
@@ -45,8 +48,8 @@ def _leading(tree) -> int:
 def params_from_jax(tree: dict, *, device="cuda", dtype=None) -> dict:
     """A ``repro.models.transformer.init_params`` tree of NumPy arrays →
     the port's params dict (same keys; ``body[j]`` a list over blocks).
-    ``dtype`` casts floating leaves (default: keep), except the MoE
-    ``router``, which stays f32."""
+    ``dtype`` casts floating leaves (default: keep), except
+    :data:`F32_LEAVES`, which stay f32."""
     out = {k: _tree(v, device, dtype) for k, v in tree.items()
            if k not in ("prefix", "body")}
     out["prefix"] = [_tree(lp, device, dtype) for lp in tree["prefix"]]

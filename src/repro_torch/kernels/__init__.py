@@ -13,4 +13,8 @@ Kernels:
     paged_attention  decode and ragged prefill+decode over the FPR paged
                      KV cache (block tables)
     mla_attention    absorbed-MLA paged decode over the latent pages
+    mamba_scan       Mamba's selective scan (Jamba's mixer)
+    rwkv6_scan       RWKV-6's WKV recurrence
+    flash_attention  causal / sliding-window GQA attention over a full
+                     sequence (``models.attention.attn_layer``)
 """

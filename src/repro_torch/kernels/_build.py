@@ -30,8 +30,9 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels
 
 _KERNELS = Path(__file__).resolve().parent
 #: every CUDA source of the port, one library each
-SOURCES = (_KERNELS / "paged_attention" / "csrc" / "paged_attention.cu",
-           _KERNELS / "mla_attention" / "csrc" / "mla_attention.cu")
+SOURCES = tuple(_KERNELS / name / "csrc" / f"{name}.cu" for name in (
+    "paged_attention", "mla_attention", "mamba_scan", "rwkv6_scan",
+    "flash_attention"))
 
 _LOADED: dict[str, ctypes.CDLL] = {}
 

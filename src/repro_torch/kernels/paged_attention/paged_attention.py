@@ -87,6 +87,15 @@ def _check(name: str, t: torch.Tensor, dtype: torch.dtype, device) -> None:
         raise ValueError(f"{name} must be contiguous")
 
 
+def _forward_only(what: str, *tensors: torch.Tensor) -> None:
+    """Refuse inputs that autograd would track: the kernels (like the TPU
+    kernels they replace) have no backward."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(f"{what} is forward only (no backward): call it "
+                           f"on tensors that do not require grad, or under "
+                           f"torch.no_grad()")
+
+
 def _check_geometry(hd: int, bs: int) -> None:
     if hd % 4 or hd > _MAX_HD:
         raise ValueError(f"head_dim {hd} unsupported: the kernel takes a "

@@ -1,11 +1,12 @@
-"""Attention: GQA with optional sliding window / QKV bias (serving path).
+"""Attention: GQA with optional sliding window / QKV bias.
 
-PyTorch counterpart of the main-path half of ``repro.models.attention``:
+PyTorch counterpart of the forward half of ``repro.models.attention``:
 the projections, the O(S²) oracle, the forward of the chunked
 online-softmax attention (with its ``q_offset``, so a prefill chunk can
-slide along the sequence), the table helpers and the gather oracle of
-paged decode.  The custom backward of ``chunked_attention`` belongs to
-the training slice and is not here.
+slide along the sequence), the table helpers, the gather oracle of
+paged decode and the full-sequence residual block :func:`attn_layer`.
+The custom backward of ``chunked_attention`` belongs to the training
+slice and is not here.
 """
 
 from __future__ import annotations
@@ -14,7 +15,7 @@ import math
 
 import torch
 
-from repro_torch.models.layers import apply_rope, init_dense
+from repro_torch.models.layers import apply_rope, init_dense, rms_norm
 
 NEG_INF = -1e30
 
@@ -208,3 +209,28 @@ def paged_decode_attention_ref(q: torch.Tensor, k_pool: torch.Tensor,
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bkgs,bskd->bkgd", p, v)
     return out.reshape(B, H, hd).to(q.dtype)
+
+
+# ------------------------------------------------------------ full layers ----
+#: attention over a full sequence: the O(S²) oracle, the chunked online
+#: softmax, or the flash-attention CUDA kernel (its plain version on the CPU)
+IMPLS = ("direct", "chunked", "kernel")
+
+
+def attn_layer(params: dict, x: torch.Tensor, positions: torch.Tensor, cfg,
+               *, impl: str = "chunked") -> torch.Tensor:
+    """Pre-norm residual causal attention block over (B, S, D)."""
+    h = rms_norm(x, params["norm"], cfg.norm_eps)
+    q, k, v = qkv_proj(params, h, cfg, positions)
+    w = cfg.attn.window
+    if impl == "direct":
+        o = direct_attention(q, k, v, causal=True, window=w)
+    elif impl == "chunked":
+        o = chunked_attention(q, k, v, causal=True, window=w)
+    elif impl == "kernel":
+        from repro_torch.kernels.flash_attention import ops as fa_ops
+        o = fa_ops.flash_attention(q, k, v, causal=True, window=w)
+    else:
+        raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
+    B, S, H, hd = o.shape
+    return x + o.reshape(B, S, H * hd) @ params["wo"]

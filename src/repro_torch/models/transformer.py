@@ -1,30 +1,44 @@
-"""Model assembly for the serving path: init, prefill, chunked prefill,
-decode step and the ragged mixed step.
+"""Model assembly: init, prefill, chunked prefill, decode step, the
+ragged mixed step, and the full-sequence forward and loss.
 
-PyTorch counterpart of the serving subset of ``repro.models.transformer``:
-attention (GQA) and MLA mixers, dense and MoE FFNs.  The decode state is
-a dict of tensors:
+PyTorch counterpart of the decoder-only, text-only part of
+``repro.models.transformer``: attention (GQA), MLA, Mamba and RWKV-6
+mixers, dense and MoE FFNs.  The decode state is a dict of tensors:
 
   kv:       fused K/V (L_attn, N, bs, KV*2, hd) paged GQA cache, head-
             interleaved (K even, V odd)
   mla_c:    (L, N, bs, rank) paged MLA latents, indexed by absolute layer
   mla_rope: (L, N, bs, rope_hd) paged MLA rope keys
+  conv/ssm: (L_mamba, B, K-1, DI) model dtype / (L_mamba, B, DI, d_state)
+            f32 Mamba states, per batch slot
+  rwkv_x/rwkv_s: (L, B, D) model dtype / (L, B, nH, 64, 64) f32 RWKV-6
+            token shift and WKV states, indexed by absolute layer
   tables:   (W, Bs, M) int32 shard stack or (B, M) — FPR block tables
   lengths:  (B,) int32
 
 Differences from the reference, all internal: the layer scan is a
-Python loop over layers, and the pools are updated **in place** (the
-reference returns new arrays) — a full-size pool is too large to copy
-per layer.  Writes the reference drops with ``mode="drop"`` (holes,
+Python loop over layers, and the pools and states are updated **in
+place** (the reference returns new arrays) — a full-size pool is too
+large to copy per layer, and a caller's batch-1 view of the per-slot
+states receives its slot's update.  Writes the reference drops with ``mode="drop"`` (holes,
 padding rows, columns past the table) are masked out explicitly: torch
 indexing has no drop mode and wraps negative indices.
 
 ``page_impl`` picks the decode/ragged attention: ``"kernel"`` (the CUDA
 kernels in ``kernels/paged_attention`` and ``kernels/mla_attention``;
 their plain versions on the CPU) or ``"ref"`` (the gather oracles).
-MLA models prefill monolithically (``prefill_chunk`` and ``ragged_step``
-take attention mixers only, as in the reference).  Mamba, rwkv6,
-encoder-decoder and multimodal models raise ``NotImplementedError``.
+``impl`` picks how :func:`prefill`, :func:`forward_hidden` and
+:func:`loss_fn` scan the Mamba and RWKV-6 mixers: ``"chunked"``,
+``"sequential"`` or ``"kernel"`` (the CUDA kernels in
+``kernels/mamba_scan`` and ``kernels/rwkv6_scan``).  As in the reference,
+``forward_hidden`` runs attention layers through ``chunked_attention``
+when ``impl == "chunked"`` and through ``direct_attention`` otherwise,
+while ``prefill`` always uses ``chunked_attention``; decode steps the
+recurrences sequentially.  The forward and loss are forward only (no
+autograd path is ported).  MLA and hybrid models prefill monolithically
+(``prefill_chunk`` and ``ragged_step`` take attention mixers only, as in
+the reference).  Encoder-decoder and multimodal models raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -32,8 +46,10 @@ from __future__ import annotations
 import torch
 
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import mamba as mamba_mod
 from repro_torch.models import mla as mla_mod
 from repro_torch.models import moe as moe_mod
+from repro_torch.models import rwkv6 as rwkv_mod
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (dense_ffn, embed, init_embed,
                                        init_swiglu, rms_norm, unembed)
@@ -41,20 +57,21 @@ from repro_torch.models.layers import (dense_ffn, embed, init_embed,
 BLOCK_SIZE = 128   # tokens per physical KV block
 
 PAGE_IMPLS = ("ref", "kernel")
+#: how the Mamba and RWKV-6 mixers scan a sequence (see the module doc)
+IMPLS = ("chunked", "sequential", "kernel")
 
-_QUEUE_ITEM = {"mamba": "ROADMAP Queue 1 item 8 (mamba)",
-               "rwkv6": "ROADMAP Queue 1 item 8 (rwkv6)",
-               "enc_dec": "ROADMAP Queue 1 item 9 (encoder-decoder)",
+_QUEUE_ITEM = {"enc_dec": "ROADMAP Queue 1 item 9 (encoder-decoder)",
                "frontend": "ROADMAP Queue 1 item 9 (multimodal frontends)"}
+_MIXERS = {"attn": attn_mod.init_attn, "mla": mla_mod.init_mla,
+           "mamba": mamba_mod.init_mamba, "rwkv6": rwkv_mod.init_rwkv6}
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise NotImplementedError for anything outside this port's slices:
-    attention or MLA mixers with dense or MoE FFNs, decoder-only,
+    """Raise for anything outside this port's slices: attention, MLA,
+    Mamba or RWKV-6 mixers with dense or MoE FFNs, decoder-only,
     text-only."""
-    for kind in sorted(set(cfg.mixers) - {"attn", "mla"}):
-        raise NotImplementedError(f"{kind} mixers are not ported yet: "
-                                  f"{_QUEUE_ITEM[kind]}")
+    for kind in sorted(set(cfg.mixers) - set(_MIXERS)):
+        raise ValueError(f"unknown mixer {kind!r}")
     if cfg.enc_dec:
         raise NotImplementedError(f"encoder-decoder models are not ported "
                                   f"yet: {_QUEUE_ITEM['enc_dec']}")
@@ -73,8 +90,7 @@ def _init_layer(cfg: ModelConfig, i: int, *, generator, device,
     else:
         ffn = init_swiglu(cfg.d_model, cfg.dense_d_ff or cfg.d_ff, **kw)
         ffn["norm"] = torch.ones(cfg.d_model, device=device, dtype=dtype)
-    init_mix = mla_mod.init_mla if mix == "mla" else attn_mod.init_attn
-    return {"mix": init_mix(cfg, **kw), "ffn": ffn}
+    return {"mix": _MIXERS[mix](cfg, **kw), "ffn": ffn}
 
 
 def init_params(cfg: ModelConfig, *, generator: torch.Generator,
@@ -120,12 +136,17 @@ def _unembed_table(params: dict, cfg: ModelConfig) -> torch.Tensor:
     return params["embed"] if cfg.tie_embeddings else params["unembed"]
 
 
-def _ffn(lp: dict, x: torch.Tensor, cfg: ModelConfig, i: int) -> torch.Tensor:
-    """Layer ``i``'s FFN on (B, S, D).  An MoE layer routes all B·S tokens
-    as one group, padding included, exactly as the reference does."""
+def _ffn_aux(lp: dict, x: torch.Tensor, cfg: ModelConfig, i: int):
+    """Layer ``i``'s FFN on (B, S, D) → (x, aux loss).  An MoE layer
+    routes all B·S tokens as one group, padding included, exactly as the
+    reference does; a dense layer's aux is 0."""
     if cfg.ffns[i] == "moe":
-        return moe_mod.moe_ffn(lp["ffn"], x, cfg)[0]
-    return dense_ffn(lp["ffn"], x, cfg.norm_eps)
+        return moe_mod.moe_ffn(lp["ffn"], x, cfg)
+    return dense_ffn(lp["ffn"], x, cfg.norm_eps), 0.0
+
+
+def _ffn(lp: dict, x: torch.Tensor, cfg: ModelConfig, i: int) -> torch.Tensor:
+    return _ffn_aux(lp, x, cfg, i)[0]
 
 
 def _check_attn_only(cfg: ModelConfig, what: str) -> None:
@@ -138,6 +159,10 @@ def _check_attn_only(cfg: ModelConfig, what: str) -> None:
 # ============================================================= decode state
 def attn_layer_ids(cfg: ModelConfig) -> list[int]:
     return [i for i in range(cfg.n_layers) if cfg.mixers[i] == "attn"]
+
+
+def mamba_layer_ids(cfg: ModelConfig) -> list[int]:
+    return [i for i in range(cfg.n_layers) if cfg.mixers[i] == "mamba"]
 
 
 def cache_spec(cfg: ModelConfig, batch: int, max_len: int,
@@ -161,6 +186,17 @@ def cache_spec(cfg: ModelConfig, batch: int, max_len: int,
     if n_attn:
         spec["kv"] = ((n_attn, N, bs, 2 * cfg.n_kv_heads, cfg.head_dim),
                       dtype)
+    n_mamba = len(mamba_layer_ids(cfg))
+    if n_mamba:
+        mm = cfg.mamba
+        spec["conv"] = ((n_mamba, batch, mm.d_conv - 1, cfg.d_inner), dtype)
+        spec["ssm"] = ((n_mamba, batch, cfg.d_inner, mm.d_state),
+                       torch.float32)
+    if "rwkv6" in cfg.mixers:
+        L, hs = cfg.n_layers, rwkv_mod.HEAD_SIZE
+        spec["rwkv_x"] = ((L, batch, cfg.d_model), dtype)
+        spec["rwkv_s"] = ((L, batch, cfg.d_model // hs, hs, hs),
+                          torch.float32)
     return spec
 
 
@@ -272,6 +308,11 @@ def _paged_attn(q, kv_pool, tables, lengths, *, page_impl, window):
         lengths, window=window)
 
 
+def _check_impl(impl: str) -> None:
+    if impl not in IMPLS:
+        raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
+
+
 def _check_page_impl(page_impl: str) -> None:
     if page_impl not in PAGE_IMPLS:
         raise ValueError(f"page_impl must be one of {PAGE_IMPLS}, "
@@ -299,7 +340,8 @@ def decode_step(params, cfg: ModelConfig, state: dict, tokens: torch.Tensor,
 
     ``state['lengths']`` counts tokens already in the cache; the incoming
     token is written at position ``lengths`` and attends to ``lengths+1``
-    tokens (itself included).  The pools are updated in place.
+    tokens (itself included).  Mamba and RWKV-6 layers step their states
+    sequentially.  The pools and states are updated in place.
     """
     check_supported(cfg)
     B = tokens.shape[0]
@@ -311,10 +353,23 @@ def decode_step(params, cfg: ModelConfig, state: dict, tokens: torch.Tensor,
                              torch.arange(B, device=tokens.device), pos,
                              BLOCK_SIZE)
     attn_ids = attn_layer_ids(cfg)
+    mamba_ids = mamba_layer_ids(cfg)
     for i in range(cfg.n_layers):
         lp = layer_params(params, cfg, i)
-        h = rms_norm(x[:, None], lp["mix"]["norm"], cfg.norm_eps)
-        if cfg.mixers[i] == "mla":
+        mix = cfg.mixers[i]
+        if mix == "mamba":
+            m = mamba_ids.index(i)
+            x, (cs, ss) = mamba_mod.mamba_decode_step(
+                lp["mix"], x, cfg, st["conv"][m], st["ssm"][m])
+            st["conv"][m] = cs
+            st["ssm"][m] = ss
+        elif mix == "rwkv6":
+            x, (lx, s_new) = rwkv_mod.rwkv6_decode_step(
+                lp["mix"], x, cfg, st["rwkv_x"][i], st["rwkv_s"][i])
+            st["rwkv_x"][i] = lx
+            st["rwkv_s"][i] = s_new
+        elif mix == "mla":
+            h = rms_norm(x[:, None], lp["mix"]["norm"], cfg.norm_eps)
             c_kv, k_rope = mla_mod.latent_kv(lp["mix"], h, cfg, positions)
             _scatter_rows(st["mla_c"][i], targets, c_kv[:, 0])
             _scatter_rows(st["mla_rope"][i], targets, k_rope[:, 0, 0])
@@ -322,6 +377,7 @@ def decode_step(params, cfg: ModelConfig, state: dict, tokens: torch.Tensor,
                                   page_impl=page_impl)
         else:
             a = attn_ids.index(i)
+            h = rms_norm(x[:, None], lp["mix"]["norm"], cfg.norm_eps)
             q, k, v = attn_mod.qkv_proj(lp["mix"], h, cfg, positions)
             _scatter_rows(st["kv"][a], targets,
                           attn_mod.fuse_kv(k[:, 0], v[:, 0]))
@@ -336,11 +392,15 @@ def decode_step(params, cfg: ModelConfig, state: dict, tokens: torch.Tensor,
 
 
 # ================================================================== prefill
-def prefill(params, cfg: ModelConfig, tokens: torch.Tensor, state: dict):
-    """Process a full prompt, write the KV cache, return (last_logits,
-    state).  tokens: (B, S); token t of sequence b lands at
-    pool[tables[b, t//bs], t%bs]."""
+def prefill(params, cfg: ModelConfig, tokens: torch.Tensor, state: dict, *,
+            impl: str = "chunked"):
+    """Process a full prompt, write every cache and recurrent state (in
+    place), return (last_logits, state).  tokens: (B, S); token t of
+    sequence b lands at pool[tables[b, t//bs], t%bs].  ``impl`` scans the
+    Mamba and RWKV-6 mixers (:data:`IMPLS`); attention layers always run
+    ``chunked_attention``, as in the reference."""
     check_supported(cfg)
+    _check_impl(impl)
     B, S = tokens.shape
     bs = BLOCK_SIZE
     st = dict(state)
@@ -358,15 +418,28 @@ def prefill(params, cfg: ModelConfig, tokens: torch.Tensor, state: dict):
                         seq.reshape((B * M_used, bs) + seq.shape[2:]))
 
     attn_ids = attn_layer_ids(cfg)
+    mamba_ids = mamba_layer_ids(cfg)
     for i in range(cfg.n_layers):
         lp = layer_params(params, cfg, i)
+        mix = cfg.mixers[i]
         h = rms_norm(x, lp["mix"]["norm"], cfg.norm_eps)
-        if cfg.mixers[i] == "mla":
+        if mix == "mla":
             # the cache holds the latents of the layer's input
             c_kv, k_rope = mla_mod.latent_kv(lp["mix"], h, cfg, positions)
             x = mla_mod.mla_layer(lp["mix"], x, positions, cfg)
             scatter_seq(st["mla_c"][i], c_kv)
             scatter_seq(st["mla_rope"][i], k_rope[:, :, 0])
+        elif mix == "mamba":
+            y, (cs, ss) = mamba_mod.mamba_mix(lp["mix"], h, cfg, impl=impl)
+            x = x + y
+            m = mamba_ids.index(i)
+            st["conv"][m] = cs
+            st["ssm"][m] = ss
+        elif mix == "rwkv6":
+            y, (lx, s_new) = rwkv_mod.rwkv6_mix(lp["mix"], h, cfg, impl=impl)
+            x = x + y
+            st["rwkv_x"][i] = lx
+            st["rwkv_s"][i] = s_new
         else:
             q, k, v = attn_mod.qkv_proj(lp["mix"], h, cfg, positions)
             o = attn_mod.chunked_attention(q, k, v, causal=True,
@@ -498,3 +571,82 @@ def ragged_step(params, cfg: ModelConfig, state: dict, tokens: torch.Tensor,
     st["lengths"] = torch.where(last_index >= 0,
                                 kv_lens[:n].to(torch.int32), st["lengths"])
     return logits, st
+
+
+# ===================================================== full-sequence forward
+def embed_inputs(params, cfg: ModelConfig, tokens: torch.Tensor
+                 ) -> torch.Tensor:
+    """tokens (B, S) → x (B, S, D) (text only)."""
+    check_supported(cfg)
+    return embed(tokens, params["embed"])
+
+
+def _apply_layer(lp, x, positions, cfg: ModelConfig, i: int, *, impl):
+    """Layer ``i`` on (B, S, D) → (x, aux loss)."""
+    mix = cfg.mixers[i]
+    if mix == "attn":
+        h = rms_norm(x, lp["mix"]["norm"], cfg.norm_eps)
+        q, k, v = attn_mod.qkv_proj(lp["mix"], h, cfg, positions)
+        attend = (attn_mod.chunked_attention if impl == "chunked"
+                  else attn_mod.direct_attention)
+        o = attend(q, k, v, causal=True, window=cfg.attn.window)
+        B, S, H, hd = o.shape
+        x = x + o.reshape(B, S, H * hd) @ lp["mix"]["wo"]
+    elif mix == "mla":
+        x = mla_mod.mla_layer(lp["mix"], x, positions, cfg)
+    elif mix == "mamba":
+        x = mamba_mod.mamba_layer(lp["mix"], x, cfg, impl=impl)
+    else:
+        x = rwkv_mod.rwkv6_layer(lp["mix"], x, cfg, impl=impl)
+    return _ffn_aux(lp, x, cfg, i)
+
+
+def forward_hidden(params, cfg: ModelConfig, x: torch.Tensor, *,
+                   impl: str = "chunked"):
+    """x: (B, S, D) embedded inputs → (hidden (B, S, D), aux loss).
+
+    Attention layers run ``chunked_attention`` when ``impl ==
+    "chunked"`` and ``direct_attention`` otherwise; Mamba and RWKV-6
+    layers scan with ``impl`` (:data:`IMPLS`)."""
+    check_supported(cfg)
+    _check_impl(impl)
+    B, S, _ = x.shape
+    positions = torch.arange(S, device=x.device)[None].expand(B, S)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in range(cfg.n_layers):
+        x, a = _apply_layer(layer_params(params, cfg, i), x, positions, cfg,
+                            i, impl=impl)
+        aux = aux + a
+    return x, aux
+
+
+def chunked_loss(params, cfg: ModelConfig, hidden: torch.Tensor,
+                 labels: torch.Tensor, chunk: int = 512) -> torch.Tensor:
+    """Mean cross-entropy over labels != -100, without materialising the
+    (B, S, V) logits at once."""
+    B, S, D = hidden.shape
+    h = rms_norm(hidden, params["final_norm"], cfg.norm_eps)
+    table = _unembed_table(params, cfg)
+    while S % chunk:
+        chunk //= 2
+    nll = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    cnt = torch.zeros((), dtype=torch.int64, device=hidden.device)
+    for c0 in range(0, S, chunk):
+        logits = unembed(h[:, c0:c0 + chunk], table)        # (B, chunk, V)
+        lk = labels[:, c0:c0 + chunk]
+        mask = lk != -100
+        lab = torch.where(mask, lk, 0).long()
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = logits.gather(-1, lab[..., None])[..., 0]
+        nll = nll + ((logz - gold) * mask).sum()
+        cnt = cnt + mask.sum()
+    return nll / cnt.clamp(min=1)
+
+
+def loss_fn(params, cfg: ModelConfig, batch: dict, *,
+            impl: str = "chunked") -> torch.Tensor:
+    """batch: tokens (B, S), labels (B, S) → LM loss plus the MoE aux loss
+    (forward only)."""
+    x = embed_inputs(params, cfg, batch["tokens"])
+    hidden, aux = forward_hidden(params, cfg, x, impl=impl)
+    return chunked_loss(params, cfg, hidden, batch["labels"]) + aux

@@ -54,6 +54,12 @@ from repro_torch.serving.kv_cache import PagedKVCache
 from repro_torch.serving.scheduler import Request, Scheduler
 
 
+#: decode-state keys indexed by batch slot (recurrent/cross-attention
+#: state) — these do not survive a slot change, so swap-preemption falls
+#: back to recompute when any of them is present.
+_SLOT_STATE_KEYS = ("conv", "ssm", "rwkv_x", "rwkv_s", "cross_k", "cross_v")
+
+
 def _signature(args) -> tuple:
     """Shapes and dtypes of a call's tensor arguments (dicts by key) —
     the key a jit cache would retrace on."""
@@ -153,6 +159,8 @@ class Engine:
                                e.nbytes, exemplar=f"refresh-{e.reason}"))
         if self.governor is not None:
             self.governor.observe_queue_depth = hist_depth.observe
+        self._slot_state_keys = [k for k in self.cache.state
+                                 if k in _SLOT_STATE_KEYS]
         self.evictor = WatermarkEvictor(self.cache.mgr, self._lru_victims,
                                         watermarks=config.watermarks)
         self.metrics.register("fpr.eviction", self.evictor.counters)
@@ -505,11 +513,11 @@ class Engine:
         requested = strategy or gov.config.preempt
         self.bus.publish(PreemptionStarted(rid=r.rid, strategy=requested))
         strategy = requested
-        if strategy == "swap" and r.mapping is None:
-            # a victim admitted this round but not yet allocated has
-            # nothing to swap — fall back to recompute (the port serves
-            # attention-only models, which keep no per-slot recurrent
-            # state)
+        if strategy == "swap" and (self._slot_state_keys
+                                   or r.mapping is None):
+            # per-slot recurrent state cannot survive a slot change, and a
+            # victim admitted this round but not yet allocated has nothing
+            # to swap — both fall back to recompute
             strategy = "recompute"
         worker = self._worker_of(r)
         gov.on_release(r)
@@ -541,9 +549,13 @@ class Engine:
         view = dict(self.cache.state)
         view["tables"] = self.cache.slot_tables({0: r.mapping})[:1]
         view["lengths"] = self._tensor(np.zeros((1,), np.int32))
+        # batch-1 views of the per-slot recurrent states: a torch slice is
+        # a view, so prefill's in-place writes land in the request's slot
+        for k in self._slot_state_keys:
+            view[k] = view[k][:, r.slot:r.slot + 1]
         toks = self._tensor(toks)
         self._prefill_sigs.add(_signature([toks, view]))
-        # the pools are written in place
+        # the pools and slot states are written in place
         logits, _ = tfm.prefill(self.params, self.cfg, toks, view)
         # first generated token comes from position S-1 (prefill is padded;
         # recompute the true last-token logits on the next decode step if

@@ -97,3 +97,72 @@ def mla_case(seed, *, B=5, H=4, rank=32, rope=8, bs=128, M=4, W=1):
 
 MLA = [dict(W=1), dict(W=2), dict(W=4), dict(W=4, B=7, M=3),
        dict(W=1, H=16, rank=512, rope=64, M=2, B=3)]
+
+
+def softplus(a):
+    return np.logaddexp(0.0, a).astype(np.float32)
+
+
+def mamba_case(seed, *, B, S, DI, N, chunk=64):
+    """Selective-scan inputs as the reference's kernel test draws them:
+    dt = softplus(normal), A = -exp(0.2·normal), a nonzero h0."""
+    rng = np.random.RandomState(seed)
+    return dict(dt=softplus(rand(rng, B, S, DI)),
+                A=-np.exp(0.2 * rand(rng, DI, N)).astype(np.float32),
+                B=rand(rng, B, S, N), C=rand(rng, B, S, N),
+                x=rand(rng, B, S, DI), h0=rand(rng, B, DI, N), chunk=chunk)
+
+
+#: the reference's kernel-test cases (tests/test_kernels.py), then
+#: sequences longer than one staged chunk, d_state 32 and 1, and channels
+#: that do not fill a block
+MAMBA = [dict(B=2, S=32, DI=16, N=8, chunk=16),
+         dict(B=1, S=100, DI=64, N=16, chunk=64),
+         dict(B=2, S=64, DI=24, N=4, chunk=32),
+         dict(B=2, S=300, DI=40, N=16),
+         dict(B=1, S=70, DI=33, N=32),
+         dict(B=1, S=9, DI=20, N=1)]
+
+
+def rwkv6_case(seed, *, B, S, nH, hd, chunk=32):
+    """WKV inputs as the reference's kernel test draws them: decays
+    w = exp(-exp(0.5·normal - 0.5)) in (0, 1), small u and S0."""
+    rng = np.random.RandomState(seed)
+    sh = (B, S, nH, hd)
+    return dict(r=rand(rng, *sh), k=rand(rng, *sh), v=rand(rng, *sh),
+                w=np.exp(-np.exp(0.5 * rand(rng, *sh) - 0.5)).astype(
+                    np.float32),
+                u=(0.1 * rand(rng, nH, hd)).astype(np.float32),
+                S0=(0.1 * rand(rng, B, nH, hd, hd)).astype(np.float32),
+                chunk=chunk)
+
+
+RWKV6 = [dict(B=2, S=32, nH=2, hd=16, chunk=16),
+         dict(B=1, S=100, nH=4, hd=64, chunk=32),
+         dict(B=2, S=45, nH=3, hd=32)]
+
+
+def flash_case(seed, *, B, Sq, Sk, H, KV, hd, causal, window):
+    """Flash-attention inputs; causal cases put the queries at the end of
+    the keys (``q_offset = Sk - Sq``), as the reference's kernel test."""
+    rng = np.random.RandomState(seed)
+    return dict(q=rand(rng, B, Sq, H, hd), k=rand(rng, B, Sk, KV, hd),
+                v=rand(rng, B, Sk, KV, hd), causal=causal, window=window,
+                q_offset=Sk - Sq if causal else 0)
+
+
+#: the reference's kernel-test cases, then danube's head_dim 120 with a
+#: window, a non-causal window and several query tiles over a long window
+FLASH = [dict(B=2, Sq=64, Sk=64, H=4, KV=2, hd=32, causal=True, window=None),
+         dict(B=1, Sq=100, Sk=100, H=4, KV=4, hd=16, causal=True,
+              window=None),
+         dict(B=2, Sq=128, Sk=128, H=8, KV=2, hd=64, causal=True, window=32),
+         dict(B=1, Sq=33, Sk=77, H=2, KV=1, hd=16, causal=False,
+              window=None),
+         dict(B=2, Sq=16, Sk=144, H=4, KV=2, hd=32, causal=True,
+              window=None),
+         dict(B=1, Sq=200, Sk=200, H=4, KV=1, hd=120, causal=True,
+              window=70),
+         dict(B=1, Sq=50, Sk=90, H=2, KV=2, hd=128, causal=False, window=40),
+         dict(B=1, Sq=300, Sk=300, H=2, KV=1, hd=128, causal=True,
+              window=None)]

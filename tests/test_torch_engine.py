@@ -6,7 +6,8 @@ admission, preemption, reshards, islands, prefix sharing, chunk and
 kernel counters).  Only wall time, tokens/s, measured fence seconds and
 the step-latency histogram are excluded.  The traces run the tiny
 attention model, the DeepSeek-V2 smoke config (MLA + MoE, monolithic
-prefill, latent pools) and the DeepSeek-MoE smoke config (ragged)."""
+prefill, latent pools), the DeepSeek-MoE smoke config (ragged) and the
+hybrid Jamba and RWKV-6 smoke configs (per-slot recurrent states)."""
 
 from __future__ import annotations
 
@@ -22,6 +23,8 @@ torch.set_num_threads(1)
 
 from repro.configs import deepseek_moe_16b as jdsm  # noqa: E402
 from repro.configs import deepseek_v2_236b as jdsv2  # noqa: E402
+from repro.configs import jamba_v0_1_52b as jjamba  # noqa: E402
+from repro.configs import rwkv6_7b as jrwkv  # noqa: E402
 from repro.models import transformer as jtfm  # noqa: E402
 from repro.models.config import ModelConfig as JCfg  # noqa: E402
 from repro.serving.admission import GovernorConfig as JGov  # noqa: E402
@@ -30,6 +33,8 @@ from repro.serving.engine import Engine as JEngine  # noqa: E402
 from repro_torch.bridge import params_from_jax  # noqa: E402
 from repro_torch.configs import deepseek_moe_16b as tdsm  # noqa: E402
 from repro_torch.configs import deepseek_v2_236b as tdsv2  # noqa: E402
+from repro_torch.configs import jamba_v0_1_52b as tjamba  # noqa: E402
+from repro_torch.configs import rwkv6_7b as trwkv  # noqa: E402
 from repro_torch.models.config import ModelConfig as TCfg  # noqa: E402
 from repro_torch.serving.admission import GovernorConfig as TGov  # noqa: E402
 from repro_torch.serving.config import EngineConfig as TConfig  # noqa: E402
@@ -42,7 +47,9 @@ _NONDETERMINISTIC = ("wall_s", "tokens_per_s", "step_latency", "measured_s")
 
 MODELS = {"tiny": (lambda: JCfg(**_CFG_KW), lambda: TCfg(**_CFG_KW)),
           "deepseek-v2": (jdsv2.smoke, tdsv2.smoke),
-          "deepseek-moe": (jdsm.smoke, tdsm.smoke)}
+          "deepseek-moe": (jdsm.smoke, tdsm.smoke),
+          "jamba": (jjamba.smoke, tjamba.smoke),
+          "rwkv6": (jrwkv.smoke, trwkv.smoke)}
 
 
 @pytest.fixture(scope="module")
@@ -188,6 +195,31 @@ def test_engine_trace_matches_reference(models, name):
         assert got["engine.prefill_traces"] >= 2   # one per padded length
     if name == "deepseek-v2-prefix":
         assert got["fpr.prefix.hit_blocks"] > 0 and got["fpr.prefix.cow_copies"]
+
+
+@pytest.mark.parametrize("name", ["jamba", "rwkv6"])
+def test_hybrid_engine_trace_matches_reference(models, name):
+    """Jamba (Mamba + attention + MoE) and RWKV-6 served with fpr on: the
+    recurrent states live per batch slot, prefill writes them through a
+    batch-1 view of the request's slot, and decode steps them for every
+    slot; tokens and counters equal the reference engine's."""
+    jcfg, tcfg, jp, tp = models(name)
+    common = {"num_blocks": 64, "max_batch": 4, "max_seq_len": 512,
+              "fpr_enabled": True}
+    reqs = _trace(1, 10)
+    want_toks, want = _replay(JEngine(jcfg, jp, config=JConfig(
+        page_impl="ref", **common)), reqs)
+    eng = TEngine(tcfg, tp, config=TConfig(device="cpu", **common))
+    got_toks, got = _replay(eng, reqs)
+    assert got_toks == want_toks
+    assert sorted(got) == sorted(want)
+    assert {k: v for k, v in got.items() if want[k] != v} == {}
+    assert got["fpr.recycled_hits"] > 0
+    keys = {"jamba": ("conv", "ssm"), "rwkv6": ("rwkv_x", "rwkv_s")}[name]
+    assert eng._slot_state_keys == list(keys)
+    for k in keys:                       # every slot served a request
+        assert all(eng.cache.state[k][:, s].abs().sum() > 0
+                   for s in range(common["max_batch"]))
 
 
 def test_engine_config_defaults_and_checks():

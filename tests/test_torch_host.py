@@ -51,12 +51,15 @@ def test_importing_the_port_loads_no_jax():
         "repro_torch." + str(p.relative_to(PORT).with_suffix("")).replace(
             os.sep, ".").removesuffix(".__init__")
         for p in PORT.rglob("*.py"))
-    # the serving slices: GQA paged attention, MLA + MoE
+    # the slices: GQA paged attention, MLA + MoE, Mamba, RWKV-6 and flash
+    # attention
     assert {"repro_torch.models.mla", "repro_torch.models.moe",
-            "repro_torch.kernels.mla_attention.mla_attention",
-            "repro_torch.kernels.mla_attention.ops",
-            "repro_torch.kernels.mla_attention.ref",
+            "repro_torch.models.mamba", "repro_torch.models.rwkv6",
             "repro_torch.kernels.paged_attention.ops"} <= set(mods)
+    assert {f"repro_torch.kernels.{k}.{m}"
+            for k in ("mla_attention", "mamba_scan", "rwkv6_scan",
+                      "flash_attention")
+            for m in (k, "ops", "ref")} <= set(mods)
     code = ("import sys, importlib\n"
             "import repro_torch, repro_torch.serving.engine\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"

@@ -1,5 +1,6 @@
-"""The CUDA kernels (paged attention, absorbed-MLA paged decode) against
-their plain versions, on the card.  These skip without a CUDA device; on a machine with one run them
+"""The CUDA kernels (paged attention, absorbed-MLA paged decode, the Mamba
+and RWKV-6 scans, flash attention) against their plain versions, on the
+card.  These skip without a CUDA device; on a machine with one run them
 with ``python -m pytest -q -m cuda tests/test_torch_kernels_cuda.py``
 (the file imports no JAX)."""
 
@@ -10,11 +11,18 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.kernels.flash_attention import ops as tfops  # noqa: E402
+from repro_torch.kernels.flash_attention import flash_attention as tfa  # noqa: E402
+from repro_torch.kernels.mamba_scan import mamba_scan as tms  # noqa: E402
+from repro_torch.kernels.mamba_scan import ops as tmsops  # noqa: E402
 from repro_torch.kernels.mla_attention import mla_attention as tmk  # noqa: E402
 from repro_torch.kernels.paged_attention import ops as tops  # noqa: E402
 from repro_torch.kernels.paged_attention import paged_attention as tpa  # noqa: E402
-from _torch_cases import (MLA, PAGED, RAGGED, mla_case, paged_case,  # noqa: E402
-                          ragged_case)
+from repro_torch.kernels.rwkv6_scan import ops as trkops  # noqa: E402
+from repro_torch.kernels.rwkv6_scan import rwkv6_scan as trk  # noqa: E402
+from _torch_cases import (FLASH, MAMBA, MLA, PAGED, RAGGED, RWKV6,  # noqa: E402
+                          flash_case, mamba_case, mla_case, paged_case,
+                          ragged_case, rwkv6_case)
 
 TOL = dict(rtol=2e-5, atol=2e-5)
 
@@ -88,3 +96,59 @@ def test_mla_kernel_matches_plain_on_card(cuda, case):
     close(got, plain.numpy())
     seen_nothing = t((c["mono"] < 0).all(1) | (c["lengths"] == 0))
     assert not got.cpu()[seen_nothing].any()
+
+
+def _launched(module, key, fn):
+    """fn() on the card, asserting it launched its kernel exactly once."""
+    before = module.LAUNCHES[key]
+    out = fn()
+    torch.cuda.synchronize()
+    assert module.LAUNCHES[key] == before + 1
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", MAMBA, ids=str)
+def test_mamba_scan_kernel_matches_plain_on_card(cuda, case):
+    c = mamba_case(13, **case)
+    args = [t(c[k], cuda) for k in ("dt", "A", "B", "C", "x", "h0")]
+    y, h = _launched(tms, "mamba_scan", lambda: tmsops.mamba_scan(
+        *args, chunk=c["chunk"]))
+    wy, wh = tmsops.mamba_scan(*(a.cpu() for a in args), chunk=c["chunk"])
+    for got, want in ((y, wy), (h, wh)):
+        np.testing.assert_allclose(got.cpu().numpy(), want.numpy(),
+                                   rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", RWKV6, ids=str)
+def test_rwkv6_scan_kernel_matches_plain_on_card(cuda, case):
+    c = rwkv6_case(14, **case)
+    args = [t(c[k], cuda) for k in ("r", "k", "v", "w", "u", "S0")]
+    y, s = _launched(trk, "rwkv6_scan", lambda: trkops.rwkv6_scan(
+        *args, chunk=c["chunk"]))
+    wy, ws = trkops.rwkv6_scan(*(a.cpu() for a in args), chunk=c["chunk"])
+    for got, want in ((y, wy), (s, ws)):
+        np.testing.assert_allclose(got.cpu().numpy(), want.numpy(),
+                                   rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", FLASH, ids=str)
+def test_flash_kernel_matches_plain_on_card(cuda, case):
+    c = flash_case(15, **case)
+    args = [t(c[k], cuda) for k in ("q", "k", "v")]
+    kw = dict(causal=c["causal"], window=c["window"], q_offset=c["q_offset"])
+    got = _launched(tfa, "flash_attention",
+                    lambda: tfops.flash_attention(*args, **kw))
+    close(got, tfops.flash_attention(*(a.cpu() for a in args),
+                                     **kw).numpy())
+
+
+@pytest.mark.cuda
+def test_kernels_refuse_inputs_that_require_grad(cuda):
+    q = torch.randn(1, 64, 2, 16, device=cuda, requires_grad=True)
+    with pytest.raises(RuntimeError, match="forward only"):
+        tfops.flash_attention(q, q, q)
+    with torch.no_grad():
+        assert torch.isfinite(tfops.flash_attention(q, q, q)).all()

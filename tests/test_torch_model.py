@@ -187,9 +187,7 @@ def test_greedy_tokens_match_reference(model, W):
 
 def test_unsupported_models_raise():
     g = torch.Generator().manual_seed(0)
-    for cfg in (TCfg(**_TINY, mixers=("mamba",)),
-                TCfg(**_TINY, mixers=("rwkv6",)),
-                TCfg(**_TINY, enc_dec=True),
+    for cfg in (TCfg(**_TINY, enc_dec=True),
                 TCfg(**_TINY, frontend="vision")):
         with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
             ttfm.init_params(cfg, generator=g, device="cpu")
