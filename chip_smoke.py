@@ -23,12 +23,17 @@ of which fails the script:
      of 64), nonzero initial states.
    Each kernel is timed with CUDA events beside its bound, its plain
    version and, for the attention kernels, one PyTorch library call (SDPA,
-   a yardstick the port never calls);
+   a yardstick the port never calls); ``ms`` is one eager call.  The two
+   paged-attention kernels, whose device time is below their wrappers'
+   host time, are also timed as one replay of a CUDA graph of the call
+   (``graph_ms``, the device time of their launches), and print their
+   split-K geometry and scratch;
 3. serve granite-3-8b at full width and depth (random f32 weights from a
    seeded generator) through the chunked path (decode through the paged
    decode kernel) and the ragged path (ragged kernel), each against the
    same engine with ``page_impl="ref"`` as the token oracle, and check
-   the kernels' launch counts on those runs;
+   the kernels' launch counts on those runs (and print the stream time
+   their calls spanned in each run);
 4. serve DeepSeek-V2 at its published widths, cut to 4 layers (layer 0
    dense, 1-3 MoE; random f32 weights), through monolithic prefill and
    paged MLA decode (the MLA kernel) against ``page_impl="ref"``, and
@@ -64,6 +69,7 @@ from unittest import mock
 ROOT = Path(__file__).resolve().parent
 PEAK_BYTES_S = 3.35e12      # H100 SXM HBM3 (data sheet)
 PEAK_F32_S = 67e12          # H100 SXM float32 outside the tensor cores
+PEAK_TF32_S = 495e12        # H100 SXM TF32 on the tensor cores (dense)
 TOL = 2e-5                  # f32: kernel and plain version sum in other orders
 PA = "src/repro/kernels/paged_attention/paged_attention.py"
 CU = "src/repro_torch/kernels/paged_attention/csrc/paged_attention.cu"
@@ -106,6 +112,20 @@ def time_ms(torch, fn, reps: int = 20, warmup: int = 3) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def graph_ms(torch, fn, reps: int = 20) -> float:
+    """Median CUDA-event time of one replay of ``fn`` captured in a CUDA
+    graph: the device time of its launches, without the host's work."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    return time_ms(torch, graph.replay, reps)
 
 
 def bound(nbytes: float, flops: float) -> tuple[float, str]:
@@ -264,6 +284,7 @@ def sdpa_ragged(torch, c):
 def kernel_phase(torch, seed: int) -> list[dict]:
     from repro_torch.kernels.paged_attention import paged_attention as pa
     from repro_torch.kernels.paged_attention import ref
+    from repro_torch.kernels.paged_attention import split as split_mod
     gen = torch.Generator(device=DEVICE).manual_seed(seed)
 
     # ---- paged decode kernel: depths 1/2/4 and split, W, holes, window
@@ -324,19 +345,27 @@ def kernel_phase(torch, seed: int) -> list[dict]:
                 q, pool, stack, lengths, buffer_depth=4)),
             ("split", f"{PA}:152", lambda: pa.paged_attention_fwd(
                 q, k_pool, v_pool, stack, lengths))):
-        ms = time_ms(torch, fn)
+        ms, g_ms = time_ms(torch, fn), graph_ms(torch, fn)
         variants.append(dict(name=name, replaces=replaces, ms=ms,
-                             plain_ms=plain_ms, bound_ms=b_ms,
-                             bound_by=b_by, library_ms=lib_ms))
-        print(f"decode {name}: {ms:.4f} ms (bound {b_ms:.4f} ms by {b_by}, "
-              f"plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms; "
-              f"{tokens} visible K/V rows)")
+                             graph_ms=g_ms, plain_ms=plain_ms,
+                             bound_ms=b_ms, bound_by=b_by,
+                             library_ms=lib_ms))
+        print(f"decode {name}: {ms:.4f} ms per eager call "
+              f"({nbytes / ms / 1e6:.1f} GB/s, {b_ms / ms:.1%} of the bound)"
+              f", {g_ms:.4f} ms as a graph replay ({nbytes / g_ms / 1e6:.1f}"
+              f" GB/s, {b_ms / g_ms:.1%}); bound {b_ms:.4f} ms by {b_by}; "
+              f"plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms; {tokens} "
+              f"visible K/V rows")
+    nsplit = split_mod.num_splits(M * BS, split_mod.DECODE_SPLIT)
+    print(f"decode split-K: {nsplit} splits of {split_mod.DECODE_SPLIT} keys,"
+          f" scratch {split_mod.scratch_bytes(q.shape, nsplit)} bytes")
     # one line per TPU kernel: split (:152), fused (:239) and the pipelined
     # fused kernel (:352) at depth 2, with depth 4 as a variant
     decode = [dict(name=f"paged_decode_kernel ({v['name']})", route="cuda",
                    source=CU, replaces=v["replaces"], launches=0,
-                   max_abs_err=a_err, ms=v["ms"], plain_ms=plain_ms,
-                   bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+                   max_abs_err=a_err, ms=v["ms"], graph_ms=v["graph_ms"],
+                   plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                   library_ms=lib_ms)
               for v in (variants[3], variants[0], variants[1])]
     decode[2]["variants"] = [variants[2]]
 
@@ -366,19 +395,35 @@ def kernel_phase(torch, seed: int) -> list[dict]:
     stack = stack_tables(torch, c["tables"], 1)
     nbytes, flops = ragged_work(c)
     b_ms, b_by = bound(nbytes, flops)
-    ms = time_ms(torch, lambda: pa.ragged_fused_fwd(
-        c["q"], c["kv_pool"], stack, c["tile_row"], c["tile_pos"],
-        c["kv_lens"]))
+    def run():
+        return pa.ragged_fused_fwd(c["q"], c["kv_pool"], stack,
+                                   c["tile_row"], c["tile_pos"],
+                                   c["kv_lens"])
+    ms, g_ms = time_ms(torch, run), graph_ms(torch, run)
+    # the same work on the tensor cores in 3xTF32: three TF32 products per
+    # f32 product
+    tc_ms = max(nbytes / PEAK_BYTES_S, 3 * flops / PEAK_TF32_S) * 1e3
     plain_ms = time_ms(torch, lambda: ref.ragged_fused_ref(
         c["q"].reshape(-1, KV * G, HD), c["kv_pool"], c["tables"],
         c["token_row"], c["token_pos"], c["kv_lens"]), reps=5)
     lib_ms = time_ms(torch, sdpa_ragged(torch, c))
-    print(f"ragged: {ms:.4f} ms (bound {b_ms:.4f} ms by {b_by}, plain "
-          f"{plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms)")
+    keys = M * BS
+    split = split_mod.ragged_split(keys, c["q"].shape)
+    nsplit = split_mod.num_splits(keys, split)
+    print(f"ragged: {ms:.4f} ms per eager call ({flops / ms / 1e9:.2f} "
+          f"TFLOP/s), {g_ms:.4f} ms as a graph replay "
+          f"({flops / g_ms / 1e9:.2f} TFLOP/s); f32 CUDA-core bound "
+          f"{b_ms:.4f} ms by {b_by} "
+          f"({b_ms / ms:.1%} of it eager, {b_ms / g_ms:.1%} as a replay); "
+          f"3xTF32 tensor-core bound {tc_ms:.4f} ms ({tc_ms / ms:.1%}, "
+          f"{tc_ms / g_ms:.1%}); plain {plain_ms:.4f} ms, sdpa "
+          f"{lib_ms:.4f} ms")
+    print(f"ragged split-K: {nsplit} splits of {split} keys, scratch "
+          f"{split_mod.scratch_bytes(c['q'].shape, nsplit)} bytes")
     b = dict(name="ragged_kernel", route="cuda", source=CU,
              replaces=f"{PA}:464", launches=0, max_abs_err=b_err, ms=ms,
-             plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-             library_ms=lib_ms)
+             graph_ms=g_ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+             bound_3xtf32_ms=tc_ms, library_ms=lib_ms)
     return decode + [b]
 
 
@@ -773,6 +818,7 @@ def check_tokens(got, want, margins, what: str) -> None:
 
 def engine_phase(torch, layers: int, seed: int) -> dict:
     from repro_torch.configs import get_config
+    from repro_torch.kernels.paged_attention import ops as pa_ops
     from repro_torch.models import transformer as tfm
 
     cfg = get_config("granite-3-8b")
@@ -792,9 +838,23 @@ def engine_phase(torch, layers: int, seed: int) -> dict:
         kw = dict(prompt_lens=PROMPT_LENS, seed=seed, num_blocks=256,
                   max_seq_len=2560, chunked_prefill=True, prefill_chunk=2,
                   ragged_kernel=ragged)
+        # CUDA events around each call of the path's kernel wrapper: the
+        # stream time its calls span in the run (two event records per call)
+        op = "ragged_fused_fwd" if ragged else "paged_attention_fused_fwd"
+        calls: list = []
+
+        def timed_op(*a, inner=getattr(pa_ops, op), **k):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = inner(*a, **k)
+            end.record()
+            calls.append((start, end))
+            return out
         reset_launches()
-        toks, snap, decode_steps, secs, _, spent = serve(
-            torch, cfg, params, page_impl="kernel", **kw)
+        with mock.patch.object(pa_ops, op, timed_op):
+            toks, snap, decode_steps, secs, _, spent = serve(
+                torch, cfg, params, page_impl="kernel", **kw)
         counts = launch_counts()
         steps = (snap["engine.kernel.ragged_steps"] if ragged
                  else decode_steps)
@@ -821,6 +881,10 @@ def engine_phase(torch, layers: int, seed: int) -> dict:
         split = ", ".join(f"{k} {v:.2f} s" for k, v in spent.items() if v)
         print(f"engine {path} kernel run, device time spanned: {split}, "
               f"rest {secs - sum(spent.values()):.2f} s")
+        op_s = sum(s.elapsed_time(e) for s, e in calls) / 1e3
+        print(f"engine {path} kernel run: its {len(calls)} {op} calls "
+              f"spanned {op_s:.4f} s of stream time, "
+              f"{op_s / max(len(calls), 1) * 1e3:.4f} ms per call")
     return launches
 
 

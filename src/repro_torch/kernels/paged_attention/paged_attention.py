@@ -14,7 +14,14 @@ Each wrapper takes the layouts of its TPU counterpart in
 Tables are the ``(W, Bs, M)`` shard stack (slot ``b`` at shard ``b % W``,
 row ``b // W``).  On a CPU tensor a wrapper runs the plain version from
 ``ref.py``; on a CUDA tensor it launches the kernel on the current stream
-or raises.  :data:`LAUNCHES` counts kernel launches per kernel.
+or raises.  :data:`LAUNCHES` counts wrapper calls that launched a kernel.
+
+Both kernels split the key axis (``split.py``): the wrapper sizes the
+split count and the partial-result scratch from shapes alone (it never
+reads a length back to the host).  A decode call is the kernel and, past
+one split, its merge; a ragged call is a planning kernel that lists the
+(tile, split) pairs to run, the kernel and, past one split, the merge.
+:data:`LAUNCHES` counts each wrapper call once.
 """
 
 from __future__ import annotations
@@ -26,20 +33,23 @@ from pathlib import Path
 import torch
 
 from repro_torch.kernels.paged_attention import ref
+from repro_torch.kernels.paged_attention import split as _split
 
 #: query-tile height of the ragged kernel — packed rows are padded so a
 #: tile never spans two sequences
 QT = 8
 
-#: kernel launches since the last :func:`reset_launches`, per CUDA kernel
+#: kernel wrapper calls since the last :func:`reset_launches` (each call
+#: may launch two or three kernels, see above)
 LAUNCHES = {"paged_decode": 0, "ragged": 0}
 
 _SOURCES = (Path(__file__).parent / "csrc" / "paged_attention.cu",)
 _MAX_HD = 128
 _TILE = 32
-#: query heads per CTA: decode (G ≤ 8 per block), ragged (QT × 4 warps)
+#: query heads per CTA: decode, and ragged (whose tile's QT × gc rows fill
+#: at most three 16-row MMA slabs)
 _DECODE_GC = 8
-_RAGGED_GC = 4
+_RAGGED_GC = 6
 
 
 def reset_launches() -> None:
@@ -62,12 +72,12 @@ def _lib() -> ctypes.CDLL:
     p, ll, i, f = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, \
         ctypes.c_float
     lib.paged_decode_launch.argtypes = [
-        i, p, p, p, ll, ll, ll, p, p, p,
-        i, i, i, i, i, i, i, i, i, i, f, p]
+        i, p, p, p, ll, ll, ll, p, p, p, p, p,
+        i, i, i, i, i, i, i, i, i, i, f, i, i, p]
     lib.paged_decode_launch.restype = i
     lib.ragged_launch.argtypes = [
-        p, p, ll, ll, p, p, p, p, p,
-        i, i, i, i, i, i, i, i, i, i, f, p]
+        p, p, ll, ll, p, p, p, p, p, p, p, p,
+        i, i, i, i, i, i, i, i, i, i, f, i, i, p]
     lib.ragged_launch.restype = i
     return lib
 
@@ -104,6 +114,19 @@ def _check_geometry(hd: int, bs: int) -> None:
         raise ValueError(f"block size {bs} is not a multiple of {_TILE}")
 
 
+def _scratch(out: torch.Tensor, nsplit: int):
+    """The split-K scratch (partial accumulators and (m, l) pairs),
+    allocated from shapes, and its two data pointers (None for one
+    split).  The caller keeps the tensors alive until the launch is
+    enqueued."""
+    shapes = _split.scratch_shapes(out.shape, nsplit)
+    if shapes is None:
+        return [], (None, None)
+    ts = [torch.empty(sh, dtype=torch.float32, device=out.device)
+          for sh in shapes]
+    return ts, tuple(t.data_ptr() for t in ts)
+
+
 def _raise_on(code: int, what: str) -> None:
     if code:
         raise RuntimeError(f"{what} launch failed: CUDA error {code}")
@@ -121,11 +144,13 @@ def _decode_launch(q, k_ptr, v_ptr, blk_stride, tok_stride, head_stride,
     out = torch.empty_like(q)
     if B == 0:
         return out
+    nsplit = _split.num_splits(M * bs, _split.DECODE_SPLIT)
+    scratch, ptrs = _scratch(out, nsplit)
     code = _lib().paged_decode_launch(
         depth, q.data_ptr(), k_ptr, v_ptr, blk_stride, tok_stride,
         head_stride, tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-        B, KV, G, gc, hd, bs, W, Bs, M, window or 0, hd ** -0.5,
-        _stream(q.device))
+        *ptrs, B, KV, G, gc, hd, bs, W, Bs, M, window or 0,
+        hd ** -0.5, _split.DECODE_SPLIT, nsplit, _stream(q.device))
     _raise_on(code, "paged_decode_kernel")
     LAUNCHES["paged_decode"] += 1
     return out
@@ -210,8 +235,9 @@ def ragged_fused_fwd(q: torch.Tensor, kv_pool: torch.Tensor,
     shard_tables: (W, Bs, M); tile_row: (T // QT,) batch slot per tile
     (-1 = padding tile); tile_pos: (T // QT,) position of each tile's
     first query; kv_lens: (W * Bs,) kv length per slot → (T, KV, G, hd).
-    Padding rows come out finite (zeros from the kernel, zeros from the
-    plain version); callers drop them.
+    Padding rows (padding tiles, and rows of a real tile at or past the
+    slot's kv length) come out 0 from the kernel and from the plain
+    version; callers drop them.
     """
     T, KV, G, hd = q.shape
     if T % QT:
@@ -245,11 +271,17 @@ def ragged_fused_fwd(q: torch.Tensor, kv_pool: torch.Tensor,
     if tiles == 0:
         return out
     gc = _heads_per_cta(G, _RAGGED_GC)
+    split = _split.ragged_split(M * bs, out.shape)
+    nsplit = _split.num_splits(M * bs, split)
+    scratch, ptrs = _scratch(out, nsplit)
+    # the kernel's work list: (tile, split) items and two counters
+    plan = torch.empty(tiles * nsplit + 2, dtype=torch.int32, device=q.device)
     code = _lib().ragged_launch(
         q.data_ptr(), kv_pool.data_ptr(), bs * KV2 * hd, KV2 * hd,
         shard_tables.data_ptr(), tile_row.data_ptr(), tile_pos.data_ptr(),
-        kv_lens.data_ptr(), out.data_ptr(), tiles, KV, G, gc, hd, bs, W, Bs,
-        M, window or 0, hd ** -0.5, _stream(q.device))
+        kv_lens.data_ptr(), out.data_ptr(), *ptrs, plan.data_ptr(), tiles,
+        KV, G, gc, hd, bs, W, Bs, M, window or 0, hd ** -0.5, split, nsplit,
+        _stream(q.device))
     _raise_on(code, "ragged_kernel")
     LAUNCHES["ragged"] += 1
     return out

@@ -6,6 +6,8 @@ from __future__ import annotations
 import numpy as np
 
 from repro_torch.kernels.paged_attention.ops import build_ragged_descriptor
+from repro_torch.kernels.paged_attention.split import (DECODE_SPLIT,
+                                                       RAGGED_SPLIT)
 
 
 def rand(rng, *shape):
@@ -75,6 +77,71 @@ def ragged_case(seed, *, W, window, KV=2, G=2, hd=16, bs=128):
 
 RAGGED = [dict(W=1, window=None), dict(W=2, window=None),
           dict(W=4, window=None), dict(W=2, window=50)]
+
+
+def paged_split_case(seed, *, G, KV, hd, W, window=None, bs=128, M=20):
+    """Decode inputs whose key axis spans many splits of
+    ``DECODE_SPLIT`` keys (M * bs = 2560 keys): lengths of split - 1,
+    split and split + 1, one past four splits with split 1 made wholly of
+    holes, a full table with a hole, and an inactive slot (length 0)."""
+    S = DECODE_SPLIT
+    rng = np.random.RandomState(seed)
+    B = 6
+    N = B * M + 3
+    mono, _ = tables(rng, B, M, N, 1)
+    lengths = np.array([S - 1, S, S + 1, 4 * S + 1, M * bs, 0], np.int32)
+    mono[3, S // bs:2 * S // bs] = -1
+    mono[4, 5] = -1
+    mono[5] = -1
+    return dict(q=rand(rng, B, KV * G, hd), kv=rand(rng, N, bs, 2 * KV, hd),
+                mono=mono, stack=shard_stack(mono, W), lengths=lengths,
+                window=window)
+
+
+#: G in {1, 4, 5, 6}, hd in {64, 120, 128}, W in {1, 2, 4}, windows shorter
+#: than a split
+PAGED_SPLITS = [dict(G=4, KV=2, hd=128, W=1),
+               dict(G=1, KV=4, hd=120, W=2),
+               dict(G=5, KV=2, hd=128, W=4, window=200),
+               dict(G=4, KV=2, hd=120, W=1, window=200),
+               dict(G=6, KV=1, hd=64, W=2)]
+
+
+def ragged_split_case(seed, *, G, KV, hd, W, window=None, bs=128, M=33):
+    """A mixed batch whose key axis spans five splits of ``RAGGED_SPLIT``
+    keys (M * bs = 4224): a lone decode row at 4200 (a 1-real-row tile), a
+    13-row prefill chunk across the first split boundary (its second tile
+    ends in padding rows), decode rows at kv lengths split - 1, split and
+    split + 1, a decode row at 3000 over split 1 made wholly of holes, a
+    40-row chunk at 2040, an inactive slot and padding tiles."""
+    S = RAGGED_SPLIT
+    rng = np.random.RandomState(seed)
+    B = 8
+    N = B * M + 2
+    mono, _ = tables(rng, B, M, N, 1)
+    rows = [(0, 1, 4200), (1, 13, S - 4), (2, 1, S - 2), (3, 1, S - 1),
+            (4, 1, S), (5, 1, 3000), (6, 40, 2040)]
+    for slot, qn, start in rows:
+        mono[slot, -(-(start + qn) // bs):] = -1
+    mono[5, S // bs:2 * S // bs] = -1
+    mono[7] = -1
+    d = build_ragged_descriptor(
+        [r[0] for r in rows], [r[1] for r in rows], [r[2] for r in rows],
+        [r[1] + r[2] for r in rows], num_slots=B, t_cap=128)
+    T = d["token_row"].shape[0]
+    return dict(q=rand(rng, T, KV * G, hd),
+                kv=rand(rng, N, bs, 2 * KV, hd), mono=mono,
+                stack=shard_stack(mono, W), d=d, window=window)
+
+
+#: as PAGED_SPLITS, plus G = 6 (the widest tile, 48 MMA rows) and hd 64
+#: and 96 (the kernel's other padded head widths)
+RAGGED_SPLITS = [dict(G=4, KV=2, hd=128, W=1),
+                 dict(G=1, KV=4, hd=120, W=2),
+                 dict(G=5, KV=2, hd=128, W=4, window=300),
+                 dict(G=4, KV=2, hd=120, W=1, window=300),
+                 dict(G=6, KV=1, hd=64, W=2),
+                 dict(G=2, KV=2, hd=96, W=1, window=300)]
 
 
 def mla_case(seed, *, B=5, H=4, rank=32, rope=8, bs=128, M=4, W=1):

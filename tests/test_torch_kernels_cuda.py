@@ -20,9 +20,10 @@ from repro_torch.kernels.paged_attention import ops as tops  # noqa: E402
 from repro_torch.kernels.paged_attention import paged_attention as tpa  # noqa: E402
 from repro_torch.kernels.rwkv6_scan import ops as trkops  # noqa: E402
 from repro_torch.kernels.rwkv6_scan import rwkv6_scan as trk  # noqa: E402
-from _torch_cases import (FLASH, MAMBA, MLA, PAGED, RAGGED, RWKV6,  # noqa: E402
-                          flash_case, mamba_case, mla_case, paged_case,
-                          ragged_case, rwkv6_case)
+from _torch_cases import (FLASH, MAMBA, MLA, PAGED, PAGED_SPLITS,  # noqa: E402
+                          RAGGED, RAGGED_SPLITS, RWKV6, flash_case,
+                          mamba_case, mla_case, paged_case, paged_split_case,
+                          ragged_case, ragged_split_case, rwkv6_case)
 
 TOL = dict(rtol=2e-5, atol=2e-5)
 
@@ -79,6 +80,59 @@ def test_ragged_kernel_matches_plain_on_card(cuda, case):
     real = t(d["token_row"] >= 0)
     assert torch.isfinite(got).all()
     close(got.cpu()[real], plain[real].numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", PAGED_SPLITS, ids=str)
+def test_decode_kernel_splits_match_plain_on_card(cuda, case):
+    """Key axes of five splits: lengths at a split's edges, a split of
+    holes, windows shorter than a split; depths bit-identical, the split
+    pools equal to the fused pool's result, an inactive slot exact 0."""
+    c = paged_split_case(16, **case)
+    B, H, hd = c["q"].shape
+    KV = c["kv"].shape[2] // 2
+    q = t(c["q"], cuda).reshape(B, KV, H // KV, hd)
+    kv, stack, lengths = t(c["kv"], cuda), t(c["stack"], cuda), \
+        t(c["lengths"], cuda)
+    before = tpa.LAUNCHES["paged_decode"]
+    outs = [tpa.paged_attention_fused_fwd(q, kv, stack, lengths,
+                                          window=c["window"], buffer_depth=d)
+            for d in (1, 2, 4)]
+    split = tpa.paged_attention_fwd(q, kv[:, :, 0::2].contiguous(),
+                                    kv[:, :, 1::2].contiguous(), stack,
+                                    lengths, window=c["window"])
+    torch.cuda.synchronize()
+    assert tpa.LAUNCHES["paged_decode"] == before + 4
+    assert all(torch.equal(outs[0], o) for o in outs[1:])
+    plain = tpa.paged_attention_fused_fwd(q.cpu(), kv.cpu(), stack.cpu(),
+                                          lengths.cpu(), window=c["window"])
+    active = t(c["lengths"] > 0)
+    for got in (outs[0], split):
+        assert torch.isfinite(got).all()
+        close(got.cpu()[active], plain[active].numpy())
+    assert torch.equal(outs[0].cpu()[~active],
+                       torch.zeros_like(plain[~active]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", RAGGED_SPLITS, ids=str)
+def test_ragged_kernel_splits_match_plain_on_card(cuda, case):
+    """A mixed batch over five splits (see ``ragged_split_case``): real
+    rows match the plain version, padding rows and tiles come out 0."""
+    c = ragged_split_case(17, **case)
+    d = c["d"]
+    args = [t(c["q"], cuda), t(c["kv"], cuda), t(c["stack"], cuda),
+            t(d["tile_row"], cuda), t(d["tile_pos"], cuda),
+            t(d["kv_lens"], cuda)]
+    got = _launched(tpa, "ragged", lambda: tops.ragged_paged_attention(
+        *args, window=c["window"]))
+    again = tops.ragged_paged_attention(*args, window=c["window"])
+    plain = tops.ragged_paged_attention(*(a.cpu() for a in args),
+                                        window=c["window"])
+    real = t(d["token_row"] >= 0)
+    assert torch.equal(got, again)
+    close(got.cpu()[real], plain[real].numpy())
+    assert not got.cpu()[~real].any()
 
 
 @pytest.mark.cuda
