@@ -20,14 +20,17 @@ of which fails the script:
      slot of length 0;
    - the Mamba selective scan at Jamba's widths (B=2, S=2000, DI=8192,
      N=16) and the RWKV-6 WKV scan at RWKV-6-7B's (B=2, S=2000, 64 heads
-     of 64), nonzero initial states.
+     of 64), nonzero initial states; the RWKV-6 scan also with strong
+     decays on half the heads (log w down to -5), whose chunks take the
+     kernel's sequential path.
    Each kernel is timed with CUDA events beside its bound, its plain
    version and, for the attention kernels, one PyTorch library call (SDPA,
-   a yardstick the port never calls); ``ms`` is one eager call.  The two
-   paged-attention kernels, whose device time is below their wrappers'
-   host time, are also timed as one replay of a CUDA graph of the call
-   (``graph_ms``, the device time of their launches), and print their
-   split-K geometry and scratch;
+   a yardstick the port never calls); ``ms`` is one eager call.  The
+   paged-attention, MLA and RWKV-6 kernels are also timed as one replay
+   of a CUDA graph of the call (``graph_ms``, the device time of their
+   launches); the kernels on the tensor cores give their 3xTF32 bound
+   beside the f32 one, the split-K kernels their geometry and scratch,
+   and the RWKV-6 row ``ops.rwkv6_scan``'s time beside the kernel's;
 3. serve granite-3-8b at full width and depth (random f32 weights from a
    seeded generator) through the chunked path (decode through the paged
    decode kernel) and the ragged path (ragged kernel), each against the
@@ -36,15 +39,18 @@ of which fails the script:
    their calls spanned in each run);
 4. serve DeepSeek-V2 at its published widths, cut to 4 layers (layer 0
    dense, 1-3 MoE; random f32 weights), through monolithic prefill and
-   paged MLA decode (the MLA kernel) against ``page_impl="ref"``, and
-   check the MLA kernel ran once per layer per decode step;
+   paged MLA decode (the MLA kernel) against ``page_impl="ref"``, check
+   the MLA kernel ran once per layer per decode step, and print the
+   stream time its calls spanned;
 5. Jamba-v0.1 at its published widths cut to one 8-layer period, then
    RWKV-6-7B whole (random f32 weights): ``prefill(impl="kernel")`` of 2
    prompts of 1000 tokens and 16 greedy ``decode_step``s against the
    ``impl="chunked"``/``page_impl="ref"`` oracle, ``loss_fn(impl=
    "kernel")`` on a (2, 1024) batch against ``impl="chunked"``, and for
    Jamba ``attn_layer(impl="kernel")`` (flash attention) on its attention
-   layer; each path's launches are counted on their own.
+   layer; each path's launches are counted on their own, and the stream
+   time the scan op's calls spanned in prefill and in ``loss_fn`` is
+   printed.
 
 Prints the card's name and power limit, tokens/s per run, one
 ``{"kernels": [...]}`` JSON line (one entry per TPU kernel of the
@@ -56,6 +62,7 @@ repository beside it.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import gc
 import json
 import math
@@ -126,6 +133,33 @@ def graph_ms(torch, fn, reps: int = 20) -> float:
     with torch.cuda.graph(graph):
         fn()
     return time_ms(torch, graph.replay, reps)
+
+
+@contextlib.contextmanager
+def timed_calls(torch, module, name: str):
+    """Patch ``module.name`` so that each call is bracketed by CUDA events
+    (which neither block the host nor change the run); yields the list of
+    (start, end) pairs, one per call."""
+    calls: list = []
+    inner = getattr(module, name)
+
+    def call(*a, **k):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = inner(*a, **k)
+        end.record()
+        calls.append((start, end))
+        return out
+    with mock.patch.object(module, name, call):
+        yield calls
+
+
+def span_line(calls, what: str) -> str:
+    """The stream time the calls spanned, in all and per call."""
+    secs = sum(s.elapsed_time(e) for s, e in calls) / 1e3
+    return (f"its {len(calls)} {what} calls spanned {secs:.4f} s of stream "
+            f"time, {secs / max(len(calls), 1) * 1e3:.4f} ms per call")
 
 
 def bound(nbytes: float, flops: float) -> tuple[float, str]:
@@ -489,6 +523,7 @@ def sdpa_mla(torch, c):
 def mla_kernel_phase(torch, seed: int) -> dict:
     from repro_torch.kernels.mla_attention import mla_attention as mk
     from repro_torch.kernels.mla_attention import ref as mref
+    from repro_torch.kernels.mla_attention import split as msplit
     gen = torch.Generator(device=DEVICE).manual_seed(seed + 1)
     err = 0.0
     for W in (1, 4):
@@ -513,17 +548,27 @@ def mla_kernel_phase(torch, seed: int) -> dict:
             c["lengths"])
     tokens, nbytes, flops = mla_work(c)
     b_ms, b_by = bound(nbytes, flops)
-    ms = time_ms(torch, lambda: mk.mla_paged_ctx_fwd(*args, scale=MLA_SCALE))
+    def run():
+        return mk.mla_paged_ctx_fwd(*args, scale=MLA_SCALE)
+    ms, g_ms = time_ms(torch, run), graph_ms(torch, run)
+    # the same work on the tensor cores in 3xTF32
+    tc_ms = max(nbytes / PEAK_BYTES_S, 3 * flops / PEAK_TF32_S) * 1e3
     plain_ms = time_ms(torch, lambda: mref.mla_paged_ctx_ref(
         *args, scale=MLA_SCALE))
     lib_ms = time_ms(torch, sdpa_mla(torch, c))
-    print(f"mla: {ms:.4f} ms (bound {b_ms:.4f} ms by {b_by}, plain "
-          f"{plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms; {tokens} visible "
-          f"latent rows, {flops / ms / 1e9:.2f} TFLOP/s)")
+    nsplit = msplit.num_splits(MLA_M * BS, msplit.MLA_SPLIT)
+    print(f"mla: {ms:.4f} ms per eager call, {g_ms:.4f} ms as a graph "
+          f"replay (f32 CUDA-core bound {b_ms:.4f} ms by {b_by}: "
+          f"{b_ms / ms:.1%} of it eager, {b_ms / g_ms:.1%} as a replay; "
+          f"3xTF32 tensor-core bound {tc_ms:.4f} ms: {tc_ms / ms:.1%}, "
+          f"{tc_ms / g_ms:.1%}); plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} "
+          f"ms; {tokens} visible latent rows, {flops / g_ms / 1e9:.2f} "
+          f"TFLOP/s; split-K {nsplit} splits of {msplit.MLA_SPLIT} tokens, "
+          f"scratch {msplit.scratch_bytes(c['q_lat'].shape, nsplit)} bytes")
     return dict(name="mla_ctx_kernel", route="cuda", source=MLA_CU,
                 replaces=f"{MLA_PY}:86", launches=0, max_abs_err=err, ms=ms,
-                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                library_ms=lib_ms)
+                graph_ms=g_ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by, bound_3xtf32_ms=tc_ms, library_ms=lib_ms)
 
 
 # ------------------------------------------ scan and flash kernel phases
@@ -602,32 +647,53 @@ def scan_kernel_phase(torch, seed: int) -> list[dict]:
     args = (randn(*sh), randn(*sh), randn(*sh),
             torch.exp(-torch.exp(0.5 * randn(*sh) - 0.5)),
             0.1 * randn(nH, hd), 0.1 * randn(B, nH, hd, hd))
-    y, st = rkops.rwkv6_scan(*args)
-    wy, wst = rkref.rwkv6_scan_ref(*args)
-    torch.cuda.synchronize()
+    # strong decays on the even heads (log w times 4, down to -5): their
+    # chunks pass the kernel's decay limit and take its sequential path
+    logw = torch.log(args[3])
+    logw[:, :, ::2] = (4 * logw[:, :, ::2]).clamp(min=-5.0)
+    strong = (*args[:3], torch.exp(logw), *args[4:])
     err = 0.0
-    for what, got, want in (("y", y, wy), ("S_last", st, wst)):
-        e, sc = scaled_err(got, want)
-        if not math.isfinite(e) or e > RK_TOL * sc:
-            fail(f"rwkv6_scan {what}: max abs err {e} > {RK_TOL} x {sc:.3g}")
-        err = max(err, e)
-    # the kernel at the heads-major padded shapes ops gives it (S to a
-    # multiple of 32, w = 1 in the padding)
-    hm = [torch.nn.functional.pad(t.transpose(1, 2), (0, 0, 0, (-S) % 32),
-                                  value=1.0 if i == 3 else 0.0).contiguous()
-          for i, t in enumerate(args[:4])]
-    ms = time_ms(torch, lambda: rkk.rwkv6_scan_fwd(*hm, *args[4:]))
+    for case, a in (("", args), (" strong decay", strong)):
+        y, st = rkops.rwkv6_scan(*a)
+        wy, wst = rkref.rwkv6_scan_ref(*a)
+        torch.cuda.synchronize()
+        case_err = 0.0
+        for what, got, want in (("y", y, wy), ("S_last", st, wst)):
+            e, sc = scaled_err(got, want)
+            if (not torch.isfinite(got).all() or not math.isfinite(e)
+                    or e > RK_TOL * sc):
+                fail(f"rwkv6_scan{case} {what}: max abs err {e} > {RK_TOL} "
+                     f"x {sc:.3g} (or not finite)")
+            case_err = max(case_err, e)
+        err = max(err, case_err)
+        slow = ~rkref.fast_chunks(a[3])
+        print(f"rwkv6_scan{case} B={B} S={S} nH={nH} hd={hd}: max abs err "
+              f"vs plain {case_err:.3g}; {int(slow.sum())} of {slow.numel()} "
+              f"(b, chunk, head) on the sequential path")
+        del y, st, wy, wst
+    # the kernel on heads-major contiguous inputs, and the op as the model
+    # calls it (token-major; the kernel reads it through strides)
+    hm = [t.transpose(1, 2).contiguous() for t in args[:4]]
+
+    def kernel():
+        return rkk.rwkv6_scan_fwd(*hm, *args[4:])
+    ms, g_ms = time_ms(torch, kernel), graph_ms(torch, kernel)
+    op_ms = time_ms(torch, lambda: rkops.rwkv6_scan(*args))
+    strong_ms = time_ms(torch, lambda: rkops.rwkv6_scan(*strong))
     plain_ms = time_ms(torch, lambda: rkref.rwkv6_scan_ref(*args), reps=3,
                        warmup=1)
     nbytes = 4 * (5 * B * S * nH * hd + nH * hd + 2 * B * nH * hd * hd)
     b_ms, b_by = bound(nbytes, 5 * B * nH * S * hd * hd)
-    print(f"rwkv6_scan B={B} S={S} nH={nH} hd={hd}: max abs err vs plain "
-          f"{err:.3g}; {ms:.4f} ms (bound {b_ms:.4f} ms by {b_by}, plain "
-          f"{plain_ms:.4f} ms, no library call)")
+    print(f"rwkv6_scan: kernel {ms:.4f} ms per eager call, {g_ms:.4f} ms as "
+          f"a graph replay (bound {b_ms:.4f} ms by {b_by}: {b_ms / ms:.1%} "
+          f"eager, {b_ms / g_ms:.1%} replay); ops.rwkv6_scan {op_ms:.4f} ms; "
+          f"strong decay {strong_ms:.4f} ms; plain {plain_ms:.4f} ms, no "
+          f"library call; {rkk.col_split(hd)} blocks per head")
     out.append(dict(name="rwkv6_scan_kernel", route="cuda", source=RK_CU,
                     replaces=f"{RK_PY}:80", launches=0, max_abs_err=err,
-                    ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                    library_ms=None))
+                    ms=ms, graph_ms=g_ms, op_ms=op_ms,
+                    strong_decay_ms=strong_ms, plain_ms=plain_ms,
+                    bound_ms=b_ms, bound_by=b_by, library_ms=None))
     return out
 
 
@@ -841,18 +907,8 @@ def engine_phase(torch, layers: int, seed: int) -> dict:
         # CUDA events around each call of the path's kernel wrapper: the
         # stream time its calls span in the run (two event records per call)
         op = "ragged_fused_fwd" if ragged else "paged_attention_fused_fwd"
-        calls: list = []
-
-        def timed_op(*a, inner=getattr(pa_ops, op), **k):
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            out = inner(*a, **k)
-            end.record()
-            calls.append((start, end))
-            return out
         reset_launches()
-        with mock.patch.object(pa_ops, op, timed_op):
+        with timed_calls(torch, pa_ops, op) as calls:
             toks, snap, decode_steps, secs, _, spent = serve(
                 torch, cfg, params, page_impl="kernel", **kw)
         counts = launch_counts()
@@ -881,10 +937,7 @@ def engine_phase(torch, layers: int, seed: int) -> dict:
         split = ", ".join(f"{k} {v:.2f} s" for k, v in spent.items() if v)
         print(f"engine {path} kernel run, device time spanned: {split}, "
               f"rest {secs - sum(spent.values()):.2f} s")
-        op_s = sum(s.elapsed_time(e) for s, e in calls) / 1e3
-        print(f"engine {path} kernel run: its {len(calls)} {op} calls "
-              f"spanned {op_s:.4f} s of stream time, "
-              f"{op_s / max(len(calls), 1) * 1e3:.4f} ms per call")
+        print(f"engine {path} kernel run: {span_line(calls, op)}")
     return launches
 
 
@@ -899,6 +952,7 @@ def deepseek_phase(torch, seed: int) -> int:
     MLA decode, kernel against the ``page_impl="ref"`` oracle; returns the
     MLA kernel's launches on the kernel run."""
     from repro_torch.configs import get_config
+    from repro_torch.kernels.mla_attention import ops as mla_ops
     from repro_torch.models import moe as moe_mod
     from repro_torch.models import transformer as tfm
 
@@ -920,8 +974,9 @@ def deepseek_phase(torch, seed: int) -> int:
     kw = dict(prompt_lens=DS_PROMPT_LENS, seed=seed, num_blocks=128,
               max_seq_len=2048)
     reset_launches()
-    toks, snap, decode_steps, secs, _, spent = serve(
-        torch, cfg, params, page_impl="kernel", **kw)
+    with timed_calls(torch, mla_ops, "mla_paged_ctx_fwd") as calls:
+        toks, snap, decode_steps, secs, _, spent = serve(
+            torch, cfg, params, page_impl="kernel", **kw)
     counts = launch_counts()
     want = L * decode_steps
     if counts["mla_ctx"] != want or any(
@@ -937,6 +992,8 @@ def deepseek_phase(torch, seed: int) -> int:
           f"({ref_secs:.2f} s); mla_ctx launches {counts['mla_ctx']} = {L} x "
           f"{decode_steps} decode steps; {snap['engine.prefill_traces']} "
           f"prefill shapes; tokens match the oracle")
+    print(f"engine deepseek-v2 kernel run: "
+          f"{span_line(calls, 'mla_paged_ctx_fwd')}")
     for name, sp, total in (("kernel", spent, secs),
                             ("oracle", ref_spent, ref_secs)):
         split = ", ".join(f"{k} {v:.3f} s" for k, v in sp.items() if v)
@@ -1026,6 +1083,8 @@ def hybrid_phase(torch, name: str, seed: int) -> dict:
     and for Jamba ``attn_layer(impl="kernel")`` (flash attention) on layer
     4 against ``impl="chunked"``.  Returns each kernel's launches on the
     kernel runs."""
+    import importlib
+
     import numpy as np
     from repro_torch.models import attention as attn_mod
     from repro_torch.models import transformer as tfm
@@ -1050,9 +1109,13 @@ def hybrid_phase(torch, name: str, seed: int) -> dict:
                                                          HYBRID_PROMPT)),
                               dtype=torch.int32, device=DEVICE)
     launches = {scan: 0, "paged_decode": 0, "flash_attention": 0}
+    scan_ops = importlib.import_module(f"repro_torch.kernels.{scan}.ops")
     with torch.no_grad():
-        toks, _, (pre, dec), secs = greedy(torch, cfg, params, prompts,
-                                           impl="kernel", page_impl="kernel")
+        with timed_calls(torch, scan_ops, scan) as calls:
+            toks, _, (pre, dec), secs = greedy(
+                torch, cfg, params, prompts, impl="kernel",
+                page_impl="kernel")
+        print(f"{name} kernel prefill: {span_line(calls, f'ops.{scan}')}")
         expect_launches(pre, {scan: n_scan}, f"{name} prefill")
         expect_launches(dec, {"paged_decode": n_attn * HYBRID_NEW},
                         f"{name} decode")
@@ -1079,9 +1142,12 @@ def hybrid_phase(torch, name: str, seed: int) -> dict:
             reset_launches()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            loss[impl] = tfm.loss_fn(params, cfg, batch, impl=impl).item()
+            with timed_calls(torch, scan_ops, scan) as calls:
+                loss[impl] = tfm.loss_fn(params, cfg, batch, impl=impl).item()
             loss[impl + " s"] = time.perf_counter() - t0
             if impl == "kernel":
+                print(f"{name} kernel loss_fn: "
+                      f"{span_line(calls, f'ops.{scan}')}")
                 counts = launch_counts()
                 expect_launches(counts, {scan: n_scan}, f"{name} loss_fn")
                 launches[scan] += counts[scan]

@@ -5,8 +5,9 @@ kernel that returns ``cudaGetLastError()``), so each build is one ``nvcc``
 call of a few seconds: no PyTorch headers, no extension machinery.  Each
 source of :data:`SOURCES` is its own library in
 ``build/repro_torch_kernels/lib<hash>.so`` at the root of the checkout,
-keyed by a hash of the source and flags, built at first use (or all at
-once, in parallel, by :func:`build_all`).  Nothing here runs at import
+keyed by a hash of the source, the shared headers in ``kernels/csrc/``
+and the flags, built at first use (or all at once, in parallel, by
+:func:`build_all`).  Nothing here runs at import
 time, so the package imports on a machine without ``nvcc``.
 """
 
@@ -33,6 +34,9 @@ _KERNELS = Path(__file__).resolve().parent
 SOURCES = tuple(_KERNELS / name / "csrc" / f"{name}.cu" for name in (
     "paged_attention", "mla_attention", "mamba_scan", "rwkv6_scan",
     "flash_attention"))
+#: headers the sources include (``#include "../../csrc/<name>.cuh"``); part
+#: of every library's hash
+HEADERS = tuple(sorted((_KERNELS / "csrc").glob("*.cuh")))
 
 _LOADED: dict[str, ctypes.CDLL] = {}
 
@@ -47,7 +51,7 @@ def _nvcc() -> str:
 
 def library_path(sources) -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources:
+    for src in (*sources, *HEADERS):
         h.update(Path(src).read_bytes())
     return BUILD_DIR / f"lib{h.hexdigest()[:16]}.so"
 

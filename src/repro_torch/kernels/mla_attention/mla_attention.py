@@ -6,8 +6,11 @@
 through W_UK, the latent and rope-key pools, and the ``(W, Bs, M)``
 shard stack (slot ``b`` at shard ``b % W``, row ``b // W``).  On a CPU
 tensor it runs the plain version from ``ref.py``; on a CUDA tensor it
-launches the kernel on the current stream or raises.  :data:`LAUNCHES`
-counts kernel launches.
+launches the kernel on the current stream or raises.  The kernel splits
+each slot's pages (``split.py``): the wrapper sizes the split count and
+the partial-result scratch from shapes alone, and a call is the kernel
+and, past one split, its merge.  :data:`LAUNCHES` counts each wrapper
+call once.
 """
 
 from __future__ import annotations
@@ -19,8 +22,9 @@ from pathlib import Path
 import torch
 
 from repro_torch.kernels.mla_attention import ref
+from repro_torch.kernels.mla_attention import split as _split
 from repro_torch.kernels.paged_attention.paged_attention import (
-    _check, _heads_per_cta, _raise_on, _stream)
+    _check, _raise_on, _stream)
 
 #: kernel launches since the last :func:`reset_launches`
 LAUNCHES = {"mla_ctx": 0}
@@ -29,8 +33,8 @@ SOURCE = Path(__file__).parent / "csrc" / "mla_attention.cu"
 _TILE = 32
 _MAX_RANK = 512
 _MAX_ROPE = 64
-#: heads per CTA (two warps each)
-_MAX_HG = 8
+#: heads per CTA: one 16-row MMA tile (fixed in the .cu)
+HEADS_PER_CTA = 16
 
 
 def reset_launches() -> None:
@@ -43,8 +47,7 @@ def _lib() -> ctypes.CDLL:
     from repro_torch.kernels import _build
     lib = _build.load((SOURCE,))
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.mla_ctx_launch.argtypes = [p, p, p, p, p, p, p,
-                                   i, i, i, i, i, i, i, i, i, f, p]
+    lib.mla_ctx_launch.argtypes = [p] * 9 + [i] * 8 + [f, i, i, p]
     lib.mla_ctx_launch.restype = i
     return lib
 
@@ -85,20 +88,25 @@ def mla_paged_ctx_fwd(q_lat: torch.Tensor, q_rope: torch.Tensor,
             raise ValueError(f"{name} is not 16-byte aligned")
     _check("tables", tables, torch.int32, dev)
     _check("lengths", lengths, torch.int32, dev)
-    if rank % 4 or rank > _MAX_RANK or rope % 4 or rope > _MAX_ROPE:
+    if rank % 8 or rank > _MAX_RANK or rope % 8 or rope > _MAX_ROPE:
         raise ValueError(f"rank {rank} / rope_hd {rope} unsupported: the "
-                         f"kernel takes multiples of 4 up to {_MAX_RANK} / "
+                         f"kernel takes multiples of 8 up to {_MAX_RANK} / "
                          f"{_MAX_ROPE}")
     if bs % _TILE:
         raise ValueError(f"block size {bs} is not a multiple of {_TILE}")
     out = torch.empty(B, H, rank, dtype=torch.float32, device=dev)
     if B == 0:
         return out
+    nsplit = _split.num_splits(M * bs, _split.MLA_SPLIT)
+    shapes = _split.scratch_shapes(out.shape, nsplit)
+    scratch = ([torch.empty(sh, dtype=torch.float32, device=dev)
+                for sh in shapes] if shapes else [])
+    ptrs = [t.data_ptr() for t in scratch] or [None, None]
     code = _lib().mla_ctx_launch(
         q_lat.data_ptr(), q_rope.data_ptr(), c_pool.data_ptr(),
         rope_pool.data_ptr(), tables.data_ptr(), lengths.data_ptr(),
-        out.data_ptr(), B, H, _heads_per_cta(H, _MAX_HG), rank, rope, bs, W,
-        Bs, M, scale, _stream(dev))
+        out.data_ptr(), *ptrs, B, H, rank, rope, bs, W, Bs, M, scale,
+        _split.MLA_SPLIT, nsplit, _stream(dev))
     _raise_on(code, "mla_ctx_kernel")
     LAUNCHES["mla_ctx"] += 1
     return out

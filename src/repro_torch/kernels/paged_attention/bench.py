@@ -46,10 +46,11 @@ RAGGED_ROWS = ((0, 300, 0), (1, 200, 256), (2, 77, 1024), (3, 1, 1999),
                (4, 1, 0), (5, 1, 4095), (6, 256, 512))
 
 
-def ptxas_report() -> str:
+def ptxas_report(src: Path = Path(pa.__file__).parent / "csrc" /
+                 "paged_attention.cu") -> str:
     """nvcc's ``-Xptxas -v`` lines (registers, spills) for every kernel
-    of the paged-attention source, built as the port builds it."""
-    src = Path(pa.__file__).parent / "csrc" / "paged_attention.cu"
+    of a kernel source (the paged-attention one by default), built as the
+    port builds it."""
     proc = subprocess.run(
         [_build._nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
          "-std=c++17", "-O3", "-c", "-Xptxas", "-v", "-o", os.devnull,

@@ -78,6 +78,8 @@
 
 #include <atomic>
 
+#include "../../csrc/tf32x3.cuh"
+
 namespace {
 
 constexpr int TILE = 32;                    // key tokens per ring slot
@@ -382,54 +384,8 @@ paged_decode_kernel(const float* __restrict__ q, const float* __restrict__ kbase
 }
 
 // ------------------------------------------------------------------ ragged
-__device__ __forceinline__ uint32_t to_tf32(float x) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
-  return r;
-}
-
-// x = big + small, each a TF32 value.
-__device__ __forceinline__ void split_tf32(float x, uint32_t& big, uint32_t& small) {
-  big = to_tf32(x);
-  small = to_tf32(__fsub_rn(x, __uint_as_float(big)));
-}
-
-__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, "
-      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// A operand of one m16n8k8 step, split once and reused across n-tiles.
-struct Frag3 {
-  uint32_t big[4], small[4];
-  __device__ __forceinline__ void set(const float (&a)[4]) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) split_tf32(a[i], big[i], small[i]);
-  }
-};
-
-// c[n] += a * b[n] in 3xTF32 for N n-tiles: per accumulator the two small
-// cross terms first, then big * big, each round issued over all N n-tiles
-// so that N independent MMA chains interleave.
-template <int N>
-__device__ __forceinline__ void mma3(float (&c)[N][4], const Frag3& a, const float (&b0)[N],
-                                     const float (&b1)[N]) {
-  uint32_t bb0[N], bs0[N], bb1[N], bs1[N];
-#pragma unroll
-  for (int n = 0; n < N; ++n) {
-    split_tf32(b0[n], bb0[n], bs0[n]);
-    split_tf32(b1[n], bb1[n], bs1[n]);
-  }
-#pragma unroll
-  for (int n = 0; n < N; ++n) mma_tf32(c[n], a.small, bb0[n], bb1[n]);
-#pragma unroll
-  for (int n = 0; n < N; ++n) mma_tf32(c[n], a.big, bs0[n], bs1[n]);
-#pragma unroll
-  for (int n = 0; n < N; ++n) mma_tf32(c[n], a.big, bb0[n], bb1[n]);
-}
+// 3xTF32 helpers: to_tf32, split_tf32, mma_tf32, Frag3, mma3 (kernels/csrc/tf32x3.cuh).
+using namespace tf32x3;
 
 // Row strides of the ragged tiles for HD = 32 * KQ padded columns: Q and K
 // at HD + 4 (= 4 mod 32: the A and B fragment reads of a warp hit 32

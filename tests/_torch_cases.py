@@ -166,6 +166,33 @@ MLA = [dict(W=1), dict(W=2), dict(W=4), dict(W=4, B=7, M=3),
        dict(W=1, H=16, rank=512, rope=64, M=2, B=3)]
 
 
+def mla_split_case(seed, *, W, H, rank, rope, bs=128, M=4):
+    """MLA inputs whose token axis spans two splits of ``MLA_SPLIT`` = 256
+    (M * bs = 512): lengths 1, 255, 256 and 257 (a split's edges), a full
+    slot whose pages 1 and 2 are holes (across the split boundary), a slot
+    of 300 tokens whose second split is all holes, and a slot of length 0."""
+    rng = np.random.RandomState(seed)
+    B = 7
+    N = B * M + 3
+    mono, _ = tables(rng, B, M, N, 1)
+    lengths = np.array([1, 255, 256, 257, M * bs, 300, 0], np.int32)
+    mono[4, 1:3] = -1
+    mono[5, 2:] = -1
+    mono[6] = -1
+    return dict(q_lat=rand(rng, B, H, rank), q_rope=rand(rng, B, H, rope),
+                c=rand(rng, N, bs, rank), kr=rand(rng, N, bs, rope),
+                mono=mono, stack=shard_stack(mono, W), lengths=lengths,
+                scale=float((16 + rope) ** -0.5))
+
+
+#: W in {1, 4}; H below, above and at the kernel's 16 heads per block;
+#: DeepSeek-V2's rank and rope
+MLA_SPLITS = [dict(W=1, H=4, rank=32, rope=8),
+              dict(W=4, H=20, rank=64, rope=16),
+              dict(W=4, H=16, rank=512, rope=64),
+              dict(W=1, H=32, rank=512, rope=64)]
+
+
 def softplus(a):
     return np.logaddexp(0.0, a).astype(np.float32)
 
@@ -202,6 +229,31 @@ def rwkv6_case(seed, *, B, S, nH, hd, chunk=32):
                 u=(0.1 * rand(rng, nH, hd)).astype(np.float32),
                 S0=(0.1 * rand(rng, B, nH, hd, hd)).astype(np.float32),
                 chunk=chunk)
+
+
+def rwkv6_strong_case(seed, *, B, S, nH, hd, zero_w=True):
+    """WKV inputs with strong decays on the even heads: log w as in
+    :func:`rwkv6_case`, times 4 and clipped at -5, so their chunks of 32
+    fall past the kernel's decay limit (cum log w < -60) and take the
+    sequential path, while the odd heads stay in direct form; with
+    ``zero_w`` one decay is exactly 0 (log w = -inf)."""
+    c = rwkv6_case(seed, B=B, S=S, nH=nH, hd=hd)
+    logw = np.log(c["w"])
+    logw[:, :, ::2] = np.maximum(4 * logw[:, :, ::2], -5.0)
+    c["w"] = np.exp(logw).astype(np.float32)
+    if zero_w:
+        c["w"][0, min(S - 1, 40), 0, 3] = 0.0
+    return c
+
+
+#: (case, col_split): tails (S not a multiple of 32), head sizes 16/32/64,
+#: every column split the kernel takes
+RWKV6_CHUNKED = [(dict(B=2, S=45, nH=3, hd=32), 1),
+                 (dict(B=2, S=45, nH=3, hd=32), 4),
+                 (dict(B=1, S=100, nH=4, hd=64), 2),
+                 (dict(B=1, S=100, nH=4, hd=64), 4),
+                 (dict(B=2, S=32, nH=2, hd=16), 2),
+                 (dict(B=1, S=70, nH=2, hd=64), 1)]
 
 
 RWKV6 = [dict(B=2, S=32, nH=2, hd=16, chunk=16),

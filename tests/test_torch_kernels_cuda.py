@@ -20,10 +20,16 @@ from repro_torch.kernels.paged_attention import ops as tops  # noqa: E402
 from repro_torch.kernels.paged_attention import paged_attention as tpa  # noqa: E402
 from repro_torch.kernels.rwkv6_scan import ops as trkops  # noqa: E402
 from repro_torch.kernels.rwkv6_scan import rwkv6_scan as trk  # noqa: E402
-from _torch_cases import (FLASH, MAMBA, MLA, PAGED, PAGED_SPLITS,  # noqa: E402
-                          RAGGED, RAGGED_SPLITS, RWKV6, flash_case,
-                          mamba_case, mla_case, paged_case, paged_split_case,
-                          ragged_case, ragged_split_case, rwkv6_case)
+from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels.mla_attention import ref as tmref  # noqa: E402
+from repro_torch.kernels.mla_attention import split as tmsplit  # noqa: E402
+from repro_torch.kernels.rwkv6_scan import ref as trkref  # noqa: E402
+from _torch_cases import (FLASH, MAMBA, MLA, MLA_SPLITS, PAGED,  # noqa: E402
+                          PAGED_SPLITS, RAGGED, RAGGED_SPLITS, RWKV6,
+                          RWKV6_CHUNKED, flash_case, mamba_case, mla_case,
+                          mla_split_case, paged_case, paged_split_case,
+                          ragged_case, ragged_split_case, rwkv6_case,
+                          rwkv6_strong_case)
 
 TOL = dict(rtol=2e-5, atol=2e-5)
 
@@ -206,3 +212,117 @@ def test_kernels_refuse_inputs_that_require_grad(cuda):
         tfops.flash_attention(q, q, q)
     with torch.no_grad():
         assert torch.isfinite(tfops.flash_attention(q, q, q)).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", MLA_SPLITS, ids=str)
+def test_mla_kernel_splits_match_plain_on_card(cuda, case):
+    """Two splits of 256 tokens: lengths 1, 255, 256 and 257, holes across
+    the split boundary, a split made wholly of holes, a slot of length 0
+    (exact 0); H below, above and at 16 heads a block; W in {1, 4}."""
+    c = mla_split_case(18, **case)
+    args = [t(c[k], cuda) for k in ("q_lat", "q_rope", "c", "kr", "stack",
+                                    "lengths")]
+    got = _launched(tmk, "mla_ctx", lambda: tmk.mla_paged_ctx_fwd(
+        *args, scale=c["scale"]))
+    again = tmk.mla_paged_ctx_fwd(*args, scale=c["scale"])
+    cpu = [a.cpu() for a in args]
+    plain = tmref.mla_paged_ctx_ref(*cpu, scale=c["scale"])
+    merged = tmsplit.merge_partials(*tmsplit.mla_partials_ref(
+        *cpu, scale=c["scale"]))
+    assert torch.equal(got, again)
+    assert torch.isfinite(got).all()
+    close(got, plain.numpy())
+    close(got, merged.numpy())
+    assert not got.cpu()[t(c["lengths"] == 0)].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case,col_split", RWKV6_CHUNKED, ids=str)
+def test_rwkv6_kernel_col_splits_match_sequential_on_card(cuda, case,
+                                                          col_split,
+                                                          monkeypatch):
+    """Every column split the kernel takes, tails of S not a multiple of
+    32, head sizes 16/32/64: within 2e-4 x max(1, |want|) of the
+    sequential oracle (the reference's tolerance)."""
+    c = rwkv6_case(19, **case)
+    monkeypatch.setattr(trk, "_COL_SPLIT", col_split)
+    assert trk.col_split(case["hd"]) == col_split
+    args = [t(c[k], cuda) for k in ("r", "k", "v", "w", "u", "S0")]
+    y, s = _launched(trk, "rwkv6_scan", lambda: trkops.rwkv6_scan(*args))
+    wy, ws = trkref.rwkv6_scan_ref(*(a.cpu() for a in args))
+    for got, want in ((y, wy), (s, ws)):
+        scale = max(1.0, want.abs().max().item())
+        np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=0,
+                                   atol=2e-4 * scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("zero_w", [False, True])
+def test_rwkv6_kernel_strong_decay_takes_the_sequential_path_on_card(
+        cuda, zero_w):
+    """Chunks past the decay limit (log w down to -5, and a w of exactly
+    0) run the kernel's sequential path: finite, and within the
+    reference's tolerance of the oracle."""
+    c = rwkv6_strong_case(20, B=2, S=75, nH=4, hd=64, zero_w=zero_w)
+    args = [t(c[k], cuda) for k in ("r", "k", "v", "w", "u", "S0")]
+    assert not trkref.fast_chunks(args[3].cpu()).all()
+    y, s = _launched(trk, "rwkv6_scan", lambda: trkops.rwkv6_scan(*args))
+    wy, ws = trkref.rwkv6_scan_ref(*(a.cpu() for a in args))
+    for got, want in ((y, wy), (s, ws)):
+        assert torch.isfinite(got).all()
+        scale = max(1.0, want.abs().max().item())
+        np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=0,
+                                   atol=2e-4 * scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["token_major", "strided", "unaligned"])
+def test_rwkv6_op_reads_token_major_strides_on_card(cuda, layout):
+    """``ops.rwkv6_scan`` hands the kernel token-major views: contiguous
+    (B, S, nH, hd), heads taken out of a wider tensor (other strides), or
+    rows off 16-byte alignment (copied first); y comes back token-major
+    and equal to the oracle's."""
+    c = rwkv6_case(21, B=2, S=45, nH=3, hd=32)
+    base = [t(c[k], cuda) for k in ("r", "k", "v", "w")]
+    if layout == "strided":
+        base = [torch.cat([x, torch.ones_like(x)], dim=2)[:, :, :3]
+                for x in base]
+    elif layout == "unaligned":
+        base = [torch.cat([torch.ones_like(x[..., :1]), x], dim=-1)[..., 1:]
+                for x in base]
+    args = [*base, t(c["u"], cuda), t(c["S0"], cuda)]
+    y, s = _launched(trk, "rwkv6_scan", lambda: trkops.rwkv6_scan(*args))
+    assert y.shape == (2, 45, 3, 32)
+    wy, ws = trkref.rwkv6_scan_ref(*(a.cpu() for a in args))
+    for got, want in ((y, wy), (s, ws)):
+        scale = max(1.0, want.abs().max().item())
+        np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=0,
+                                   atol=2e-4 * scale)
+
+
+@pytest.mark.cuda
+def test_wrappers_raise_when_the_library_fails_to_load(cuda, monkeypatch):
+    """No silent plain run on the card: a wrapper whose library does not
+    build or load raises, and counts no launch."""
+    def broken(sources):
+        raise RuntimeError("nvcc failed (test)")
+    monkeypatch.setattr(_build, "load", broken)
+    for mod in (tmk, trk):
+        mod._lib.cache_clear()
+    try:
+        m = mla_case(22, **MLA[0])
+        margs = [t(m[k], cuda) for k in ("q_lat", "q_rope", "c", "kr",
+                                         "stack", "lengths")]
+        r = rwkv6_case(22, **RWKV6[0])
+        rargs = [t(r[k], cuda) for k in ("r", "k", "v", "w", "u", "S0")]
+        before = (tmk.LAUNCHES["mla_ctx"], trk.LAUNCHES["rwkv6_scan"])
+        with pytest.raises(RuntimeError, match="nvcc failed"):
+            tmk.mla_paged_ctx_fwd(*margs, scale=m["scale"])
+        with pytest.raises(RuntimeError, match="nvcc failed"):
+            trkops.rwkv6_scan(*rargs)
+        assert (tmk.LAUNCHES["mla_ctx"], trk.LAUNCHES["rwkv6_scan"]) == before
+    finally:
+        monkeypatch.undo()
+        for mod in (tmk, trk):
+            mod._lib.cache_clear()
