@@ -19,18 +19,20 @@ of which fails the script:
      the absorbed-MLA paged decode kernel, with W in {1, 4}, holes and a
      slot of length 0;
    - the Mamba selective scan at Jamba's widths (B=2, S=2000, DI=8192,
-     N=16) and the RWKV-6 WKV scan at RWKV-6-7B's (B=2, S=2000, 64 heads
+     N=16; B and C column views of the x_proj output, as the model makes
+     them) and the RWKV-6 WKV scan at RWKV-6-7B's (B=2, S=2000, 64 heads
      of 64), nonzero initial states; the RWKV-6 scan also with strong
      decays on half the heads (log w down to -5), whose chunks take the
      kernel's sequential path.
    Each kernel is timed with CUDA events beside its bound, its plain
    version and, for the attention kernels, one PyTorch library call (SDPA,
-   a yardstick the port never calls); ``ms`` is one eager call.  The
-   paged-attention, MLA and RWKV-6 kernels are also timed as one replay
-   of a CUDA graph of the call (``graph_ms``, the device time of their
-   launches); the kernels on the tensor cores give their 3xTF32 bound
-   beside the f32 one, the split-K kernels their geometry and scratch,
-   and the RWKV-6 row ``ops.rwkv6_scan``'s time beside the kernel's;
+   a yardstick the port never calls); ``ms`` is one eager call.  Every
+   kernel is also timed as one replay of a CUDA graph of the call
+   (``graph_ms``, the device time of its launches); the kernels on the
+   tensor cores give their 3xTF32 bound beside the f32 one, the Mamba
+   scan its ex2 floor beside the bytes, the split-K kernels their
+   geometry and scratch, and the flash, Mamba and RWKV-6 rows their op's
+   time (``op_ms``, on the model's layout) beside the kernel's;
 3. serve granite-3-8b at full width and depth (random f32 weights from a
    seeded generator) through the chunked path (decode through the paged
    decode kernel) and the ragged path (ragged kernel), each against the
@@ -52,7 +54,8 @@ of which fails the script:
    time the scan op's calls spanned in prefill and in ``loss_fn`` is
    printed.
 
-Prints the card's name and power limit, tokens/s per run, one
+Prints the card's name and power limit, tokens/s per run, the script's
+wall time, one
 ``{"kernels": [...]}`` JSON line (one entry per TPU kernel of the
 reference) and, last, ``{"ok": true, "device": {...}}``.  Exits non-zero,
 printing no result, without a CUDA device or without the rest of the
@@ -77,6 +80,9 @@ ROOT = Path(__file__).resolve().parent
 PEAK_BYTES_S = 3.35e12      # H100 SXM HBM3 (data sheet)
 PEAK_F32_S = 67e12          # H100 SXM float32 outside the tensor cores
 PEAK_TF32_S = 495e12        # H100 SXM TF32 on the tensor cores (dense)
+# H100 SXM ex2 on the SFUs: 16 a clock on each of 132 SMs at the 1.98 GHz
+# boost clock (CUDA programming guide, arithmetic instruction throughput)
+PEAK_EX2_S = 16 * 132 * 1.98e9
 TOL = 2e-5                  # f32: kernel and plain version sum in other orders
 PA = "src/repro/kernels/paged_attention/paged_attention.py"
 CU = "src/repro_torch/kernels/paged_attention/csrc/paged_attention.cu"
@@ -581,8 +587,8 @@ FA_CU = "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu"
 # the reference's kernel-test tolerances (tests/test_kernels.py), scaled by
 # max(1, max|want|)
 MS_TOL, RK_TOL = 1e-5, 2e-4
-SCAN_B, SCAN_S = 2, 2000      # not a multiple of the ops' chunks: pads
-MS_DI, MS_N = 8192, 16        # Jamba: d_inner, d_state
+SCAN_B, SCAN_S = 2, 2000      # a multiple of no chunk of the kernels
+MS_DI, MS_N, MS_R = 8192, 16, 256   # Jamba: d_inner, d_state, dt_rank
 RK_NH, RK_HD = 64, 64         # RWKV-6-7B: heads, head size
 # flash: Jamba's attention (causal) and h2o-danube-3-4b (window 4096)
 FLASH_CASES = (dict(name="jamba causal", B=1, S=4096, H=32, KV=8, hd=128,
@@ -613,9 +619,11 @@ def scan_kernel_phase(torch, seed: int) -> list[dict]:
 
     out = []
     B, S, DI, N = SCAN_B, SCAN_S, MS_DI, MS_N
+    # B and C as the model makes them: column views of the x_proj output
+    _, Bv, Cv = randn(B, S, MS_R + 2 * N).split([MS_R, N, N], dim=-1)
     args = (torch.nn.functional.softplus(randn(B, S, DI)),
-            -torch.exp(0.2 * randn(DI, N)), randn(B, S, N), randn(B, S, N),
-            randn(B, S, DI), randn(B, DI, N))
+            -torch.exp(0.2 * randn(DI, N)), Bv, Cv, randn(B, S, DI),
+            randn(B, DI, N))
     y, h = msops.mamba_scan(*args)
     wy, wh = msref.mamba_scan_ref(*args)
     torch.cuda.synchronize()
@@ -625,22 +633,34 @@ def scan_kernel_phase(torch, seed: int) -> list[dict]:
         if not math.isfinite(e) or e > MS_TOL * sc:
             fail(f"mamba_scan {what}: max abs err {e} > {MS_TOL} x {sc:.3g}")
         err = max(err, e)
-    # the kernel at the padded shapes ops gives it (S to a multiple of 64)
-    dt, A, Bc, Cc, x, h0 = args
-    dt, Bc, Cc, x = (torch.nn.functional.pad(t, (0, 0, 0, (-S) % 64))
-                     for t in (dt, Bc, Cc, x))
-    ms = time_ms(torch, lambda: msk.mamba_scan_fwd(dt, A, Bc, Cc, x, h0))
+    # the kernel on contiguous inputs at S 2000, and the op as the model
+    # calls it (the kernel reads B and C through their strides)
+    kargs = [t.contiguous() for t in args]
+
+    def kernel():
+        return msk.mamba_scan_fwd(*kargs)
+    ms, g_ms = time_ms(torch, kernel), graph_ms(torch, kernel)
+    op_ms = time_ms(torch, lambda: msops.mamba_scan(*args))
     plain_ms = time_ms(torch, lambda: msref.mamba_scan_ref(*args), reps=3,
                        warmup=1)
     nbytes = 4 * (3 * B * S * DI + 2 * B * S * N + DI * N + 2 * B * DI * N)
     b_ms, b_by = bound(nbytes, 7 * B * S * DI * N)
+    # the exponentials on the SFUs: one ex2 per state and step
+    ex2_ms = B * S * DI * N / PEAK_EX2_S * 1e3
     print(f"mamba_scan B={B} S={S} DI={DI} N={N}: max abs err vs plain "
-          f"{err:.3g}; {ms:.4f} ms (bound {b_ms:.4f} ms by {b_by}, plain "
-          f"{plain_ms:.4f} ms, no library call)")
+          f"{err:.3g}; kernel {ms:.4f} ms per eager call, {g_ms:.4f} ms as "
+          f"a graph replay (bound {b_ms:.4f} ms by {b_by}: {b_ms / ms:.1%} "
+          f"eager, {b_ms / g_ms:.1%} replay; ex2 floor {ex2_ms:.4f} ms: "
+          f"{ex2_ms / ms:.1%}, {ex2_ms / g_ms:.1%}); ops.mamba_scan "
+          f"{op_ms:.4f} ms; plain {plain_ms:.4f} ms, no library call; "
+          f"{msk.CHANNELS_PER_BLOCK} channels a block, a ring of "
+          f"{msk.RING_STAGES} stages of {msk.STEPS_PER_STAGE} steps")
     out.append(dict(name="mamba_scan_kernel", route="cuda", source=MS_CU,
                     replaces=f"{MS_PY}:57", launches=0, max_abs_err=err,
-                    ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                    ms=ms, graph_ms=g_ms, op_ms=op_ms, plain_ms=plain_ms,
+                    bound_ms=b_ms, bound_by=b_by, bound_ex2_ms=ex2_ms,
                     library_ms=None))
+    del kargs
 
     nH, hd = RK_NH, RK_HD
     sh = (B, S, nH, hd)
@@ -722,8 +742,12 @@ def flash_kernel_phase(torch, seed: int) -> dict:
         err = max(err, e)
         del want
         qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-        ms = time_ms(torch, lambda: fak.flash_attention_fwd(
-            qh, kh, vh, causal=True, window=W))
+
+        def kernel():
+            return fak.flash_attention_fwd(qh, kh, vh, causal=True, window=W)
+        ms, g_ms = time_ms(torch, kernel), graph_ms(torch, kernel)
+        op_ms = time_ms(torch, lambda: faops.flash_attention(
+            q, k, v, causal=True, window=W))
         plain_ms = time_ms(torch, lambda: faref.flash_attention_ref(
             q, k, v, causal=True, window=W), reps=5, warmup=1)
         if W is None:
@@ -735,22 +759,30 @@ def flash_kernel_phase(torch, seed: int) -> dict:
         lib_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
             qh, kh, vh, enable_gqa=True, **sdpa))
         pairs = sum(min(i + 1, W or S) for i in range(S))
-        b_ms, b_by = bound(4 * B * S * (2 * H + 2 * KV) * hd,
-                           4 * hd * pairs * H * B)
+        nbytes = 4 * B * S * (2 * H + 2 * KV) * hd
+        flops = 4 * hd * pairs * H * B
+        b_ms, b_by = bound(nbytes, flops)
+        # the same work on the tensor cores in 3xTF32
+        tc_ms = max(nbytes / PEAK_BYTES_S, 3 * flops / PEAK_TF32_S) * 1e3
         print(f"flash {c['name']} B={B} S={S} H={H} KV={KV} hd={hd} "
-              f"window={W}: max abs err vs plain {e:.3g}; {ms:.4f} ms (bound "
-              f"{b_ms:.4f} ms by {b_by}, plain {plain_ms:.4f} ms, sdpa "
-              f"{lib_ms:.4f} ms; {4 * hd * pairs * H * B / ms / 1e9:.2f} "
-              f"TFLOP/s)")
+              f"window={W}: max abs err vs plain {e:.3g}; kernel {ms:.4f} ms "
+              f"per eager call ({flops / ms / 1e9:.2f} TFLOP/s), {g_ms:.4f} "
+              f"ms as a graph replay ({flops / g_ms / 1e9:.2f} TFLOP/s); f32 "
+              f"CUDA-core bound {b_ms:.4f} ms by {b_by} ({b_ms / ms:.1%}, "
+              f"{b_ms / g_ms:.1%}); 3xTF32 tensor-core bound {tc_ms:.4f} ms "
+              f"({tc_ms / ms:.1%}, {tc_ms / g_ms:.1%}); ops.flash_attention "
+              f"on (B, S, H, hd) {op_ms:.4f} ms; plain {plain_ms:.4f} ms, "
+              f"sdpa {lib_ms:.4f} ms; tiles of {fak.BLOCK_Q} query rows x "
+              f"{fak.BLOCK_K} keys, a ring of {fak.RING_STAGES}")
+        timing = dict(ms=ms, graph_ms=g_ms, op_ms=op_ms, plain_ms=plain_ms,
+                      bound_ms=b_ms, bound_by=b_by, bound_3xtf32_ms=tc_ms,
+                      library_ms=lib_ms)
         if row is None:
             row = dict(name="flash_fwd_kernel", route="cuda", source=FA_CU,
-                       replaces=f"{FA_PY}:93", launches=0, ms=ms,
-                       plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                       library_ms=lib_ms, variants=[])
+                       replaces=f"{FA_PY}:93", launches=0, **timing,
+                       variants=[])
         else:
-            row["variants"].append(dict(name=c["name"], ms=ms,
-                                        plain_ms=plain_ms, bound_ms=b_ms,
-                                        bound_by=b_by, library_ms=lib_ms))
+            row["variants"].append(dict(name=c["name"], **timing))
         del q, k, v, qh, kh, vh, got
         torch.cuda.empty_cache()
     row["max_abs_err"] = err
@@ -1196,6 +1228,7 @@ def main() -> int:
                     help="build and check the kernels only (prints no "
                          "result line)")
     args = ap.parse_args()
+    start = time.perf_counter()
     try:
         import torch
     except ImportError:
@@ -1250,6 +1283,8 @@ def main() -> int:
         if name != "paged_decode" or i == decode_row:
             kernels[i]["launches"] = launches[name]
     print(f"card: {card_line()}")
+    print(f"chip_smoke: wall time {time.perf_counter() - start:.1f} s (the "
+          f"kernels' build included)")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -13,230 +13,484 @@
 // sees no key at all writes 0.
 //
 // Bound on this card: operations.  Each visible (query, key) pair costs
-// 4*hd flops (QK^T and PV) while each byte of Q, K, V and O crosses HBM once:
-// at Jamba's S = 4096, hd = 128 that is hundreds of flops per byte, far
-// above the f32 ridge of about 20.  The least time is the visible pairs'
-// flops over the f32 CUDA-core peak (no tensor cores here).
+// 4*hd flops (QK^T and PV), hundreds of flops per byte of Q, K, V and O at
+// Jamba's S = 4096, hd = 128.  Two bounds: the f32 CUDA-core peak (67
+// TFLOP/s: 2.05 ms at Jamba causal S 4096) and, for this kernel's tensor-
+// core products, three TF32 products per f32 product at 495 TFLOP/s (0.83
+// ms).
+//
+// Step 0 (the previous kernel: CUDA-core f32, 64 x 64 tiles, synchronous K/V
+// loads between barriers; bench.py on an H100 SXM at 700 W): 21.5-22.8
+// TFLOP/s at S 1024-8192 (32-34% of the f32 peak, 13-14% of the 3xTF32
+// one), 106 registers.  A CUDA-core design cannot go below the f32 bound,
+// so the products move to the tensor cores.
 //
 // Design:
-//   * Grid (Sq / 64, H, B): one block per 64-row query tile of one head,
-//     walking its visible 64-key tiles with the running max, sum and output
-//     in registers.  Tiles fully masked by causality, the window or sk_valid
-//     are never loaded; causal tiles run heaviest first.
-//   * 256 threads as a 16 x 16 grid; thread (ty, tx) owns query rows
-//     ty + 16i and keys tx + 16j (i, j < 4) of the 64 x 64 score tile, so
-//     the 16 threads of a row sit in one half-warp and reduce the row's max
-//     and sum with four shuffles.  Q and K rows are padded to hd + 4 floats,
-//     so the float4 reads of 8 consecutive key rows hit distinct banks;
-//     every 8 float4 reads feed 64 FMAs.
-//   * P goes through shared memory transposed, each thread's four rows
-//     contiguous (one float4 read per key in PV); thread (ty, tx) owns
-//     output columns 4tx..4tx+3 and 64+4tx..64+4tx+3 of its four rows.
-//   * Q, K and V tiles are loaded with coalesced 16-byte reads; rows past
-//     the buffers read zeros.  115 KiB of dynamic shared memory, one block
-//     per SM.
-// Tensor cores (TF32 with a 3xTF32 split to keep f32 accuracy, or bf16
-// wgmma), TMA and a cp.async ring over K/V tiles are later work.
+//   * Both products run on mma.sync.m16n8k8 in 3xTF32 (x = big + small,
+//     three TF32 products, f32 sums; kernels/csrc/tf32x3.cuh's mma_tf32),
+//     which keeps f32 accuracy.  The split clears the 13 low mantissa bits
+//     for big (the MMA reads only the top bits, so big costs nothing) and
+//     takes small = x - big with one FADD.  A block is NW = 8 warps and BQ
+//     = 128 query rows of one head; each warp owns 16 rows and walks the
+//     block's BK = 64-key tiles.
+//   * QK^T: the 16 x 64 scores of a warp are 8 n-tiles of accumulators.
+//     The head dimension is the reduction, so its order is free: lane quad
+//     q takes dims 16p + 4q .. 16p + 4q + 3 for the k-step pair p.  Q is
+//     staged once per block in fragment order (rows g and g + 8
+//     interleaved), so one 16-byte read is an A fragment; one 16-byte read
+//     of a K row (rows padded to 16 mod 32 floats: conflict-free) is the B
+//     fragments of two k-steps.
+//   * The online softmax runs on the score fragments: a row's max is a
+//     max over the thread's 16 scores and the 4 lanes of its quad (two
+//     shuffles); its sum stays per thread until the end.  exp is ex2 of
+//     s * scale * log2(e) minus the scaled running max.  Tiles that mask
+//     nothing for a warp skip the mask; tiles that mask everything for a
+//     warp skip its MMAs.
+//   * PV: P's A fragment is the score accumulator itself: the k-step over
+//     the tile's 8-key group j maps tokens 2q, 2q + 1 to lane quad q.  V is
+//     staged by key pairs (keys 2r, 2r + 1 side by side, pair rows padded
+//     to 8 mod 32 floats) and the output dims are permuted in pairs of
+//     n-tiles (n-tile 2m col c -> dim 16m + 2c, 2m + 1 -> 16m + 2c + 1), so
+//     one conflict-free 16-byte read is the B fragments of two n-tiles and
+//     each lane's 4 dims of a row are contiguous: the output leaves as
+//     float4 stores.
+//   * K and V tiles stream through a two-stage cp.async ring (K rows in
+//     16-byte copies, V elements in 4-byte copies to their pair slots):
+//     tile j + 1 is in flight while tile j is computed.  Fully masked
+//     tiles (causal, window, sk_valid) are never loaded, keys past
+//     sk_valid read zeros, and causal tiles run heaviest first.
+//   * q, k, v and out are read and written through their (batch, head,
+//     row) strides (last stride 1, rows 16-byte aligned), so the model's
+//     (B, S, H, hd) tensors need no transposed copy.  The head dimension
+//     is padded to a multiple of 16 (HDP; Q and K pads read as zeros),
+//     instantiated for HDP in {16, 32, 48, 64, 96, 128}.
+// Measured (bench.py, same card): about 50 TFLOP/s at Jamba causal S 4096
+// (30% of the 3xTF32 bound, 182 registers, no spills).  Tried and not
+// kept: the rounded (cvt.rna) split, 20% slower; Q and V read row-major,
+// whose fragments the compiler gathered with register moves, about 7%
+// slower (across calls); 32-key tiles with two or three stages and 4 warps
+// a block, 4-12% slower.
+// Left: wgmma (tf32 takes K-major B only: PV needs V transposed in shared
+// memory) and TMA.
 
 #include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "../../csrc/tf32x3.cuh"
 
 namespace {
 
-constexpr int BQ = 64;            // query rows per block
+constexpr int NW = 8;             // warps per block, 16 query rows each
+constexpr int BQ = NW * 16;       // query rows per block
+constexpr int NT = NW * 32;
 constexpr int BK = 64;            // keys per tile
+constexpr int NJ = BK / 8;        // score n-tiles (key groups of 8) a tile
+constexpr int STAGES = 2;         // K/V ring
 constexpr int MAX_HD = 128;
-constexpr int LDQ = MAX_HD + 4;   // padded Q and K rows
-constexpr int LDV = MAX_HD;
-constexpr int LDP = BQ + 4;       // P^T rows
-constexpr int NT = 256;
 constexpr float NEG_INF = -1e30f;
+constexpr float LOG2E = 1.4426950408889634f;
 
-constexpr size_t SMEM_BYTES = sizeof(float) * (BQ * LDQ + BK * LDQ + BK * LDV + BK * LDP);
+struct Params {
+  const float* q;
+  const float* k;
+  const float* v;
+  float* o;
+  long long q_b, q_h, q_s, k_b, k_h, k_s, v_b, v_h, v_s, o_b, o_h, o_s;
+  int H, KV, Sq, Sk, hd, sk_valid, q_offset, causal, window;
+  float sl2;                      // scale * log2(e)
+};
 
-__device__ __forceinline__ float half_warp_max(float v) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
+// Shared memory: Q in fragment order (BQ x HDP floats), then the ring of
+// K tiles (BK rows of LDK floats) and V tiles stored by key pairs (BK / 2
+// rows of LDV2 floats: V[2r][d], V[2r + 1][d] side by side).
+template <int HDP>
+struct Geom {
+  static constexpr int LDK = (HDP + 31) / 32 * 32 + 16;  // K rows: 16 mod 32
+  static constexpr int LDV2 = 2 * HDP + 8;               // V pair rows: 8 mod 32
+  static constexpr int KT = BK * LDK, VT = BK / 2 * LDV2;
+  static constexpr size_t SMEM = sizeof(float) * (BQ * HDP + STAGES * (KT + VT));
+};
+
+__device__ __forceinline__ float ex2(float x) {
+  float r;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(r) : "f"(x));
+  return r;
 }
 
-__device__ __forceinline__ float half_warp_sum(float v) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   static_cast<unsigned>(__cvta_generic_to_shared(dst))),
+               "l"(src)
+               : "memory");
 }
 
-// rows [row0, row0 + 64) of a (rows, hd) matrix into shared rows of ld
-// floats; rows at or past n_rows read zeros
-__device__ __forceinline__ void load_rows(float* dst, int ld, const float* __restrict__ src,
-                                          int row0, int n_rows, int hd) {
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   static_cast<unsigned>(__cvta_generic_to_shared(dst))),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+
+template <int K>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(K) : "memory");
+}
+
+// rows [row0, row0 + n) of a (rows, hd) matrix of row stride `stride` into
+// shared rows of LD floats, columns [0, hd); rows at or past `end` read
+// zeros.
+template <int LD>
+__device__ __forceinline__ void load_rows(float* dst, const float* src, long long stride,
+                                          int row0, int n, int end, int hd) {
   const int hd4 = hd >> 2;
-  for (int i = threadIdx.x; i < 64 * hd4; i += NT) {
-    const int r = i / hd4, c4 = i - r * hd4;
-    float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (row0 + r < n_rows)
-      val = __ldg(reinterpret_cast<const float4*>(src + static_cast<long long>(row0 + r) * hd) + c4);
-    *reinterpret_cast<float4*>(dst + r * ld + 4 * c4) = val;
+  for (int i = threadIdx.x; i < n * hd4; i += NT) {
+    const int r = i / hd4, c = (i - r * hd4) * 4;
+    float* d = dst + r * LD + c;
+    if (row0 + r < end)
+      cp_async16(d, src + static_cast<long long>(row0 + r) * stride + c);
+    else
+      *reinterpret_cast<float4*>(d) = make_float4(0.f, 0.f, 0.f, 0.f);
   }
 }
 
-__global__ void __launch_bounds__(NT)
-    flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                     const float* __restrict__ v, float* __restrict__ out, int H, int KV,
-                     int Sq, int Sk, int hd, int sk_valid, int q_offset, int causal, int window,
-                     float scale) {
+// keys [row0, row0 + BK) of a (rows, hd) V into pair rows of LDV2 floats
+// (key r's dim d at (r / 2) * LDV2 + 2 * d + r % 2), one float a copy;
+// keys at or past `end` read zeros.
+template <int LDV2>
+__device__ __forceinline__ void load_v_pairs(float* dst, const float* src, long long stride,
+                                             int row0, int end, int hd) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  for (int r = warp; r < BK; r += NW) {
+    float* d = dst + (r >> 1) * LDV2 + (r & 1);
+    const float* s = src + static_cast<long long>(row0 + r) * stride;
+    if (row0 + r < end)
+      for (int c = lane; c < hd; c += 32) cp_async4(d + 2 * c, s + c);
+    else
+      for (int c = lane; c < hd; c += 32) d[2 * c] = 0.f;
+  }
+}
+
+// x = big + small: big is x with its 13 low mantissa bits cleared (a TF32
+// value) and small = x - big, exact in f32, whose top bits the MMA reads as
+// TF32.  Two instructions (LOP3, FADD) where a rounded split takes three;
+// the product keeps about 2^-21 of relative error, as the rounded split's
+// 3xTF32 does.
+__device__ __forceinline__ void split(float x, uint32_t& big, uint32_t& small) {
+  big = __float_as_uint(x) & 0xffffe000u;
+  small = __float_as_uint(x - __uint_as_float(big));
+}
+
+// A operand of one m16n8k8 step, split once
+struct FragA {
+  uint32_t big[4], small[4];
+  __device__ __forceinline__ void set(const float (&a)[4]) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) split(a[i], big[i], small[i]);
+  }
+};
+
+// c[n] += a * b[n] in 3xTF32 over N n-tiles, each round of products
+// issued over all of them so that N independent MMA chains interleave
+template <int N>
+__device__ __forceinline__ void mma3(float (&c)[N][4], const FragA& a, const float (&b0)[N],
+                                     const float (&b1)[N]) {
+  uint32_t bb0[N], bs0[N], bb1[N], bs1[N];
+#pragma unroll
+  for (int n = 0; n < N; ++n) {
+    split(b0[n], bb0[n], bs0[n]);
+    split(b1[n], bb1[n], bs1[n]);
+  }
+#pragma unroll
+  for (int n = 0; n < N; ++n) tf32x3::mma_tf32(c[n], a.small, bb0[n], bb1[n]);
+#pragma unroll
+  for (int n = 0; n < N; ++n) tf32x3::mma_tf32(c[n], a.big, bs0[n], bs1[n]);
+#pragma unroll
+  for (int n = 0; n < N; ++n) tf32x3::mma_tf32(c[n], a.big, bb0[n], bb1[n]);
+}
+
+// c[n] += a * b[n] over NO n-tiles, at most 8 interleaved at a time
+template <int NO>
+__device__ __forceinline__ void mma_tiles(float (&c)[NO][4], const FragA& a,
+                                          const float (&b0)[NO], const float (&b1)[NO]) {
+  if constexpr (NO <= 8) {
+    mma3<NO>(c, a, b0, b1);
+  } else {
+    constexpr int L = NO - 8;
+    mma3<8>(*reinterpret_cast<float(*)[8][4]>(&c[0]), a,
+            *reinterpret_cast<const float(*)[8]>(&b0[0]),
+            *reinterpret_cast<const float(*)[8]>(&b1[0]));
+    mma3<L>(*reinterpret_cast<float(*)[L][4]>(&c[8]), a,
+            *reinterpret_cast<const float(*)[L]>(&b0[8]),
+            *reinterpret_cast<const float(*)[L]>(&b1[8]));
+  }
+}
+
+template <int HDP>
+__global__ void __launch_bounds__(NT, 1) flash_fwd_kernel(const Params p) {
+  using G = Geom<HDP>;
+  constexpr int LDK = G::LDK, LDV2 = G::LDV2;
+  constexpr int NP = HDP / 16;    // 16-dim groups: k-step pairs of QK^T
+  constexpr int NO = 2 * NP;      // output n-tiles
   extern __shared__ __align__(16) float smem[];
-  float* sQ = smem;
-  float* sK = sQ + BQ * LDQ;
-  float* sV = sK + BK * LDQ;
-  float* sP = sV + BK * LDV;
-  const int tid = threadIdx.x;
-  const int tx = tid & 15, ty = tid >> 4;
-  const int qi = gridDim.x - 1 - blockIdx.x;   // heaviest causal tiles first
+  float* sQ = smem;                           // [warp][kp][lane][8]
+  float* sK = sQ + BQ * HDP;                  // STAGES x KT
+  float* sV = sK + STAGES * G::KT;            // STAGES x VT
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, qd = lane & 3;
+  const int qi = gridDim.x - 1 - blockIdx.x;  // heaviest causal tiles first
   const int h = blockIdx.y, b = blockIdx.z;
-  const int kvh = h / (H / KV);
-  const long long qh = (static_cast<long long>(b) * H + h) * Sq * hd;
-  const long long kh = (static_cast<long long>(b) * KV + kvh) * Sk * hd;
-  const int q0 = qi * BQ;                       // first row of the tile
-  const int pos0 = q0 + q_offset;               // its position
+  const int kvh = h / (p.H / p.KV);
+  const float* qb = p.q + b * p.q_b + h * p.q_h;
+  const float* kb = p.k + b * p.k_b + kvh * p.k_h;
+  const float* vb = p.v + b * p.v_b + kvh * p.v_h;
+  const int hd = p.hd;
+  const int q0 = qi * BQ;                     // first row of the tile
+  const int pos0 = q0 + p.q_offset;           // its position
+  const int kv_end = min(p.Sk, p.sk_valid);
 
   // the keys any row of the tile can see: [k_lo, k_hi)
-  int k_hi = min(Sk, sk_valid);
-  if (causal) k_hi = min(k_hi, pos0 + BQ);
-  int k_lo = window > 0 ? max(0, pos0 - window + 1) : 0;
+  int k_hi = kv_end;
+  if (p.causal) k_hi = min(k_hi, pos0 + BQ);
+  int k_lo = p.window > 0 ? max(0, pos0 - p.window + 1) : 0;
   k_lo = (k_lo / BK) * BK;
+  const int ntile = k_hi > k_lo ? (k_hi - k_lo + BK - 1) / BK : 0;
 
-  load_rows(sQ, LDQ, q + qh, q0, Sq, hd);
-
-  float m[4], l[4], acc[4][8];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = NEG_INF;
-    l[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < 8; ++c) acc[i][c] = 0.f;
+  if (ntile > 0) {
+    load_rows<LDK>(sK, kb, p.k_s, k_lo, BK, kv_end, hd);
+    load_v_pairs<LDV2>(sV, vb, p.v_s, k_lo, kv_end, hd);
   }
-  const int hd4 = hd >> 2;
+  cp_commit();
+  // the pad columns [hd, HDP) of both K stages are never copied
+  if (hd < HDP) {
+    const int pad = HDP - hd;
+    for (int i = tid; i < STAGES * BK * pad; i += NT) {
+      const int r = i / pad;
+      sK[(r / BK) * G::KT + (r % BK) * LDK + hd + i - r * pad] = 0.f;
+    }
+  }
+  // Q once, in the order of the QK^T A fragments: for the k-step pair kp,
+  // lane (g, q) holds rows g and g + 8 of its warp at dims 16kp + 4q .. + 3,
+  // interleaved {g: d, g + 8: d, g: d + 1, g + 8: d + 1, ...}, so that one
+  // 16-byte read is one A fragment.  Rows past Sq and dims past hd are 0.
+  {
+    const int ra = q0 + warp * 16 + g;
+#pragma unroll
+    for (int kp = 0; kp < NP; ++kp) {
+      const int dim = 16 * kp + 4 * qd;
+      float4 a = make_float4(0.f, 0.f, 0.f, 0.f), c = a;
+      if (dim < hd) {
+        if (ra < p.Sq)
+          a = *reinterpret_cast<const float4*>(qb + static_cast<long long>(ra) * p.q_s + dim);
+        if (ra + 8 < p.Sq)
+          c = *reinterpret_cast<const float4*>(qb + static_cast<long long>(ra + 8) * p.q_s + dim);
+      }
+      float4* f = reinterpret_cast<float4*>(sQ + ((warp * NP + kp) * 32 + lane) * 8);
+      f[0] = make_float4(a.x, c.x, a.y, c.y);
+      f[1] = make_float4(a.z, c.z, a.w, c.w);
+    }
+  }
 
-  for (int k0 = k_lo; k0 < k_hi; k0 += BK) {
-    __syncthreads();                            // the last tile's K, V, P are used
-    load_rows(sK, LDQ, k + kh, k0, Sk, hd);
-    load_rows(sV, LDV, v + kh, k0, Sk, hd);
+  float o[NO][4], m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
+#pragma unroll
+  for (int t = 0; t < NO; ++t)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[t][e] = 0.f;
+  const int wrow = q0 + warp * 16;            // the warp's first row
+  const int wr0 = pos0 + warp * 16;           // ... and its position
+  const int wr1 = wr0 + 15;
+  const int r0 = wr0 + g, r1 = r0 + 8;        // this thread's two rows
+  const float sl2 = p.sl2;
+  const float* sQf = sQ + (warp * NP * 32 + lane) * 8;
+
+  for (int it = 0; it < ntile; ++it) {
+    const int k0 = k_lo + it * BK;
+    if (it + 1 < ntile) {
+      const int st = (it + 1) % STAGES;
+      load_rows<LDK>(sK + st * G::KT, kb, p.k_s, k0 + BK, BK, kv_end, hd);
+      load_v_pairs<LDV2>(sV + st * G::VT, vb, p.v_s, k0 + BK, kv_end, hd);
+    }
+    cp_commit();
+    cp_wait<1>();                             // tile it (and Q) landed
     __syncthreads();
+    const bool skip = wrow >= p.Sq || k0 >= kv_end || (p.causal && k0 > wr1) ||
+                      (p.window > 0 && wr0 - (k0 + BK - 1) >= p.window);
+    if (!skip) {
+      const bool full = k0 + BK <= kv_end && (!p.causal || k0 + BK - 1 <= wr0) &&
+                        (p.window == 0 || wr1 - k0 < p.window);
+      const float* kt = sK + (it % STAGES) * G::KT;
+      const float* vt = sV + (it % STAGES) * G::VT;
 
-    float s[4][4];
+      // S = Q K^T: 16 rows x BK keys, NJ n-tiles
+      float s[NJ][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+      for (int j = 0; j < NJ; ++j)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-    for (int c4 = 0; c4 < hd4; ++c4) {
-      float4 a[4], bk[4];
+        for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
-        a[i] = *reinterpret_cast<const float4*>(sQ + (ty + 16 * i) * LDQ + 4 * c4);
+      for (int kp = 0; kp < NP; ++kp) {
+        const float4 f0 = *reinterpret_cast<const float4*>(sQf + kp * 256);
+        const float4 f1 = *reinterpret_cast<const float4*>(sQf + kp * 256 + 4);
+        float kx[NJ], ky[NJ], kz[NJ], kw[NJ];
 #pragma unroll
-      for (int j = 0; j < 4; ++j)
-        bk[j] = *reinterpret_cast<const float4*>(sK + (tx + 16 * j) * LDQ + 4 * c4);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          s[i][j] = fmaf(a[i].x, bk[j].x, s[i][j]);
-          s[i][j] = fmaf(a[i].y, bk[j].y, s[i][j]);
-          s[i][j] = fmaf(a[i].z, bk[j].z, s[i][j]);
-          s[i][j] = fmaf(a[i].w, bk[j].w, s[i][j]);
+        for (int j = 0; j < NJ; ++j) {
+          const float4 kk =
+              *reinterpret_cast<const float4*>(kt + (8 * j + g) * LDK + 16 * kp + 4 * qd);
+          kx[j] = kk.x, ky[j] = kk.y, kz[j] = kk.z, kw[j] = kk.w;
         }
-    }
+        FragA a;
+        const float a_lo[4] = {f0.x, f0.y, f0.z, f0.w};
+        a.set(a_lo);
+        mma3<NJ>(s, a, kx, ky);
+        const float a_hi[4] = {f1.x, f1.y, f1.z, f1.w};
+        a.set(a_hi);
+        mma3<NJ>(s, a, kz, kw);
+      }
 
-    // mask, then the online softmax of each row
+      // mask, then the online softmax of the thread's two rows
+      if (!full) {
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qp = pos0 + ty + 16 * i;
-      float mx = NEG_INF;
-      bool vis[4];
+        for (int j = 0; j < NJ; ++j)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int kp = k0 + tx + 16 * j;
-        vis[j] = kp < sk_valid && (!causal || kp <= qp) && (window == 0 || qp - kp < window);
-        s[i][j] = vis[j] ? s[i][j] * scale : NEG_INF;
-        mx = fmaxf(mx, s[i][j]);
+          for (int e = 0; e < 4; ++e) {
+            const int key = k0 + 8 * j + 2 * qd + (e & 1);
+            const int row = e < 2 ? r0 : r1;
+            const bool vis = key < kv_end && (!p.causal || key <= row) &&
+                             (p.window == 0 || row - key < p.window);
+            if (!vis) s[j][e] = NEG_INF;
+          }
       }
-      const float m_new = fmaxf(m[i], half_warp_max(mx));
-      float sum = 0.f;
+      float mx0 = NEG_INF, mx1 = NEG_INF;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        // masked keys weigh exactly 0, also before the row has seen a key
-        s[i][j] = vis[j] ? expf(s[i][j] - m_new) : 0.f;
-        sum += s[i][j];
+      for (int j = 0; j < NJ; ++j) {
+        mx0 = fmaxf(mx0, fmaxf(s[j][0], s[j][1]));
+        mx1 = fmaxf(mx1, fmaxf(s[j][2], s[j][3]));
       }
-      const float corr = expf(m[i] - m_new);
-      l[i] = l[i] * corr + half_warp_sum(sum);
-      m[i] = m_new;
 #pragma unroll
-      for (int c = 0; c < 8; ++c) acc[i][c] *= corr;
-    }
+      for (int off = 1; off < 4; off <<= 1) {
+        mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
+        mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
+      }
+      const float mn0 = fmaxf(m[0], mx0), mn1 = fmaxf(m[1], mx1);
+      const float c0 = ex2((m[0] - mn0) * sl2), c1 = ex2((m[1] - mn1) * sl2);
+      m[0] = mn0, m[1] = mn1;
+      const float ms0 = mn0 * sl2, ms1 = mn1 * sl2;
+      float sum0 = 0.f, sum1 = 0.f;
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
-      *reinterpret_cast<float4*>(sP + (tx + 16 * j) * LDP + 4 * ty) =
-          make_float4(s[0][j], s[1][j], s[2][j], s[3][j]);
-    __syncthreads();
+      for (int j = 0; j < NJ; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          // masked keys weigh exactly 0, also before the row has seen a key
+          float pe = ex2(fmaf(s[j][e], sl2, -(e < 2 ? ms0 : ms1)));
+          if (!full && s[j][e] <= 0.5f * NEG_INF) pe = 0.f;
+          s[j][e] = pe;
+        }
+        sum0 += s[j][0] + s[j][1];
+        sum1 += s[j][2] + s[j][3];
+      }
+      l[0] = l[0] * c0 + sum0;
+      l[1] = l[1] * c1 + sum1;
+#pragma unroll
+      for (int t = 0; t < NO; ++t) {
+        o[t][0] *= c0, o[t][1] *= c0;
+        o[t][2] *= c1, o[t][3] *= c1;
+      }
 
-    // O += P V over the tile's keys
-#pragma unroll 4
-    for (int kk = 0; kk < BK; ++kk) {
-      const float4 p = *reinterpret_cast<const float4*>(sP + kk * LDP + 4 * ty);
-      const float4 v0 = *reinterpret_cast<const float4*>(sV + kk * LDV + 4 * tx);
-      const float4 v1 = *reinterpret_cast<const float4*>(sV + kk * LDV + 64 + 4 * tx);
-      const float pr[4] = {p.x, p.y, p.z, p.w};
+      // O += P V: k-step j takes the tile's keys 8j .. 8j + 7, token 2q and
+      // 2q + 1 to lane quad q
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        acc[i][0] = fmaf(pr[i], v0.x, acc[i][0]);
-        acc[i][1] = fmaf(pr[i], v0.y, acc[i][1]);
-        acc[i][2] = fmaf(pr[i], v0.z, acc[i][2]);
-        acc[i][3] = fmaf(pr[i], v0.w, acc[i][3]);
-        acc[i][4] = fmaf(pr[i], v1.x, acc[i][4]);
-        acc[i][5] = fmaf(pr[i], v1.y, acc[i][5]);
-        acc[i][6] = fmaf(pr[i], v1.z, acc[i][6]);
-        acc[i][7] = fmaf(pr[i], v1.w, acc[i][7]);
+      for (int j = 0; j < NJ; ++j) {
+        FragA a;
+        const float pa[4] = {s[j][0], s[j][2], s[j][1], s[j][3]};
+        a.set(pa);
+        // keys 8j + 2q, 8j + 2q + 1 at dims 16mm + 2g, + 1: the B
+        // fragments of n-tiles 2mm and 2mm + 1 in one 16-byte read
+        const float* v2 = vt + (4 * j + qd) * LDV2 + 4 * g;
+        float b0[NO], b1[NO];
+#pragma unroll
+        for (int mm = 0; mm < NP; ++mm) {
+          const float4 x = *reinterpret_cast<const float4*>(v2 + 32 * mm);
+          b0[2 * mm] = x.x, b1[2 * mm] = x.y;
+          b0[2 * mm + 1] = x.z, b1[2 * mm + 1] = x.w;
+        }
+        mma_tiles<NO>(o, a, b0, b1);
       }
+    }
+    __syncthreads();                          // stage it % STAGES is free
+  }
+  cp_wait<0>();
+
+  // finish the rows: the quad's partial sums, then the float4 stores
+#pragma unroll
+  for (int off = 1; off < 4; off <<= 1) {
+    l[0] += __shfl_xor_sync(0xffffffffu, l[0], off);
+    l[1] += __shfl_xor_sync(0xffffffffu, l[1], off);
+  }
+  const float den0 = fmaxf(l[0], 1e-30f), den1 = fmaxf(l[1], 1e-30f);
+  float* ob = p.o + b * p.o_b + h * p.o_h;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int row = wrow + g + 8 * half;
+    if (row >= p.Sq) continue;
+    const float den = half ? den1 : den0;
+    float* orow = ob + static_cast<long long>(row) * p.o_s;
+#pragma unroll
+    for (int mm = 0; mm < NP; ++mm) {
+      const int dim = 16 * mm + 4 * qd;
+      if (dim < hd)
+        *reinterpret_cast<float4*>(orow + dim) =
+            make_float4(o[2 * mm][2 * half] / den, o[2 * mm + 1][2 * half] / den,
+                        o[2 * mm][2 * half + 1] / den, o[2 * mm + 1][2 * half + 1] / den);
     }
   }
+}
 
-  // columns 64.. of sV past hd were never written; their accumulators are
-  // never stored
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + ty + 16 * i;
-    if (row >= Sq) continue;
-    const float den = fmaxf(l[i], 1e-30f);
-    float* o = out + qh + static_cast<long long>(row) * hd;
-    if (4 * tx < hd)
-      *reinterpret_cast<float4*>(o + 4 * tx) = make_float4(
-          acc[i][0] / den, acc[i][1] / den, acc[i][2] / den, acc[i][3] / den);
-    if (64 + 4 * tx < hd)
-      *reinterpret_cast<float4*>(o + 64 + 4 * tx) = make_float4(
-          acc[i][4] / den, acc[i][5] / den, acc[i][6] / den, acc[i][7] / den);
+template <int HDP>
+int launch(const Params& p, int B, cudaStream_t stream) {
+  static bool attr_set[64] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 0 || dev >= 64) return cudaErrorInvalidDevice;
+  if (!attr_set[dev]) {                       // once per device
+    err = cudaFuncSetAttribute(flash_fwd_kernel<HDP>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(Geom<HDP>::SMEM));
+    if (err != cudaSuccess) return err;
+    attr_set[dev] = true;
   }
+  const dim3 grid((p.Sq + BQ - 1) / BQ, p.H, B);
+  flash_fwd_kernel<HDP><<<grid, NT, Geom<HDP>::SMEM, stream>>>(p);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
-// q, out: (B, H, Sq, hd); k, v: (B, KV, Sk, hd); f32, contiguous; hd a
-// multiple of 4 up to 128; H a multiple of KV; sk_valid <= Sk; window 0 =
-// none.
+// q, out: (B, H, Sq, hd); k, v: (B, KV, Sk, hd); f32, each read or written
+// through its (batch, head, row) strides in floats, last stride 1, pointers
+// and strides 16-byte aligned; hd a multiple of 4 up to 128; H a multiple of
+// KV; sk_valid <= Sk; window 0 = none.
 extern "C" int flash_attention_launch(const void* q, const void* k, const void* v, void* out,
                                       int B, int H, int KV, int Sq, int Sk, int hd,
                                       int sk_valid, int q_offset, int causal, int window,
-                                      float scale, void* stream) {
+                                      float scale, long long q_b, long long q_h, long long q_s,
+                                      long long k_b, long long k_h, long long k_s,
+                                      long long v_b, long long v_h, long long v_s,
+                                      long long o_b, long long o_h, long long o_s,
+                                      void* stream) {
   if (B <= 0 || B > 65535 || H <= 0 || H > 65535 || KV <= 0 || H % KV || Sq <= 0 ||
       Sk < 0 || hd <= 0 || hd % 4 || hd > MAX_HD || sk_valid > Sk || window < 0)
     return cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(SMEM_BYTES));
-  if (err != cudaSuccess) return err;
-  const dim3 grid((Sq + BQ - 1) / BQ, H, B);
-  flash_fwd_kernel<<<grid, NT, SMEM_BYTES, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<float*>(out), H, KV, Sq, Sk, hd, sk_valid, q_offset, causal, window, scale);
-  return cudaGetLastError();
+  const Params p{static_cast<const float*>(q), static_cast<const float*>(k),
+                 static_cast<const float*>(v), static_cast<float*>(out),
+                 q_b, q_h, q_s, k_b, k_h, k_s, v_b, v_h, v_s, o_b, o_h, o_s,
+                 H, KV, Sq, Sk, hd, sk_valid, q_offset, causal, window, scale * LOG2E};
+  auto s = static_cast<cudaStream_t>(stream);
+  if (hd <= 16) return launch<16>(p, B, s);
+  if (hd <= 32) return launch<32>(p, B, s);
+  if (hd <= 48) return launch<48>(p, B, s);
+  if (hd <= 64) return launch<64>(p, B, s);
+  if (hd <= 96) return launch<96>(p, B, s);
+  return launch<128>(p, B, s);
 }

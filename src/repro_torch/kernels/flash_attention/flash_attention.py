@@ -4,9 +4,11 @@
 :func:`flash_attention_fwd` takes the heads-major layout of its TPU
 counterpart in ``repro.kernels.flash_attention.flash_attention``, with
 its ``q_offset`` and ``sk_valid``; the kernel tiles the sequences itself,
-so the lengths need not be multiples of a block.  On a CPU tensor it
-runs the plain version from ``ref.py``; on a CUDA tensor it launches the
-kernel on the current stream or raises.  Forward only: inputs that
+so the lengths need not be multiples of a block, and reads q, k, v and
+writes the output through their strides (``ops.flash_attention`` hands
+it transposed views of the model's (B, S, H, hd) tensors).  On a CPU
+tensor it runs the plain version from ``ref.py``; on a CUDA tensor it
+launches the kernel on the current stream or raises.  Forward only: inputs that
 require grad are refused.  :data:`LAUNCHES` counts kernel launches.
 """
 
@@ -20,13 +22,16 @@ import torch
 
 from repro_torch.kernels.flash_attention import ref
 from repro_torch.kernels.paged_attention.paged_attention import (
-    _check, _forward_only, _raise_on, _stream)
+    _forward_only, _raise_on, _stream)
 
 #: kernel launches since the last :func:`reset_launches`
 LAUNCHES = {"flash_attention": 0}
 
 SOURCE = Path(__file__).parent / "csrc" / "flash_attention.cu"
 _MAX_HD = 128
+#: the kernel's tiles (``BQ``, ``BK``, ``STAGES`` in the source): query rows
+#: per block, keys per tile, stages of the K/V ring
+BLOCK_Q, BLOCK_K, RING_STAGES = 128, 64, 2
 
 
 def reset_launches() -> None:
@@ -39,20 +44,44 @@ def _lib() -> ctypes.CDLL:
     from repro_torch.kernels import _build
     lib = _build.load((SOURCE,))
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.flash_attention_launch.argtypes = [p] * 4 + [i] * 10 + [f, p]
+    lib.flash_attention_launch.argtypes = ([p] * 4 + [i] * 10 + [f]
+                                           + [ctypes.c_longlong] * 12 + [p])
     lib.flash_attention_launch.restype = i
     return lib
+
+
+def _strides(t: torch.Tensor):
+    """(batch, head, row) strides of a (B, H, S, hd) tensor as the kernel
+    reads it (0 for a dimension of size 1), or None unless its last stride
+    is 1 and its rows are 16-byte aligned."""
+    if t.stride(-1) != 1 or t.data_ptr() % 16:
+        return None
+    st = tuple(0 if n == 1 else s
+               for n, s in zip(t.shape[:3], t.stride()[:3]))
+    return None if any(s % 4 for s in st) else st
+
+
+def _readable(t: torch.Tensor) -> torch.Tensor:
+    """t itself if the kernel can read it in place, else an aligned
+    contiguous copy."""
+    if _strides(t) is not None:
+        return t
+    return t.clone(memory_format=torch.contiguous_format)
 
 
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         causal: bool = True, window: int | None = None,
                         q_offset: int = 0,
                         sk_valid: int | None = None) -> torch.Tensor:
-    """q: (B, H, Sq, hd); k, v: (B, KV, Sk, hd) → (B, H, Sq, hd) f32.
+    """q: (B, H, Sq, hd); k, v: (B, KV, Sk, hd), f32, any strides →
+    (B, H, Sq, hd) f32 in q's memory layout.
 
     Keys at or past ``sk_valid`` (default: all ``Sk``) are padding and
     never seen; query row i sits at position ``i + q_offset``.  A row
-    that sees no key gives 0."""
+    that sees no key gives 0.  The kernel reads q, k and v in place when
+    their last stride is 1 and their rows are 16-byte aligned (so a
+    transposed view of a (B, S, H, hd) tensor costs no copy); any other
+    input is copied first."""
     B, H, Sq, hd = q.shape
     _, KV, Sk, _ = k.shape
     if (k.shape != (B, KV, Sk, hd) or v.shape != k.shape or KV == 0
@@ -72,17 +101,19 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             q_offset=q_offset)
         return o.transpose(1, 2)
     for name, t in (("q", q), ("k", k), ("v", v)):
-        _check(name, t, torch.float32, q.device)
-        if t.data_ptr() % 16:                # float4 reads
-            raise ValueError(f"{name} is not 16-byte aligned")
+        if t.device != q.device or t.dtype != torch.float32:
+            raise ValueError(f"{name} is {t.dtype} on {t.device}, the "
+                             f"kernel takes torch.float32 on {q.device}")
     if hd % 4 or hd > _MAX_HD:
         raise ValueError(f"head_dim {hd} unsupported: the kernel takes a "
                          f"multiple of 4 up to {_MAX_HD}")
-    out = torch.empty_like(q)
+    q, k, v = _readable(q), _readable(k), _readable(v)
+    out = torch.empty_like(q)               # q's strides, a fresh buffer
     code = _lib().flash_attention_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, H, KV,
         Sq, Sk, hd, sk_valid, q_offset, int(causal), window or 0,
-        hd ** -0.5, _stream(q.device))
+        hd ** -0.5, *_strides(q), *_strides(k), *_strides(v),
+        *_strides(out), _stream(q.device))
     _raise_on(code, "flash_fwd_kernel")
     LAUNCHES["flash_attention"] += 1
     return out

@@ -1,11 +1,9 @@
-"""Public selective-scan op: the reference's padding shim over the kernel.
+"""Public selective-scan op over the kernel.
 
 Counterpart of ``repro.kernels.mamba_scan.ops``.
 """
 
 from __future__ import annotations
-
-import torch.nn.functional as F
 
 from repro_torch.kernels.mamba_scan.mamba_scan import mamba_scan_fwd
 
@@ -13,19 +11,16 @@ from repro_torch.kernels.mamba_scan.mamba_scan import mamba_scan_fwd
 def mamba_scan(dt, A, B, C, x, h0, *, chunk: int = 64):
     """dt, x: (B, S, DI) f32; A: (DI, N); B, C: (B, S, N); h0: (B, DI, N)
     → (y (B, S, DI), h_last).  Matches ``models.mamba``'s sequential
-    recurrence.  The sequence is zero-padded to a multiple of ``chunk``
-    (at most ``max(8, S)``), as the reference pads for its TPU tiles:
-    ``dt = 0`` gives ``exp(0) = 1`` and no input, so the carried state
-    passes the padding unchanged."""
-    S = dt.shape[1]
-    chunk = min(chunk, max(8, S))
-    pad = (-S) % chunk
-    if pad:
-        dt, B, C, x = (F.pad(t, (0, 0, 0, pad)) for t in (dt, B, C, x))
-    y, h_last = mamba_scan_fwd(dt.contiguous(), A.contiguous(),
-                               B.contiguous(), C.contiguous(),
-                               x.contiguous(), h0.contiguous())
-    return y[:, :S], h_last
+    recurrence.
+
+    The kernel reads dt, x, B and C through their strides (B and C are
+    column views of the model's ``x_proj`` output) and stops at S itself,
+    so no padded or contiguous copy is made.  ``chunk`` is the reference's
+    signature: the reference pads the sequence to a multiple of it for its
+    TPU tiles, with ``dt = 0``, which passes the state through unchanged,
+    so it does not change the function."""
+    del chunk
+    return mamba_scan_fwd(dt, A.contiguous(), B, C, x, h0.contiguous())
 
 
 __all__ = ["mamba_scan"]

@@ -209,13 +209,18 @@ def mamba_case(seed, *, B, S, DI, N, chunk=64):
 
 #: the reference's kernel-test cases (tests/test_kernels.py), then
 #: sequences longer than one staged chunk, d_state 32 and 1, and channels
-#: that do not fill a block
+#: that do not fill a block; then one step, a sequence past the kernel's
+#: ring (3 stages of 32 steps) that is a multiple of no chunk, and a
+#: batch of one over several blocks with a partial last warp
 MAMBA = [dict(B=2, S=32, DI=16, N=8, chunk=16),
          dict(B=1, S=100, DI=64, N=16, chunk=64),
          dict(B=2, S=64, DI=24, N=4, chunk=32),
          dict(B=2, S=300, DI=40, N=16),
          dict(B=1, S=70, DI=33, N=32),
-         dict(B=1, S=9, DI=20, N=1)]
+         dict(B=1, S=9, DI=20, N=1),
+         dict(B=2, S=1, DI=40, N=8),
+         dict(B=1, S=157, DI=100, N=16),
+         dict(B=1, S=45, DI=72, N=2)]
 
 
 def rwkv6_case(seed, *, B, S, nH, hd, chunk=32):
@@ -284,4 +289,8 @@ FLASH = [dict(B=2, Sq=64, Sk=64, H=4, KV=2, hd=32, causal=True, window=None),
               window=70),
          dict(B=1, Sq=50, Sk=90, H=2, KV=2, hd=128, causal=False, window=40),
          dict(B=1, Sq=300, Sk=300, H=2, KV=1, hd=128, causal=True,
-              window=None)]
+              window=None),
+         dict(B=1, Sq=130, Sk=130, H=4, KV=2, hd=36, causal=True,
+              window=None),
+         dict(B=2, Sq=70, Sk=200, H=4, KV=1, hd=120, causal=True,
+              window=20)]

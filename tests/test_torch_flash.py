@@ -6,6 +6,8 @@ and tolerance, 2e-5, plus danube's head_dim 120 with a window), and
 
 from __future__ import annotations
 
+import re
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -91,3 +93,68 @@ def test_flash_attention_is_forward_only():
         tfk.flash_attention_fwd(q, q, q)
     with torch.no_grad():
         assert tfk.flash_attention_fwd(q, q, q).shape == (1, 2, 8, 16)
+
+
+def test_flash_op_on_fused_qkv_views_matches_pallas_interpret():
+    """q, k and v as head slices of one fused (B, S, H + 2KV, hd) tensor
+    (strided views, no copy), causal with the queries at the end of the
+    keys: the op equals the reference's op in interpret mode."""
+    c = flash_case(3, B=2, Sq=50, Sk=50, H=4, KV=2, hd=16, causal=True,
+                   window=None)
+    qkv = torch.cat([t(c["q"]), t(c["k"]), t(c["v"])], dim=2)
+    q, k, v = qkv.split([4, 2, 2], dim=2)
+    assert not q.is_contiguous()
+    want = jfa.flash_attention(*(jnp.asarray(c[n]) for n in "qkv"),
+                               causal=True, interpret=True)
+    close(tfa.flash_attention(q, k, v, causal=True), want)
+
+
+def test_flash_op_hands_the_kernel_transposed_views(monkeypatch):
+    """``ops.flash_attention`` passes the wrapper heads-major views of the
+    model's (B, S, H, hd) tensors (the same storage, unpadded lengths) and
+    returns the output as a (B, S, H, hd) view of the wrapper's."""
+    seen = {}
+
+    def record(q, k, v, **kw):
+        seen.update(q=q, k=k, v=v, kw=kw)
+        return tfk.flash_attention_fwd(q, k, v, **kw)
+    monkeypatch.setattr(tfa, "flash_attention_fwd", record)
+    c = flash_case(4, B=1, Sq=37, Sk=37, H=4, KV=2, hd=16, causal=True,
+                   window=None)
+    q, k, v = (t(c[n]) for n in "qkv")
+    o = tfa.flash_attention(q, k, v, causal=True, window=9)
+    assert seen["q"].shape == (1, 4, 37, 16)
+    for got, base in ((seen["q"], q), (seen["k"], k), (seen["v"], v)):
+        assert got.data_ptr() == base.data_ptr()
+        assert torch.equal(got, base.transpose(1, 2))
+    assert seen["kw"] == dict(causal=True, window=9, q_offset=0)
+    assert o.shape == (1, 37, 4, 16)
+
+
+def test_flash_wrapper_reads_strides_in_place():
+    """The (batch, head, row) strides the kernel is given: a transposed view
+    of a (B, S, H, hd) tensor is read in place; rows off 16-byte alignment
+    or a last stride other than 1 take an aligned contiguous copy."""
+    x = torch.zeros(2, 10, 4, 16)
+    view = x.transpose(1, 2)
+    assert tfk._strides(view) == (640, 16, 64)
+    assert tfk._readable(view) is view
+    off = torch.zeros(2 * 4 * 10 * 16 + 1)[1:].view(2, 4, 10, 16)
+    assert tfk._strides(off) is None
+    copy = tfk._readable(off)
+    assert copy.is_contiguous() and tfk._strides(copy) is not None
+    assert tfk._strides(x.permute(0, 2, 3, 1)) is None
+
+
+def test_flash_kernel_geometry_matches_the_source():
+    src = tfk.SOURCE.read_text()
+    assert re.search(r"constexpr int NW = (\d+);", src).group(1) == str(
+        tfk.BLOCK_Q // 16)
+    for name, value in (("BK", tfk.BLOCK_K),
+                        ("STAGES", tfk.RING_STAGES),
+                        ("MAX_HD", tfk._MAX_HD)):
+        assert re.search(rf"constexpr int {name} = (\d+);", src).group(
+            1) == str(value)
+    # every head width the wrapper takes has an instantiation
+    inst = [int(w) for w in re.findall(r"return launch<(\d+)>", src)]
+    assert inst == sorted(inst) and inst[-1] == tfk._MAX_HD

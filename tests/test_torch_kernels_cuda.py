@@ -326,3 +326,100 @@ def test_wrappers_raise_when_the_library_fails_to_load(cuda, monkeypatch):
         monkeypatch.undo()
         for mod in (tmk, trk):
             mod._lib.cache_clear()
+
+
+def _scaled_close(got, want, tol):
+    """Within tol x max(1, max|want|) (the reference's scan tolerance)."""
+    scale = max(1.0, want.abs().max().item())
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=0,
+                               atol=tol * scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["x_proj", "x_proj_unaligned",
+                                    "unaligned", "batch_of_one"])
+def test_mamba_op_reads_strides_on_card(cuda, layout):
+    """``ops.mamba_scan`` hands the kernel the model's views: B and C as
+    column views of an x_proj-shaped (B, S, R + 2N) tensor (R = 8: rows
+    16-byte aligned; R = 5: not), dt and x off 16-byte alignment (4-byte
+    copies), a batch of one; no padding, y contiguous and equal to the
+    oracle's."""
+    B, S, DI, N = (1 if layout == "batch_of_one" else 2), 77, 40, 16
+    c = mamba_case(23, B=B, S=S, DI=DI, N=N)
+    dt, A, Bm, Cm, x, h0 = (t(c[k], cuda) for k in ("dt", "A", "B", "C", "x",
+                                                    "h0"))
+    if layout.startswith("x_proj"):
+        R = 8 if layout == "x_proj" else 5
+        xp = torch.ones(B, S, R + 2 * N, device=cuda)
+        xp[..., R:R + N], xp[..., R + N:] = Bm, Cm
+        _, Bm, Cm = xp.split([R, N, N], dim=-1)
+    elif layout == "unaligned":
+        dt, x = (torch.cat([torch.ones_like(a[..., :1]), a], -1)[..., 1:]
+                 for a in (dt, x))
+    args = (dt, A, Bm, Cm, x, h0)
+    y, h = _launched(tms, "mamba_scan", lambda: tmsops.mamba_scan(*args))
+    assert y.shape == (B, S, DI) and y.is_contiguous()
+    wy, wh = tmsops.mamba_scan(*(a.cpu() for a in args))
+    _scaled_close(y, wy, 1e-5)
+    _scaled_close(h, wh, 1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd,layout", [(16, "model"), (36, "model"),
+                                       (120, "model"), (128, "model"),
+                                       (32, "fused_qkv"), (64, "unaligned")])
+def test_flash_op_reads_model_layout_on_card(cuda, hd, layout):
+    """``ops.flash_attention`` on (B, S, H, hd) tensors: contiguous (the
+    kernel reads transposed views and writes the output in the model's
+    layout, so it comes back contiguous), q, k and v as slices of one
+    fused (B, S, H + 2KV, hd) tensor, or rows off 16-byte alignment
+    (copied first); head dims 16, 36 (not a multiple of 8), 120, 128."""
+    B, S, H, KV = 2, 150, 4, 2
+    c = flash_case(24, B=B, Sq=S, Sk=S, H=H, KV=KV, hd=hd, causal=True,
+                   window=None)
+    q, k, v = (t(c[n], cuda) for n in "qkv")
+    if layout == "fused_qkv":
+        q, k, v = torch.cat([q, k, v], dim=2).split([H, KV, KV], dim=2)
+    elif layout == "unaligned":
+        q, k, v = (torch.cat([torch.ones_like(a[..., :1]), a], -1)[..., 1:]
+                   for a in (q, k, v))
+    got = _launched(tfa, "flash_attention",
+                    lambda: tfops.flash_attention(q, k, v, causal=True))
+    assert got.shape == (B, S, H, hd)
+    if layout == "model":
+        assert got.is_contiguous()
+    close(got, tfops.flash_attention(q.cpu(), k.cpu(), v.cpu(),
+                                     causal=True).numpy())
+
+
+#: (Sq, Sk, sk_valid, causal, window, q_offset): keys past sk_valid, a
+#: window shorter than one tile, queries at the end of longer keys, a
+#: non-causal window, and rows placed before every key (they give 0)
+FLASH_EDGES = [(150, 150, 100, True, None, 0),
+               (200, 200, 200, True, 5, 0),
+               (40, 300, 300, True, None, 260),
+               (60, 300, 250, True, 50, 130),
+               (90, 90, 90, False, 7, 0),
+               (20, 64, 64, True, None, -10)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Sq,Sk,sk_valid,causal,window,q_offset",
+                         FLASH_EDGES)
+def test_flash_kernel_edges_match_plain_on_card(cuda, Sq, Sk, sk_valid,
+                                                causal, window, q_offset):
+    rng = np.random.RandomState(25)
+    q = t(rng.randn(1, 4, Sq, 64).astype(np.float32), cuda)
+    k, v = (t(rng.randn(1, 2, Sk, 64).astype(np.float32), cuda)
+            for _ in range(2))
+    k[:, :, sk_valid:] = 1e4                 # padding: never seen
+    v[:, :, sk_valid:] = 1e4
+    kw = dict(causal=causal, window=window, q_offset=q_offset,
+              sk_valid=sk_valid)
+    got = _launched(tfa, "flash_attention",
+                    lambda: tfa.flash_attention_fwd(q, k, v, **kw))
+    plain = tfa.flash_attention_fwd(q.cpu(), k.cpu(), v.cpu(), **kw)
+    assert torch.isfinite(got).all()
+    close(got, plain.numpy())
+    if q_offset < 0:
+        assert not got.cpu()[:, :, :-q_offset].any()

@@ -8,6 +8,8 @@ bridged; inputs come from a NumPy seed."""
 
 from __future__ import annotations
 
+import re
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -53,8 +55,8 @@ def test_mamba_scan_matches_pallas_interpret(case):
     py, ph = tref.mamba_scan_ref(*map(t, args))
     close(py, wy, **SCAN_TOL)
     close(ph, wh, **SCAN_TOL)
-    # the wrapper pads with dt = 0 and runs the plain version on the CPU:
-    # the padding passes the state through exactly
+    # the op hands the wrapper the unpadded sequence, and the wrapper runs
+    # the plain version on the CPU
     gy, gh = tms.mamba_scan(*map(t, args), chunk=c["chunk"])
     np.testing.assert_array_equal(gy.numpy(), py.numpy())
     np.testing.assert_array_equal(gh.numpy(), ph.numpy())
@@ -127,3 +129,73 @@ def test_mamba_scan_is_forward_only():
     with torch.no_grad():
         y, _ = tmk.mamba_scan_fwd(*args)
     assert y.shape == (1, 5, 4)
+
+
+def _x_proj_views(c, R):
+    """B and C of a case as column views of an x_proj-shaped (B, S, R + 2N)
+    tensor (the model's layout), with ones in the dt_rank columns."""
+    Bsz, S, N = c["B"].shape
+    xp = torch.ones(Bsz, S, R + 2 * N)
+    xp[..., R:R + N], xp[..., R + N:] = t(c["B"]), t(c["C"])
+    _, Bv, Cv = xp.split([R, N, N], dim=-1)
+    return Bv, Cv
+
+
+@pytest.mark.parametrize("R", [8, 5])
+def test_mamba_op_on_x_proj_views_matches_pallas_interpret(R):
+    """B and C as column views of the x_proj output (R = 8: rows 16-byte
+    aligned; R = 5: not), S a multiple of no chunk: the op equals the
+    reference's op in interpret mode."""
+    c = mamba_case(9, B=2, S=45, DI=24, N=8)
+    Bv, Cv = _x_proj_views(c, R)
+    assert not Bv.is_contiguous()
+    keys = ("dt", "A", "B", "C", "x", "h0")
+    wy, wh = jms.mamba_scan(*(jnp.asarray(c[k]) for k in keys),
+                            interpret=True)
+    gy, gh = tms.mamba_scan(t(c["dt"]), t(c["A"]), Bv, Cv, t(c["x"]),
+                            t(c["h0"]))
+    close(gy, wy, **SCAN_TOL)
+    close(gh, wh, **SCAN_TOL)
+
+
+def test_mamba_op_hands_the_kernel_views_unpadded(monkeypatch):
+    """``ops.mamba_scan`` passes the wrapper the model's tensors as they
+    are: the unpadded S, and B and C as the same column views (no copy)."""
+    seen = {}
+
+    def record(*args):
+        seen["args"] = args
+        return tref.mamba_scan_ref(*args)
+    monkeypatch.setattr(tms, "mamba_scan_fwd", record)
+    c = mamba_case(10, B=2, S=45, DI=24, N=8)
+    Bv, Cv = _x_proj_views(c, 8)
+    dt, x = t(c["dt"]), t(c["x"])
+    y, _ = tms.mamba_scan(dt, t(c["A"]), Bv, Cv, x, t(c["h0"]), chunk=16)
+    got = seen["args"]
+    assert y.shape == (2, 45, 24)
+    assert got[0] is dt and got[2] is Bv and got[3] is Cv and got[4] is x
+
+
+def test_mamba_wrapper_reads_strides_in_place():
+    """The (batch, token) strides the kernel is given, and which rows take
+    16-byte copies: x_proj views at R = 8 do, at R = 5 they do not; a
+    tensor whose last stride is not 1 has none (it is copied)."""
+    c = mamba_case(11, B=2, S=6, DI=8, N=16)
+    Bv, _ = _x_proj_views(c, 8)
+    st = tmk._strides(Bv)
+    assert st == (6 * 40, 40) and tmk._aligned16(Bv, st)
+    Bu, _ = _x_proj_views(c, 5)
+    assert not tmk._aligned16(Bu, tmk._strides(Bu))
+    assert tmk._strides(t(c["dt"])[:1]) == (0, 8)
+    assert tmk._strides(t(c["dt"]).transpose(1, 2)) is None
+
+
+def test_mamba_kernel_geometry_matches_the_source():
+    src = tmk.SOURCE.read_text()
+    for name, value in (("CH", tmk.CHANNELS_PER_BLOCK),
+                        ("TC", tmk.STEPS_PER_STAGE),
+                        ("STAGES", tmk.RING_STAGES)):
+        assert re.search(rf"constexpr int {name} = (\d+);", src).group(
+            1) == str(value)
+    cases = re.findall(r"case (\d+): return launch<", src)
+    assert tuple(map(int, cases)) == tmk._STATES
