@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port on one NVIDIA GPU: the FPR serving path and
-the full-sequence forward of the hybrid families.
+"""Drive the PyTorch/CUDA port on one NVIDIA GPU: the FPR serving path, the
+full-sequence forward of the hybrid families, and the encoder-decoder and
+vision-prefix families.
 
 Run from the root of a checkout: ``python3 chip_smoke.py``.  Phases, any
 of which fails the script:
@@ -23,7 +24,10 @@ of which fails the script:
      them) and the RWKV-6 WKV scan at RWKV-6-7B's (B=2, S=2000, 64 heads
      of 64), nonzero initial states; the RWKV-6 scan also with strong
      decays on half the heads (log w down to -5), whose chunks take the
-     kernel's sequential path.
+     kernel's sequential path;
+   - the paged decode kernel at whisper-small's heads (12 KV heads of 64,
+     one query head each) and InternVL2-26B's (8 KV heads of 128, G 6),
+     and the ragged kernel at InternVL2's, on a mixed batch.
    Each kernel is timed with CUDA events beside its bound, its plain
    version and, for the attention kernels, one PyTorch library call (SDPA,
    a yardstick the port never calls); ``ms`` is one eager call.  Every
@@ -52,7 +56,19 @@ of which fails the script:
    Jamba ``attn_layer(impl="kernel")`` (flash attention) on its attention
    layer; each path's launches are counted on their own, and the stream
    time the scan op's calls spanned in prefill and in ``loss_fn`` is
-   printed.
+   printed;
+6. whisper-small whole (12 decoder + 12 encoder layers over 1500 frames;
+   random f32 weights and frames): ``prefill(enc_frames=...)`` of 2
+   prompts of 200 tokens and 16 greedy ``decode_step``s through the paged
+   decode kernel against ``page_impl="ref"`` (exactly 12 x 16 launches,
+   no other kernel), and ``loss_fn`` with frames on (2, 448),
+   ``impl="chunked"`` against ``"direct"``;
+7. InternVL2-26B at its published widths cut to 16 of 48 layers:
+   ``prefill(patches=...)`` of a 256-token vision prefix plus 2 prompts of
+   300 tokens and 16 greedy decode steps against the oracle, ``loss_fn``
+   with patches, chunked against direct, and text traffic through the
+   engine's ragged path against the same engine over ``page_impl="ref"``
+   (the ragged kernel once per layer per ragged step).
 
 Prints the card's name and power limit, tokens/s per run, the script's
 wall time, one
@@ -465,6 +481,103 @@ def kernel_phase(torch, seed: int) -> list[dict]:
              graph_ms=g_ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
              bound_3xtf32_ms=tc_ms, library_ms=lib_ms)
     return decode + [b]
+
+
+# ------------------------------------------ paged kernels at new head shapes
+# the head shapes the whisper and InternVL2 phases give the paged kernels:
+# whisper-small decode (MHA, 12 KV heads of 64: one query head a CTA) and
+# InternVL2-26B decode and ragged (8 KV heads of 128, G 6: the ragged
+# kernel's cap, 48 MMA rows a tile)
+HEAD_SHAPES = (("whisper-small", 12, 1, 64), ("internvl2-26b", 8, 6, 128))
+#      slot, q_len, q_start: prefill chunks and decode rows, t_cap 2048
+HEAD_RAGGED_ROWS = ((0, 256, 0), (1, 256, 512), (2, 1, 1400), (3, 1, 0),
+                    (4, 77, 900), (5, 1, 2047))
+
+
+def head_shape_phase(torch, seed: int, decode_row: dict,
+                     ragged_row: dict) -> None:
+    """The paged decode kernel (depth 2) at both head shapes and the ragged
+    kernel at InternVL2's, against their plain versions on the card, timed
+    beside their bounds; each result goes into its row's ``shapes``."""
+    from repro_torch.kernels.paged_attention import paged_attention as pa
+    from repro_torch.kernels.paged_attention import ref
+    from repro_torch.kernels.paged_attention.ops import \
+        build_ragged_descriptor
+    gen = torch.Generator(device=DEVICE).manual_seed(seed + 11)
+    nb, mb = 8, 16                           # slots, blocks each
+    for name, kv, g, hd in HEAD_SHAPES:
+        pool = torch.randn(nb * mb, BS, 2 * kv, hd, generator=gen,
+                           device=DEVICE)
+        tables = torch.randperm(nb * mb, generator=gen, device=DEVICE
+                                ).reshape(nb, mb).to(torch.int32)
+        stack = stack_tables(torch, tables, 1)
+        lengths = torch.randint(1, mb * BS + 1, (nb,), generator=gen,
+                                device=DEVICE, dtype=torch.int32)
+        q = torch.randn(nb, kv, g, hd, generator=gen, device=DEVICE)
+
+        def run():
+            return pa.paged_attention_fused_fwd(q, pool, stack, lengths,
+                                                buffer_depth=2)
+
+        def plain():
+            return ref.paged_decode_attention_fused_ref(
+                q.reshape(nb, kv * g, hd), pool, stack, lengths)
+        err = (run() - plain().reshape(q.shape)).abs().max().item()
+        if not math.isfinite(err) or err > TOL:
+            fail(f"decode at {name}'s heads: max abs err {err} > {TOL}")
+        rows = int(lengths.sum())
+        nbytes = (rows * 2 * kv * hd * 4 + 2 * q.numel() * 4
+                  + tables.numel() * 4 + nb * 4)
+        b_ms, b_by = bound(nbytes, rows * kv * g * 4 * hd)
+        ms, g_ms = time_ms(torch, run), graph_ms(torch, run)
+        plain_ms = time_ms(torch, plain)
+        decode_row.setdefault("shapes", []).append(dict(
+            name=name, KV=kv, G=g, hd=hd, max_abs_err=err, ms=ms,
+            graph_ms=g_ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by))
+        print(f"decode at {name}'s heads (KV {kv}, G {g}, hd {hd}; {nb} slots"
+              f", {rows} K/V rows): max abs err vs plain {err:.3g}; {ms:.4f} "
+              f"ms eager, {g_ms:.4f} ms graph; bound {b_ms:.4f} ms by {b_by}"
+              f" ({b_ms / g_ms:.1%} as a replay); plain {plain_ms:.4f} ms")
+        if g == 1:
+            continue
+        r = HEAD_RAGGED_ROWS
+        d = build_ragged_descriptor(
+            [x[0] for x in r], [x[1] for x in r], [x[2] for x in r],
+            [x[1] + x[2] for x in r], num_slots=nb, t_cap=nb * 2 * BS)
+        dt = {k: torch.as_tensor(v, device=DEVICE) for k, v in d.items()}
+        qr = torch.randn(dt["token_row"].shape[0], kv, g, hd, generator=gen,
+                         device=DEVICE)
+
+        def run_r():
+            return pa.ragged_fused_fwd(qr, pool, stack, dt["tile_row"],
+                                       dt["tile_pos"], dt["kv_lens"])
+
+        def plain_r():
+            return ref.ragged_fused_ref(
+                qr.reshape(-1, kv * g, hd), pool, tables, dt["token_row"],
+                dt["token_pos"], dt["kv_lens"]).reshape(qr.shape)
+        real = dt["token_row"] >= 0
+        err = (run_r()[real] - plain_r()[real]).abs().max().item()
+        if not math.isfinite(err) or err > TOL:
+            fail(f"ragged at {name}'s heads: max abs err {err} > {TOL}")
+        pairs = sum(qn * s + qn * (qn + 1) // 2 for _, qn, s in r)
+        keys = sum(qn + s for _, qn, s in r)
+        nbytes = (keys * 2 * kv * hd * 4 + 2 * int(real.sum()) * kv * g * hd
+                  * 4 + tables.numel() * 4 + 3 * real.numel() // 8 * 4)
+        flops = pairs * kv * g * 4 * hd
+        b_ms, b_by = bound(nbytes, flops)
+        tc_ms = max(nbytes / PEAK_BYTES_S, 3 * flops / PEAK_TF32_S) * 1e3
+        ms, g_ms = time_ms(torch, run_r), graph_ms(torch, run_r)
+        plain_ms = time_ms(torch, plain_r, reps=5)
+        ragged_row.setdefault("shapes", []).append(dict(
+            name=name, KV=kv, G=g, hd=hd, max_abs_err=err, ms=ms,
+            graph_ms=g_ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+            bound_3xtf32_ms=tc_ms))
+        print(f"ragged at {name}'s heads ({int(real.sum())} real rows of "
+              f"{real.numel()}): max abs err vs plain {err:.3g}; {ms:.4f} ms"
+              f" eager, {g_ms:.4f} ms graph ({flops / g_ms / 1e9:.2f} "
+              f"TFLOP/s); bound {b_ms:.4f} ms by {b_by}, 3xTF32 {tc_ms:.4f}"
+              f" ms; plain {plain_ms:.4f} ms")
 
 
 # --------------------------------------------------------- MLA kernel phase
@@ -1063,12 +1176,16 @@ def hybrid_config(name: str):
     return cfg.with_(n_layers=L, mixers=cfg.mixers[:L], ffns=cfg.ffns[:L])
 
 
-def greedy(torch, cfg, params, prompts, *, impl: str, page_impl: str):
-    """``prefill(impl)`` then HYBRID_NEW greedy ``decode_step``s; returns
-    tokens by batch row, each (row, token index)'s top-2 logit margin, the
-    launches of the prefill and of the decode steps, and their seconds."""
+def greedy(torch, cfg, params, prompts, *, impl: str, page_impl: str,
+           **prefill_kw):
+    """``prefill(impl, **prefill_kw)`` (frames or patches) then HYBRID_NEW
+    greedy ``decode_step``s; returns tokens by batch row, each (row, token
+    index)'s top-2 logit margin, the launches of the prefill and of the
+    decode steps, and their seconds."""
     from repro_torch.models import transformer as tfm
     B, S = prompts.shape
+    if "patches" in prefill_kw:
+        S += prefill_kw["patches"].shape[1]
     st = tfm.init_decode_state(cfg, B, S + HYBRID_NEW + 1,
                                dtype=torch.float32, device=DEVICE)
     toks, margins, launches, secs = [], {}, [], []
@@ -1088,7 +1205,11 @@ def greedy(torch, cfg, params, prompts, *, impl: str, page_impl: str):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         if phase == "prefill":
-            lg, st = tfm.prefill(params, cfg, prompts, st, impl=impl)
+            lg, st = tfm.prefill(params, cfg, prompts, st, impl=impl,
+                                 **prefill_kw)
+            if not (st["lengths"] == S).all():
+                fail(f"{cfg.name}: prefill lengths {st['lengths'].tolist()}"
+                     f", expected {S}")
             tok = take(lg)
         else:
             for _ in range(HYBRID_NEW):
@@ -1219,6 +1340,204 @@ def hybrid_phase(torch, name: str, seed: int) -> dict:
     return launches
 
 
+# ------------------------------------ encoder-decoder and vision prefix
+# whisper-small whole (12 decoder + 12 encoder layers over 1500 frames,
+# MHA: 12 KV heads of 64, 0.340 B params); InternVL2-26B at its published
+# widths cut to 16 of 48 layers (KV 8, G 6, hd 128; 7.418 B params, 29.7
+# GB f32: all 48 would take 79.6 GB and leave no room for the pools)
+ENCDEC_PROMPT = (2, 200)
+ENCDEC_LOSS = (2, 448)
+VL_LAYERS = 16
+VL_PROMPT = (2, 300)
+VL_LOSS = (2, 256)
+VL_ENGINE_LENS = (300, 1500, 777, 1029)
+
+
+def made_line(torch, cfg, params, t0: float, what: str) -> None:
+    from repro_torch.models import transformer as tfm
+    torch.cuda.synchronize()
+    n = tfm.param_count(params)
+    print(f"{cfg.name}: {what}, d_model {cfg.d_model}, {cfg.n_heads} heads "
+          f"(KV {cfg.n_kv_heads}, hd {cfg.head_dim}), {n / 1e9:.3f} B params "
+          f"({n * 4 / 1e9:.2f} GB f32), made in "
+          f"{time.perf_counter() - t0:.1f} s")
+
+
+def decode_check(torch, cfg, params, prompts, **prefill_kw) -> int:
+    """``prefill`` (with frames or patches, launching no kernel) and
+    HYBRID_NEW greedy ``decode_step``s through the paged decode kernel
+    against ``page_impl="ref"`` (tokens equal but for near-ties); returns
+    the kernel's launches."""
+    from repro_torch.kernels.paged_attention import ops as pa_ops
+    from repro_torch.models import transformer as tfm
+    n_attn = len(tfm.attn_layer_ids(cfg))
+    op = "paged_attention_fused_fwd"
+    with timed_calls(torch, pa_ops, op) as calls:
+        toks, _, (pre, dec), secs = greedy(
+            torch, cfg, params, prompts, impl="chunked", page_impl="kernel",
+            **prefill_kw)
+    expect_launches(pre, {}, f"{cfg.name} prefill")
+    expect_launches(dec, {"paged_decode": n_attn * HYBRID_NEW},
+                    f"{cfg.name} decode")
+    want, margins, _, ref_secs = greedy(
+        torch, cfg, params, prompts, impl="chunked", page_impl="ref",
+        **prefill_kw)
+    check_tokens(toks, want, margins, cfg.name)
+    B, S = prompts.shape
+    extra = "".join(f" + {k} {tuple(v.shape)}" for k, v in prefill_kw.items())
+    n = B * HYBRID_NEW
+    print(f"{cfg.name} prefill {B}x{S}{extra}, {HYBRID_NEW} greedy decode "
+          f"steps: {B * (HYBRID_NEW + 1)} tokens equal the oracle; kernel "
+          f"prefill {secs[0]:.3f} s, decode {secs[1]:.3f} s "
+          f"({n / secs[1]:.2f} tokens/s); oracle prefill {ref_secs[0]:.3f} "
+          f"s, decode {ref_secs[1]:.3f} s ({n / ref_secs[1]:.2f} tokens/s); "
+          f"paged_decode launches {dec['paged_decode']} = {n_attn} layers x "
+          f"{HYBRID_NEW} steps")
+    print(f"{cfg.name} kernel decode: {span_line(calls, op)}")
+    return dec["paged_decode"]
+
+
+def loss_check(torch, cfg, params, batch: dict) -> None:
+    """``loss_fn`` with ``impl="chunked"`` against ``"direct"`` attention
+    (relative LOSS_RTOL); neither launches a kernel."""
+    from repro_torch.models import transformer as tfm
+    loss = {}
+    for impl in ("chunked", "direct"):
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss[impl] = tfm.loss_fn(params, cfg, batch, impl=impl).item()
+        loss[impl + " s"] = time.perf_counter() - t0
+        expect_launches(launch_counts(), {}, f"{cfg.name} loss_fn({impl})")
+    rel = abs(loss["chunked"] - loss["direct"]) / abs(loss["direct"])
+    if not math.isfinite(rel) or rel > LOSS_RTOL:
+        fail(f"{cfg.name} loss_fn: chunked {loss['chunked']} vs direct "
+             f"{loss['direct']} (relative {rel:.3g} > {LOSS_RTOL})")
+    inputs = ", ".join(f"{k} {tuple(v.shape)}" for k, v in batch.items()
+                       if k != "labels")
+    print(f"{cfg.name} loss_fn on {inputs}: chunked {loss['chunked']:.6f} "
+          f"({loss['chunked s']:.3f} s), direct {loss['direct']:.6f} "
+          f"({loss['direct s']:.3f} s), relative difference {rel:.3g}")
+
+
+def loss_batch(torch, rng, cfg, shape, **inputs) -> dict:
+    tokens = torch.as_tensor(rng.randint(1, cfg.vocab, shape),
+                             dtype=torch.int32, device=DEVICE)
+    labels = torch.roll(tokens, -1, dims=1)
+    labels[:, -1] = -100
+    return {"tokens": tokens, "labels": labels, **inputs}
+
+
+def encdec_phase(torch, seed: int) -> int:
+    """whisper-small whole: ``prefill(enc_frames=...)`` and greedy decode
+    through the paged decode kernel (MHA, one query head a CTA) against
+    the oracle, then ``loss_fn`` with frames; returns the decode kernel's
+    launches (12 layers x 16 steps)."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as tfm
+    cfg = get_config("whisper-small")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=DEVICE).manual_seed(seed + 7)
+    params = tfm.init_params(cfg, generator=gen, device=DEVICE,
+                             dtype=torch.float32)
+    made_line(torch, cfg, params, t0,
+              f"{cfg.n_layers} decoder + {cfg.enc_layers} encoder layers "
+              f"over {cfg.enc_len} frames")
+    rng = np.random.RandomState(seed + 7)
+    B, S = ENCDEC_PROMPT
+    prompts = torch.as_tensor(rng.randint(1, cfg.vocab, (B, S)),
+                              dtype=torch.int32, device=DEVICE)
+    frames = torch.randn(B, cfg.enc_len, cfg.d_model, generator=gen,
+                         device=DEVICE)
+    with torch.no_grad():
+        launches = decode_check(torch, cfg, params, prompts,
+                                enc_frames=frames)
+        loss_check(torch, cfg, params,
+                   loss_batch(torch, rng, cfg, ENCDEC_LOSS, frames=frames))
+    print(f"{cfg.name}: peak memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def vision_phase(torch, seed: int) -> dict:
+    """InternVL2-26B cut to VL_LAYERS: ``prefill(patches=...)`` of the
+    256-token vision prefix plus text, greedy decode through the paged
+    decode kernel (G 6) against the oracle, ``loss_fn`` with patches, and
+    text traffic through the engine's ragged path (ragged kernel at its
+    6-head cap) against the same engine over ``page_impl="ref"``; returns
+    each kernel's launches."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.paged_attention import ops as pa_ops
+    from repro_torch.models import transformer as tfm
+    full = get_config("internvl2-26b")
+    L = VL_LAYERS
+    cfg = full.with_(n_layers=L, mixers=full.mixers[:L], ffns=full.ffns[:L])
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=DEVICE).manual_seed(seed + 9)
+    params = tfm.init_params(cfg, generator=gen, device=DEVICE,
+                             dtype=torch.float32)
+    made_line(torch, cfg, params, t0, f"{L} of {full.n_layers} layers, a "
+              f"{cfg.prefix_tokens}-token vision prefix")
+    rng = np.random.RandomState(seed + 9)
+    B, S = VL_PROMPT
+    prompts = torch.as_tensor(rng.randint(1, cfg.vocab, (B, S)),
+                              dtype=torch.int32, device=DEVICE)
+    patches = torch.randn(B, cfg.prefix_tokens, cfg.d_model, generator=gen,
+                          device=DEVICE)
+    with torch.no_grad():
+        launches = {"paged_decode": decode_check(torch, cfg, params, prompts,
+                                                 patches=patches)}
+        loss_check(torch, cfg, params,
+                   loss_batch(torch, rng, cfg, VL_LOSS, patches=patches))
+    kw = dict(prompt_lens=VL_ENGINE_LENS, seed=seed, num_blocks=64,
+              max_seq_len=1536, chunked_prefill=True, prefill_chunk=2,
+              ragged_kernel=True)
+    reset_launches()
+    with timed_calls(torch, pa_ops, "ragged_fused_fwd") as calls:
+        toks, snap, _, secs, _, spent = serve(torch, cfg, params,
+                                              page_impl="kernel", **kw)
+    counts = launch_counts()
+    steps = snap["engine.kernel.ragged_steps"]
+    want = L * steps
+    if counts["ragged"] != want or any(
+            v for k, v in counts.items() if k != "ragged"):
+        fail(f"{cfg.name} ragged path launches {counts}, expected ragged = "
+             f"{L} layers x {steps} steps = {want}")
+    if snap["engine.kernel.kernel_calls"] != want:
+        fail(f"{cfg.name} kernel_calls {snap['engine.kernel.kernel_calls']}"
+             f" != {want}")
+    if snap["engine.prefill_chunk_traces"] != 1:
+        fail(f"{cfg.name}: {snap['engine.prefill_chunk_traces']} chunk shape "
+             f"signatures, expected 1")
+    ref_toks, _, _, ref_secs, margins, _ = serve(torch, cfg, params,
+                                                 page_impl="ref", **kw)
+    check_tokens(toks, ref_toks, margins, f"{cfg.name} ragged")
+    n = sum(len(t) for t in toks.values())
+    print(f"engine {cfg.name} ragged (text): {n} tokens, kernel "
+          f"{n / secs:.2f} tokens/s ({secs:.2f} s), oracle "
+          f"{n / ref_secs:.2f} tokens/s ({ref_secs:.2f} s); ragged launches "
+          f"{counts['ragged']} = {L} x {steps} steps; tokens match the oracle")
+    split = ", ".join(f"{k} {v:.2f} s" for k, v in spent.items() if v)
+    print(f"engine {cfg.name} ragged kernel run, device time spanned: "
+          f"{split}, rest {secs - sum(spent.values()):.2f} s")
+    print(f"engine {cfg.name} ragged kernel run: "
+          f"{span_line(calls, 'ragged_fused_fwd')}")
+    launches["ragged"] = counts["ragged"]
+    print(f"{cfg.name}: peak memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--layers", type=int, default=40,
@@ -1257,6 +1576,7 @@ def main() -> int:
           f"parallel)")
     # one line per TPU kernel, in the order of PERF.md's table
     kernels = kernel_phase(torch, args.seed)
+    head_shape_phase(torch, args.seed, kernels[2], kernels[3])
     kernels.append(flash_kernel_phase(torch, args.seed))
     kernels.append(mla_kernel_phase(torch, args.seed))
     kernels += scan_kernel_phase(torch, args.seed)
@@ -1272,6 +1592,9 @@ def main() -> int:
     for name in HYBRID_LAYERS:
         for k, n in hybrid_phase(torch, name, args.seed).items():
             launches[k] = launches.get(k, 0) + n
+    launches["paged_decode"] += encdec_phase(torch, args.seed)
+    for k, n in vision_phase(torch, args.seed).items():
+        launches[k] += n
     # the paged decode launches go to the row of the depth the models run
     # (the tuned depth; 2 without a tuning entry), the other rows get none
     from repro_torch.kernels.paged_attention import autotune

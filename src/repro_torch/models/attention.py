@@ -4,7 +4,9 @@ PyTorch counterpart of the forward half of ``repro.models.attention``:
 the projections, the O(S²) oracle, the forward of the chunked
 online-softmax attention (with its ``q_offset``, so a prefill chunk can
 slide along the sequence), the table helpers, the gather oracle of
-paged decode and the full-sequence residual block :func:`attn_layer`.
+paged decode, the full-sequence residual block :func:`attn_layer` and
+the encoder-decoder cross attention (:func:`cross_attn_layer`,
+:func:`encode_cross_kv`).
 The custom backward of ``chunked_attention`` belongs to the training
 slice and is not here.
 """
@@ -234,3 +236,26 @@ def attn_layer(params: dict, x: torch.Tensor, positions: torch.Tensor, cfg,
         raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
     B, S, H, hd = o.shape
     return x + o.reshape(B, S, H * hd) @ params["wo"]
+
+
+def cross_attn_layer(params: dict, x: torch.Tensor, enc_kv: tuple, cfg
+                     ) -> torch.Tensor:
+    """Encoder-decoder cross attention (whisper) over precomputed encoder
+    keys and values: pre-norm residual, non-causal, no rope."""
+    h = rms_norm(x, params["norm"], cfg.norm_eps)
+    B, S, _ = h.shape
+    H, HD = cfg.n_heads, cfg.head_dim
+    q = (h @ params["wq"]).reshape(B, S, H, HD)
+    k, v = enc_kv
+    o = chunked_attention(q, k, v, causal=False)
+    return x + o.reshape(B, S, H * HD) @ params["wo"]
+
+
+def encode_cross_kv(params: dict, enc_out: torch.Tensor, cfg) -> tuple:
+    """enc_out (B, Se, D) → cross-attention keys and values, each
+    (B, Se, KV, hd)."""
+    B, Se, _ = enc_out.shape
+    KV, HD = cfg.n_kv_heads, cfg.head_dim
+    k = (enc_out @ params["wk"]).reshape(B, Se, KV, HD)
+    v = (enc_out @ params["wv"]).reshape(B, Se, KV, HD)
+    return k, v

@@ -1,9 +1,10 @@
 """Model assembly: init, prefill, chunked prefill, decode step, the
 ragged mixed step, and the full-sequence forward and loss.
 
-PyTorch counterpart of the decoder-only, text-only part of
-``repro.models.transformer``: attention (GQA), MLA, Mamba and RWKV-6
-mixers, dense and MoE FFNs.  The decode state is a dict of tensors:
+PyTorch counterpart of ``repro.models.transformer``: attention (GQA),
+MLA, Mamba and RWKV-6 mixers, dense and MoE FFNs, the whisper encoder
+and cross attention, and the vision prefix of InternVL2 (both frontends
+stubs, as in the reference).  The decode state is a dict of tensors:
 
   kv:       fused K/V (L_attn, N, bs, KV*2, hd) paged GQA cache, head-
             interleaved (K even, V odd)
@@ -13,6 +14,8 @@ mixers, dense and MoE FFNs.  The decode state is a dict of tensors:
             f32 Mamba states, per batch slot
   rwkv_x/rwkv_s: (L, B, D) model dtype / (L, B, nH, 64, 64) f32 RWKV-6
             token shift and WKV states, indexed by absolute layer
+  cross_k/cross_v: (L, B, enc_len, KV, hd) whisper cross-attention keys
+            and values, written once by prefill, per batch slot
   tables:   (W, Bs, M) int32 shard stack or (B, M) — FPR block tables
   lengths:  (B,) int32
 
@@ -36,9 +39,10 @@ when ``impl == "chunked"`` and through ``direct_attention`` otherwise,
 while ``prefill`` always uses ``chunked_attention``; decode steps the
 recurrences sequentially.  The forward and loss are forward only (no
 autograd path is ported).  MLA and hybrid models prefill monolithically
-(``prefill_chunk`` and ``ragged_step`` take attention mixers only, as in
-the reference).  Encoder-decoder and multimodal models raise
-``NotImplementedError``.
+(``prefill_chunk`` and ``ragged_step`` take attention-only decoder
+models, as in the reference: no encoder-decoder).  ``impl="direct"``
+runs attention through ``direct_attention`` in the forward and loss, as
+the reference's does; the scans refuse it.
 """
 
 from __future__ import annotations
@@ -51,33 +55,31 @@ from repro_torch.models import mla as mla_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import rwkv6 as rwkv_mod
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import (dense_ffn, embed, init_embed,
-                                       init_swiglu, rms_norm, unembed)
+from repro_torch.models.frontends import (audio_frames_to_embeddings,
+                                          init_frontend,
+                                          vision_patches_to_embeddings)
+from repro_torch.models.layers import (dense_ffn, embed, init_dense,
+                                       init_embed, init_swiglu, rms_norm,
+                                       unembed)
 
 BLOCK_SIZE = 128   # tokens per physical KV block
 
 PAGE_IMPLS = ("ref", "kernel")
-#: how the Mamba and RWKV-6 mixers scan a sequence (see the module doc)
-IMPLS = ("chunked", "sequential", "kernel")
+#: how the Mamba and RWKV-6 mixers scan a sequence, and whether the
+#: forward's attention is chunked (see the module doc)
+IMPLS = ("chunked", "sequential", "kernel", "direct")
+#: rows of the decoder's learned positions (``dec_pos``); later positions
+#: reuse the last row, as in the reference
+DEC_POS = 4096
 
-_QUEUE_ITEM = {"enc_dec": "ROADMAP Queue 1 item 9 (encoder-decoder)",
-               "frontend": "ROADMAP Queue 1 item 9 (multimodal frontends)"}
 _MIXERS = {"attn": attn_mod.init_attn, "mla": mla_mod.init_mla,
            "mamba": mamba_mod.init_mamba, "rwkv6": rwkv_mod.init_rwkv6}
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise for anything outside this port's slices: attention, MLA,
-    Mamba or RWKV-6 mixers with dense or MoE FFNs, decoder-only,
-    text-only."""
+    """Raise for a mixer outside attention, MLA, Mamba and RWKV-6."""
     for kind in sorted(set(cfg.mixers) - set(_MIXERS)):
         raise ValueError(f"unknown mixer {kind!r}")
-    if cfg.enc_dec:
-        raise NotImplementedError(f"encoder-decoder models are not ported "
-                                  f"yet: {_QUEUE_ITEM['enc_dec']}")
-    if cfg.frontend is not None:
-        raise NotImplementedError(f"{cfg.frontend} frontends are not ported "
-                                  f"yet: {_QUEUE_ITEM['frontend']}")
 
 
 # ============================================================ initialisation
@@ -85,21 +87,53 @@ def _init_layer(cfg: ModelConfig, i: int, *, generator, device,
                 dtype) -> dict:
     kw = dict(generator=generator, device=device, dtype=dtype)
     mix, ffn_kind = cfg.layer_sig(i)
-    if ffn_kind == "moe":
-        ffn = moe_mod.init_moe(cfg, **kw)
-    else:
-        ffn = init_swiglu(cfg.d_model, cfg.dense_d_ff or cfg.d_ff, **kw)
-        ffn["norm"] = torch.ones(cfg.d_model, device=device, dtype=dtype)
-    return {"mix": _MIXERS[mix](cfg, **kw), "ffn": ffn}
+    ffn = (moe_mod.init_moe(cfg, **kw) if ffn_kind == "moe"
+           else _init_dense_ffn(cfg, **kw))
+    lp = {"mix": _MIXERS[mix](cfg, **kw), "ffn": ffn}
+    if cfg.enc_dec:
+        lp["cross"] = _init_cross(cfg, **kw)
+    return lp
+
+
+def _init_dense_ffn(cfg: ModelConfig, *, generator, device, dtype) -> dict:
+    ffn = init_swiglu(cfg.d_model, cfg.dense_d_ff or cfg.d_ff,
+                      generator=generator, device=device, dtype=dtype)
+    ffn["norm"] = torch.ones(cfg.d_model, device=device, dtype=dtype)
+    return ffn
+
+
+def _init_cross(cfg: ModelConfig, *, generator, device, dtype) -> dict:
+    D, H, KV, HD = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    kw = dict(generator=generator, device=device, dtype=dtype)
+    return {"norm": torch.ones(D, device=device, dtype=dtype),
+            "wq": init_dense(D, H * HD, **kw),
+            "wk": init_dense(D, KV * HD, **kw),
+            "wv": init_dense(D, KV * HD, **kw),
+            "wo": init_dense(H * HD, D, **kw)}
+
+
+def _init_encoder(cfg: ModelConfig, *, generator, device, dtype) -> dict:
+    """The whisper encoder: ``enc_layers`` attention + dense-FFN layers and
+    the learned encoder and decoder positions."""
+    kw = dict(generator=generator, device=device, dtype=dtype)
+    encoder = [{"mix": attn_mod.init_attn(cfg, **kw),
+                "ffn": _init_dense_ffn(cfg, **kw)}
+               for _ in range(cfg.enc_layers)]
+
+    def positions(rows):
+        return (torch.randn(rows, cfg.d_model, generator=generator,
+                            device=device) * 0.02).to(dtype)
+    return {"encoder": encoder, "enc_pos": positions(cfg.enc_len),
+            "dec_pos": positions(DEC_POS)}
 
 
 def init_params(cfg: ModelConfig, *, generator: torch.Generator,
                 device="cuda", dtype=torch.float32) -> dict:
     """Random parameters made directly on ``device`` from ``generator``.
 
-    Same keys as the reference; ``params["body"][j]`` is a list over
-    blocks of per-layer dicts (the reference stacks them along axis 0
-    for its scan).
+    Same keys and shapes as the reference; ``params["body"][j]`` is a
+    list over blocks of per-layer dicts (the reference stacks them along
+    axis 0 for its scan), ``params["encoder"]`` a list of layer dicts.
     """
     check_supported(cfg)
     kw = dict(generator=generator, device=device, dtype=dtype)
@@ -109,10 +143,13 @@ def init_params(cfg: ModelConfig, *, generator: torch.Generator,
                                        dtype=dtype)}
     if not cfg.tie_embeddings:
         params["unembed"] = init_embed(cfg.vocab, cfg.d_model, **kw)
+    params.update(init_frontend(cfg, **kw))
     params["prefix"] = [_init_layer(cfg, i, **kw) for i in range(prefix)]
     n_blocks = (cfg.n_layers - prefix) // period if period else 0
     params["body"] = [[_init_layer(cfg, prefix + b * period + j, **kw)
                        for b in range(n_blocks)] for j in range(period)]
+    if cfg.enc_dec:
+        params.update(_init_encoder(cfg, **kw))
     return params
 
 
@@ -150,10 +187,10 @@ def _ffn(lp: dict, x: torch.Tensor, cfg: ModelConfig, i: int) -> torch.Tensor:
 
 
 def _check_attn_only(cfg: ModelConfig, what: str) -> None:
-    if any(m != "attn" for m in cfg.mixers):
+    if any(m != "attn" for m in cfg.mixers) or cfg.enc_dec:
         raise NotImplementedError(
-            f"{what} supports attention-mixer models; got "
-            f"mixers={cfg.mixers}")
+            f"{what} supports attention-mixer, decoder-only models; got "
+            f"mixers={cfg.mixers} enc_dec={cfg.enc_dec}")
 
 
 # ============================================================= decode state
@@ -197,6 +234,11 @@ def cache_spec(cfg: ModelConfig, batch: int, max_len: int,
         spec["rwkv_x"] = ((L, batch, cfg.d_model), dtype)
         spec["rwkv_s"] = ((L, batch, cfg.d_model // hs, hs, hs),
                           torch.float32)
+    if cfg.enc_dec:
+        cross = (cfg.n_layers, batch, cfg.enc_len, cfg.n_kv_heads,
+                 cfg.head_dim)
+        spec["cross_k"] = (cross, dtype)
+        spec["cross_v"] = (cross, dtype)
     return spec
 
 
@@ -348,6 +390,8 @@ def decode_step(params, cfg: ModelConfig, state: dict, tokens: torch.Tensor,
     st = dict(state)
     pos = st["lengths"]
     x = embed(tokens, params["embed"])                   # (B, D)
+    if cfg.enc_dec:
+        x = x + params["dec_pos"][pos.long().clamp(max=DEC_POS - 1)]
     positions = pos[:, None]
     targets = _token_targets(st["tables"],
                              torch.arange(B, device=tokens.device), pos,
@@ -384,6 +428,10 @@ def decode_step(params, cfg: ModelConfig, state: dict, tokens: torch.Tensor,
             o = _paged_attn(q[:, 0], st["kv"][a], st["tables"], pos + 1,
                             page_impl=page_impl, window=cfg.attn.window)
             x = x + o.reshape(B, -1) @ lp["mix"]["wo"]
+        if cfg.enc_dec:
+            x = attn_mod.cross_attn_layer(
+                lp["cross"], x[:, None],
+                (st["cross_k"][i], st["cross_v"][i]), cfg)[:, 0]
         x = _ffn(lp, x[:, None], cfg, i)[:, 0]
     h = rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = unembed(h[:, None], _unembed_table(params, cfg))[:, 0]
@@ -393,25 +441,33 @@ def decode_step(params, cfg: ModelConfig, state: dict, tokens: torch.Tensor,
 
 # ================================================================== prefill
 def prefill(params, cfg: ModelConfig, tokens: torch.Tensor, state: dict, *,
-            impl: str = "chunked"):
+            impl: str = "chunked", enc_frames: torch.Tensor | None = None,
+            patches: torch.Tensor | None = None):
     """Process a full prompt, write every cache and recurrent state (in
-    place), return (last_logits, state).  tokens: (B, S); token t of
-    sequence b lands at pool[tables[b, t//bs], t%bs].  ``impl`` scans the
-    Mamba and RWKV-6 mixers (:data:`IMPLS`); attention layers always run
+    place), return (last_logits, state).  tokens: (B, S); a vision model's
+    ``patches`` (B, P, D) go before the text, so the sequence is S_tot =
+    P + S long and token t of it (prefix included) lands at
+    pool[tables[b, t//bs], t%bs].  An encoder-decoder model encodes
+    ``enc_frames`` (B, enc_len, D) once and writes each layer's
+    cross-attention keys and values.  ``impl`` scans the Mamba and RWKV-6
+    mixers (:data:`IMPLS`); attention layers always run
     ``chunked_attention``, as in the reference."""
     check_supported(cfg)
     _check_impl(impl)
-    B, S = tokens.shape
+    B = tokens.shape[0]
     bs = BLOCK_SIZE
     st = dict(state)
-    x = embed(tokens, params["embed"])
+    enc_out = encode(params, cfg, enc_frames) if cfg.enc_dec else None
+    x = embed_inputs(params, cfg, tokens, patches)
+    S = x.shape[1]                                       # S_tot
     positions = torch.arange(S, device=tokens.device)[None].expand(B, S)
     tables = attn_mod.assemble_shard_tables(st["tables"])[:B]
     M_used = -(-S // bs)
     tab = tables[:, :M_used].reshape(-1)
 
     def scatter_seq(pool, seq):
-        """seq (B, S, ...) → the prompt's pool rows; <0 entries drop."""
+        """seq (B, S_tot, ...) → the prompt's pool rows; <0 entries
+        drop."""
         pad = [0, 0] * (seq.dim() - 2) + [0, M_used * bs - S]
         seq = torch.nn.functional.pad(seq, pad)
         _scatter_blocks(pool, tab,
@@ -446,6 +502,11 @@ def prefill(params, cfg: ModelConfig, tokens: torch.Tensor, state: dict, *,
                                            window=cfg.attn.window)
             x = x + o.reshape(B, S, -1) @ lp["mix"]["wo"]
             scatter_seq(st["kv"][attn_ids.index(i)], attn_mod.fuse_kv(k, v))
+        if cfg.enc_dec:
+            kc, vc = attn_mod.encode_cross_kv(lp["cross"], enc_out, cfg)
+            x = attn_mod.cross_attn_layer(lp["cross"], x, (kc, vc), cfg)
+            st["cross_k"][i] = kc
+            st["cross_v"][i] = vc
         x = _ffn(lp, x, cfg, i)
     h = rms_norm(x[:, -1], params["final_norm"], cfg.norm_eps)
     logits = unembed(h[:, None], _unembed_table(params, cfg))[:, 0]
@@ -574,14 +635,40 @@ def ragged_step(params, cfg: ModelConfig, state: dict, tokens: torch.Tensor,
 
 
 # ===================================================== full-sequence forward
-def embed_inputs(params, cfg: ModelConfig, tokens: torch.Tensor
-                 ) -> torch.Tensor:
-    """tokens (B, S) → x (B, S, D) (text only)."""
+def encode(params, cfg: ModelConfig, frames: torch.Tensor) -> torch.Tensor:
+    """Whisper encoder: frames (B, enc_len, D) → enc_out (B, enc_len, D).
+    Non-causal ``chunked_attention`` with no rope, as in the reference."""
+    x = audio_frames_to_embeddings(params, frames)
+    x = x + params["enc_pos"][None, :x.shape[1]]
+    for lp in params["encoder"]:
+        h = rms_norm(x, lp["mix"]["norm"], cfg.norm_eps)
+        q, k, v = attn_mod.qkv_proj(lp["mix"], h, cfg, None)
+        o = attn_mod.chunked_attention(q, k, v, causal=False)
+        B, S, H, hd = o.shape
+        x = x + o.reshape(B, S, H * hd) @ lp["mix"]["wo"]
+        x = dense_ffn(lp["ffn"], x, cfg.norm_eps)
+    return rms_norm(x, params["final_norm"], cfg.norm_eps)
+
+
+def embed_inputs(params, cfg: ModelConfig, tokens: torch.Tensor,
+                 patches: torch.Tensor | None = None) -> torch.Tensor:
+    """tokens (B, S_text) [+ patches (B, P, D)] → x (B, S, D): a vision
+    prefix goes before the text; an encoder-decoder model adds its
+    learned decoder positions."""
     check_supported(cfg)
-    return embed(tokens, params["embed"])
+    x = embed(tokens, params["embed"])
+    if cfg.frontend == "vision" and patches is not None:
+        vis = vision_patches_to_embeddings(params, patches)
+        x = torch.cat([vis.to(x.dtype), x], dim=1)
+    if cfg.enc_dec:
+        rows = torch.arange(x.shape[1], device=x.device).clamp(
+            max=DEC_POS - 1)
+        x = x + params["dec_pos"][rows][None]
+    return x
 
 
-def _apply_layer(lp, x, positions, cfg: ModelConfig, i: int, *, impl):
+def _apply_layer(lp, x, positions, cfg: ModelConfig, i: int, *, impl,
+                 enc_out=None):
     """Layer ``i`` on (B, S, D) → (x, aux loss)."""
     mix = cfg.mixers[i]
     if mix == "attn":
@@ -598,16 +685,20 @@ def _apply_layer(lp, x, positions, cfg: ModelConfig, i: int, *, impl):
         x = mamba_mod.mamba_layer(lp["mix"], x, cfg, impl=impl)
     else:
         x = rwkv_mod.rwkv6_layer(lp["mix"], x, cfg, impl=impl)
+    if cfg.enc_dec and enc_out is not None:
+        enc_kv = attn_mod.encode_cross_kv(lp["cross"], enc_out, cfg)
+        x = attn_mod.cross_attn_layer(lp["cross"], x, enc_kv, cfg)
     return _ffn_aux(lp, x, cfg, i)
 
 
 def forward_hidden(params, cfg: ModelConfig, x: torch.Tensor, *,
-                   impl: str = "chunked"):
+                   impl: str = "chunked", enc_out: torch.Tensor | None = None):
     """x: (B, S, D) embedded inputs → (hidden (B, S, D), aux loss).
 
     Attention layers run ``chunked_attention`` when ``impl ==
     "chunked"`` and ``direct_attention`` otherwise; Mamba and RWKV-6
-    layers scan with ``impl`` (:data:`IMPLS`)."""
+    layers scan with ``impl`` (:data:`IMPLS`).  An encoder-decoder
+    model's layers cross-attend ``enc_out`` (:func:`encode`)."""
     check_supported(cfg)
     _check_impl(impl)
     B, S, _ = x.shape
@@ -615,7 +706,7 @@ def forward_hidden(params, cfg: ModelConfig, x: torch.Tensor, *,
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(cfg.n_layers):
         x, a = _apply_layer(layer_params(params, cfg, i), x, positions, cfg,
-                            i, impl=impl)
+                            i, impl=impl, enc_out=enc_out)
         aux = aux + a
     return x, aux
 
@@ -645,8 +736,15 @@ def chunked_loss(params, cfg: ModelConfig, hidden: torch.Tensor,
 
 def loss_fn(params, cfg: ModelConfig, batch: dict, *,
             impl: str = "chunked") -> torch.Tensor:
-    """batch: tokens (B, S), labels (B, S) → LM loss plus the MoE aux loss
-    (forward only)."""
-    x = embed_inputs(params, cfg, batch["tokens"])
-    hidden, aux = forward_hidden(params, cfg, x, impl=impl)
-    return chunked_loss(params, cfg, hidden, batch["labels"]) + aux
+    """batch: tokens (B, S), labels (B, S) [, patches (B, P, D), frames
+    (B, enc_len, D)] → LM loss plus the MoE aux loss (forward only).  The
+    vision prefix positions carry no loss."""
+    enc_out = encode(params, cfg, batch["frames"]) if cfg.enc_dec else None
+    x = embed_inputs(params, cfg, batch["tokens"], batch.get("patches"))
+    hidden, aux = forward_hidden(params, cfg, x, impl=impl, enc_out=enc_out)
+    labels = batch["labels"]
+    if cfg.frontend == "vision" and "patches" in batch:
+        pad = torch.full((labels.shape[0], batch["patches"].shape[1]), -100,
+                         dtype=labels.dtype, device=labels.device)
+        labels = torch.cat([pad, labels], dim=1)
+    return chunked_loss(params, cfg, hidden, labels) + aux

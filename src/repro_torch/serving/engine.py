@@ -56,7 +56,9 @@ from repro_torch.serving.scheduler import Request, Scheduler
 
 #: decode-state keys indexed by batch slot (recurrent/cross-attention
 #: state) — these do not survive a slot change, so swap-preemption falls
-#: back to recompute when any of them is present.
+#: back to recompute when any of them is present.  ``cross_k``/``cross_v``
+#: stay listed as in the reference, though this engine refuses
+#: encoder-decoder models, so no run here carries them.
 _SLOT_STATE_KEYS = ("conv", "ssm", "rwkv_x", "rwkv_s", "cross_k", "cross_v")
 
 
@@ -97,6 +99,12 @@ class Engine:
     def __init__(self, cfg: ModelConfig, params, *,
                  config: EngineConfig | None = None):
         config = config or EngineConfig()
+        if cfg.enc_dec:
+            raise NotImplementedError(
+                f"{cfg.name}: the engine serves decoder-only models; an "
+                f"encoder-decoder model has no frames path (the reference "
+                f"engine's prefill, src/repro/serving/engine.py:206, runs "
+                f"encode(params, cfg, None))")
         self.config = config
         self.cfg = cfg
         self.params = params

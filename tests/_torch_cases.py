@@ -99,12 +99,16 @@ def paged_split_case(seed, *, G, KV, hd, W, window=None, bs=128, M=20):
 
 
 #: G in {1, 4, 5, 6}, hd in {64, 120, 128}, W in {1, 2, 4}, windows shorter
-#: than a split
+#: than a split; the last two at the head shapes of whisper-small (MHA: 12
+#: KV heads of 64, one query head a CTA) and InternVL2-26B (8 KV heads of
+#: 128, G 6)
 PAGED_SPLITS = [dict(G=4, KV=2, hd=128, W=1),
-               dict(G=1, KV=4, hd=120, W=2),
-               dict(G=5, KV=2, hd=128, W=4, window=200),
-               dict(G=4, KV=2, hd=120, W=1, window=200),
-               dict(G=6, KV=1, hd=64, W=2)]
+                dict(G=1, KV=4, hd=120, W=2),
+                dict(G=5, KV=2, hd=128, W=4, window=200),
+                dict(G=4, KV=2, hd=120, W=1, window=200),
+                dict(G=6, KV=1, hd=64, W=2),
+                dict(G=1, KV=12, hd=64, W=1),
+                dict(G=6, KV=8, hd=128, W=2)]
 
 
 def ragged_split_case(seed, *, G, KV, hd, W, window=None, bs=128, M=33):
@@ -135,13 +139,16 @@ def ragged_split_case(seed, *, G, KV, hd, W, window=None, bs=128, M=33):
 
 
 #: as PAGED_SPLITS, plus G = 6 (the widest tile, 48 MMA rows) and hd 64
-#: and 96 (the kernel's other padded head widths)
+#: and 96 (the kernel's other padded head widths); the last two at
+#: whisper-small's and InternVL2-26B's head shapes
 RAGGED_SPLITS = [dict(G=4, KV=2, hd=128, W=1),
                  dict(G=1, KV=4, hd=120, W=2),
                  dict(G=5, KV=2, hd=128, W=4, window=300),
                  dict(G=4, KV=2, hd=120, W=1, window=300),
                  dict(G=6, KV=1, hd=64, W=2),
-                 dict(G=2, KV=2, hd=96, W=1, window=300)]
+                 dict(G=2, KV=2, hd=96, W=1, window=300),
+                 dict(G=1, KV=12, hd=64, W=1),
+                 dict(G=6, KV=8, hd=128, W=4)]
 
 
 def mla_case(seed, *, B=5, H=4, rank=32, rope=8, bs=128, M=4, W=1):

@@ -18,11 +18,11 @@ SRC = pathlib.Path(__file__).resolve().parents[1] / "src"
 REF, PORT = SRC / "repro", SRC / "repro_torch"
 
 #: the reference modules the port copies verbatim (imports renamed)
-COPIED = (["models/config.py", "serving/scheduler.py"]
+COPIED = (["models/config.py", "serving/scheduler.py", "serving/sim.py"]
           + [f"core/{m}.py" for m in (
               "__init__", "tracking", "events", "config", "contexts",
               "block_table", "allocator", "prefix", "metrics", "shootdown",
-              "topology", "fpr", "eviction")]
+              "topology", "fpr", "eviction", "tracing", "export")]
           + sorted(str(p.relative_to(REF))
                    for d in ("configs", "serving/admission")
                    for p in (REF / d).glob("*.py")))

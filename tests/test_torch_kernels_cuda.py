@@ -28,7 +28,7 @@ from _torch_cases import (FLASH, MAMBA, MLA, MLA_SPLITS, PAGED,  # noqa: E402
                           PAGED_SPLITS, RAGGED, RAGGED_SPLITS, RWKV6,
                           RWKV6_CHUNKED, flash_case, mamba_case, mla_case,
                           mla_split_case, paged_case, paged_split_case,
-                          ragged_case, ragged_split_case, rwkv6_case,
+                          ragged_case, ragged_split_case, rand, rwkv6_case,
                           rwkv6_strong_case)
 
 TOL = dict(rtol=2e-5, atol=2e-5)
@@ -423,3 +423,47 @@ def test_flash_kernel_edges_match_plain_on_card(cuda, Sq, Sk, sk_valid,
     close(got, plain.numpy())
     if q_offset < 0:
         assert not got.cpu()[:, :, :-q_offset].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,S,P", [("whisper-small", 133, 0),
+                                      ("internvl2-26b", 125, 8)])
+def test_encdec_and_vision_smoke_decode_on_card(cuda, arch, S, P):
+    """The whisper smoke config (cross attention, MHA decode: one query
+    head a CTA) and the InternVL2 one (a vision prefix that pushes the
+    prompt across a block boundary): prefill, then 8 greedy decode steps
+    whose tokens through the paged decode kernel equal ``page_impl="ref"``'s,
+    with one kernel launch per layer per step."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.models import transformer as tfm
+    cfg = get_smoke(arch)
+    params = tfm.init_params(
+        cfg, generator=torch.Generator(device=cuda).manual_seed(3),
+        device=cuda, dtype=torch.float32)
+    rng = np.random.RandomState(4)
+    B, steps = 2, 8
+    tokens = t(rng.randint(1, cfg.vocab, (B, S)).astype(np.int32), cuda)
+    kw = {}
+    if cfg.enc_dec:
+        kw["enc_frames"] = t(rand(rng, B, cfg.enc_len, cfg.d_model), cuda)
+    if P:
+        kw["patches"] = t(rand(rng, B, P, cfg.d_model), cuda)
+    toks = {}
+    for page_impl in ("kernel", "ref"):
+        st = tfm.init_decode_state(cfg, B, 384, device=cuda)
+        lg, st = tfm.prefill(params, cfg, tokens, st, **kw)
+        assert (st["lengths"] == P + S).all()
+        tok = lg.argmax(-1).to(torch.int32)
+        out = [tok]
+        before = tpa.LAUNCHES["paged_decode"]
+        for _ in range(steps):
+            lg, st = tfm.decode_step(params, cfg, st, tok,
+                                     page_impl=page_impl)
+            assert torch.isfinite(lg).all()
+            tok = lg.argmax(-1).to(torch.int32)
+            out.append(tok)
+        torch.cuda.synchronize()
+        assert tpa.LAUNCHES["paged_decode"] - before == (
+            steps * cfg.n_layers if page_impl == "kernel" else 0)
+        toks[page_impl] = torch.stack(out).cpu()
+    assert torch.equal(toks["kernel"], toks["ref"])

@@ -185,12 +185,39 @@ def test_greedy_tokens_match_reference(model, W):
     np.testing.assert_array_equal(np.stack(ttoks), np.stack(jtoks))
 
 
-def test_unsupported_models_raise():
+def _shapes(tree, path=""):
+    """Leaf path → shape; the reference's stacked body is unstacked and
+    tuples read as lists, the port's layout."""
+    if isinstance(tree, dict):
+        return {k: v for key, sub in tree.items()
+                for k, v in _shapes(sub, f"{path}/{key}").items()}
+    if isinstance(tree, (list, tuple)):
+        return {k: v for i, sub in enumerate(tree)
+                for k, v in _shapes(sub, f"{path}/{i}").items()}
+    return {path: tuple(tree.shape)}
+
+
+def test_unknown_mixers_raise_and_enc_dec_and_vision_init_like_reference():
+    """An unknown mixer still raises; whisper (encoder, cross attention,
+    learned positions) and InternVL2 (vision projection) init with exactly
+    the reference's keys and shapes, as the bridge carries them."""
+    from repro.configs import internvl2_26b as jvl
+    from repro.configs import whisper_small as jwh
+    from repro_torch.configs import ARCH_IDS, get_smoke
+    from repro_torch.configs import internvl2_26b as tvl
+    from repro_torch.configs import whisper_small as twh
     g = torch.Generator().manual_seed(0)
-    for cfg in (TCfg(**_TINY, enc_dec=True),
-                TCfg(**_TINY, frontend="vision")):
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
-            ttfm.init_params(cfg, generator=g, device="cpu")
+    with pytest.raises(ValueError, match="unknown mixer"):
+        ttfm.init_params(TCfg(**_TINY, mixers=("conv",)), generator=g,
+                         device="cpu")
+    for arch in ARCH_IDS:
+        ttfm.check_supported(get_smoke(arch))
+    for jmake, tmake in ((jwh.smoke, twh.smoke), (jvl.smoke, tvl.smoke)):
+        jp = jax.tree.map(np.asarray, jtfm.init_params(
+            jax.random.PRNGKey(0), jmake(), jnp.float32))
+        tp = ttfm.init_params(tmake(), generator=g, device="cpu")
+        assert _shapes(tp) == _shapes(params_from_jax(jp, device="cpu"))
+        assert ttfm.param_count(tp) == jtfm.param_count(jp)
 
 
 def test_decode_state_layout_matches_reference():
