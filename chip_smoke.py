@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port on one NVIDIA GPU: the FPR serving path, the
-full-sequence forward of the hybrid families, and the encoder-decoder and
-vision-prefix families.
+full-sequence forward of the hybrid families, the encoder-decoder and
+vision-prefix families, and training.
 
 Run from the root of a checkout: ``python3 chip_smoke.py``.  Phases, any
 of which fails the script:
@@ -68,7 +68,18 @@ of which fails the script:
    300 tokens and 16 greedy decode steps against the oracle, ``loss_fn``
    with patches, chunked against direct, and text traffic through the
    engine's ragged path against the same engine over ``page_impl="ref"``
-   (the ragged kernel once per layer per ragged step).
+   (the ragged kernel once per layer per ragged step);
+8. train granite-3-8b at its published widths cut to 8 of 40 layers
+   (random f32 weights, ``SyntheticLM`` batches of (2, 1024)) from the
+   same params and fresh AdamW state three ways: (a) ``TrainConfig(
+   attn_impl="chunked", remat=True)`` for 3 steps (the chunked
+   attention's recompute backward and checkpointed blocks), (b)
+   ``attn_impl="direct", remat=False`` for 3 steps (plain autograd
+   through the O(S²) oracle), (c) (a) with 2 microbatches for 1 step;
+   (a)'s step-0 loss equals ``loss_fn``'s forward within 1e-6, (a) and
+   (b) agree within 1e-4 in loss and grad norm at every step, (c) equals
+   (a)'s first step within 1e-5, (a)'s peak memory is below (b)'s, and no
+   kernel launches; prints seconds per step, tokens/s and both peaks.
 
 Prints the card's name and power limit, tokens/s per run, the script's
 wall time, one
@@ -1538,6 +1549,145 @@ def vision_phase(torch, seed: int) -> dict:
     return launches
 
 
+# ------------------------------------------------------------ training phase
+TRAIN_LAYERS = 8
+TRAIN_BATCH = (2, 1024)
+TRAIN_STEPS = 3
+TRAIN_FWD_RTOL = 1e-6    # (a)'s step-0 loss against the loss_fn forward
+TRAIN_RTOL = 1e-4        # (a) against (b): chunked+remat against direct
+TRAIN_MB_RTOL = 1e-5     # (c), two microbatches, against (a)'s first step
+
+
+def train_flops(cfg, B: int, S: int) -> tuple[float, float]:
+    """(forward + backward, recompute) FLOP of one step: 2·T per weight of
+    the layers' and the tied unembedding's products and 4·B·S²·H·hd per
+    attention layer (every chunk is computed, masked or not) forward,
+    twice that backward; remat runs the layers' forward again and the
+    loss chunks' unembedding again."""
+    D, H, KV, hd, F = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+                       cfg.head_dim, cfg.d_ff)
+    T = B * S
+    layer = 2 * T * (D * (H + 2 * KV) * hd + H * hd * D + 3 * D * F) + (
+        4 * B * S * S * H * hd)
+    unembed = 2 * T * cfg.vocab * D
+    fwd = cfg.n_layers * layer + unembed
+    return 3 * fwd, cfg.n_layers * layer + unembed
+
+
+def training_phase(torch, seed: int) -> None:
+    """granite-3-8b at its published widths cut to TRAIN_LAYERS, trained
+    from the same random f32 params and fresh AdamW state three ways:
+    (a) ``attn_impl="chunked", remat=True`` (the chunked attention's
+    autograd Function and checkpointed blocks), (b) ``"direct"`` without
+    remat (plain autograd through the O(S²) oracle), (c) (a) with two
+    microbatches for one step.  No kernel launches (the kernels are
+    forward only)."""
+    from repro_torch.bridge import tree_map
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as tfm
+    from repro_torch.training import optimizer as topt
+    from repro_torch.training import train_loop as ttl
+    from repro_torch.training.data import DataConfig, SyntheticLM
+    full = get_config("granite-3-8b")
+    L = TRAIN_LAYERS
+    cfg = full.with_(n_layers=L, mixers=full.mixers[:L], ffns=full.ffns[:L])
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=DEVICE).manual_seed(seed + 11)
+    params0 = tfm.init_params(cfg, generator=gen, device=DEVICE,
+                              dtype=torch.float32)
+    made_line(torch, cfg, params0, t0, f"{L} of {full.n_layers} layers")
+    B, S = TRAIN_BATCH
+    data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=S,
+                                  global_batch=B))
+    host = [data.batch(s) for s in range(TRAIN_STEPS)]
+    # a step averages its microbatches' mean losses (as the reference
+    # does): (c) equals (a) only where each row counts as many labels
+    counts = (host[0]["labels"] != -100).sum(axis=1)
+    if len(set(counts.tolist())) != 1:
+        fail(f"training: rows of batch 0 count {counts} labels; (c) "
+             f"against (a) needs equal counts")
+    batches = [{k: torch.as_tensor(v, device=DEVICE) for k, v in b.items()}
+               for b in host]
+    with torch.no_grad():
+        forward = tfm.loss_fn(params0, cfg, batches[0]).item()
+
+    def run(what: str, steps: int, **kw):
+        tc = ttl.TrainConfig(**kw)
+        step = ttl.make_train_step(cfg, tc)
+        params = tree_map(torch.clone, params0)
+        opt = topt.init_opt_state(params)
+        err = torch.zeros((), device=DEVICE)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        resident = torch.cuda.memory_allocated()
+        reset_launches()
+        out = []
+        for s in range(steps):
+            t1 = time.perf_counter()
+            params, opt, err, m = step(params, opt, err, batches[s])
+            loss, gnorm = m["loss"].item(), m["grad_norm"].item()
+            torch.cuda.synchronize()
+            out.append((loss, gnorm, time.perf_counter() - t1))
+        peak = torch.cuda.max_memory_allocated()
+        expect_launches(launch_counts(), {}, f"training {what}")
+        if not all(math.isfinite(x) for row in out for x in row[:2]):
+            fail(f"training {what}: non-finite loss or grad norm {out}")
+        return out, (peak, resident)
+
+    a, peak_a = run("(a) chunked+remat", TRAIN_STEPS)
+    b, peak_b = run("(b) direct", TRAIN_STEPS, attn_impl="direct",
+                    remat=False)
+    c, _ = run("(c) 2 microbatches", 1, microbatches=2)
+
+    def rel(x, y):
+        return abs(x - y) / abs(y)
+    if not rel(a[0][0], forward) <= TRAIN_FWD_RTOL:
+        fail(f"training (a) step-0 loss {a[0][0]} vs loss_fn {forward}")
+    for s, (ra, rb) in enumerate(zip(a, b)):
+        for i, name in enumerate(("loss", "grad_norm")):
+            if not rel(ra[i], rb[i]) <= TRAIN_RTOL:
+                fail(f"training step {s} {name}: (a) {ra[i]} vs (b) {rb[i]}"
+                     f" (relative {rel(ra[i], rb[i]):.3g} > {TRAIN_RTOL})")
+    for i, name in enumerate(("loss", "grad_norm")):
+        if not rel(c[0][i], a[0][i]) <= TRAIN_MB_RTOL:
+            fail(f"training (c) {name} {c[0][i]} vs (a) {a[0][i]} "
+                 f"(relative {rel(c[0][i], a[0][i]):.3g} > {TRAIN_MB_RTOL})")
+    if not peak_a[0] < peak_b[0]:
+        fail(f"training: (a)'s peak {peak_a[0]} is not below (b)'s "
+             f"{peak_b[0]}")
+    flops, recompute = train_flops(cfg, B, S)
+    for name, hist, peak in (("(a) chunked+remat", a, peak_a),
+                             ("(b) direct, no remat", b, peak_b),
+                             ("(c) 2 microbatches", c, None)):
+        secs = [h[2] for h in hist]
+        steady = statistics.median(secs[1:]) if len(secs) > 1 else secs[0]
+        mem = (f", peak {peak[0] / 1e9:.2f} GB ({peak[1] / 1e9:.2f} GB "
+               f"resident before the first step)" if peak else "")
+        print(f"{cfg.name} training {name}: losses "
+              f"{[round(h[0], 6) for h in hist]}, grad norms "
+              f"{[round(h[1], 6) for h in hist]}; seconds per step "
+              f"{[round(x, 4) for x in secs]} (steady {steady:.4f} s, "
+              f"{B * S / steady:.1f} tokens/s){mem}")
+    steady_a = statistics.median([h[2] for h in a[1:]])
+    print(f"{cfg.name} training checks: (a) step-0 loss {a[0][0]:.7f} vs "
+          f"loss_fn {forward:.7f} (relative {rel(a[0][0], forward):.3g}); "
+          f"(a)/(b) worst relative loss "
+          f"{max(rel(x[0], y[0]) for x, y in zip(a, b)):.3g}, grad norm "
+          f"{max(rel(x[1], y[1]) for x, y in zip(a, b)):.3g}; (c)/(a) "
+          f"loss {rel(c[0][0], a[0][0]):.3g}, grad norm "
+          f"{rel(c[0][1], a[0][1]):.3g}; peak (a) {peak_a[0] / 1e9:.2f} GB "
+          f"< (b) {peak_b[0] / 1e9:.2f} GB; {flops / 1e12:.2f} TFLOP "
+          f"forward + "
+          f"backward and {recompute / 1e12:.2f} recompute a step, (a) at "
+          f"{(flops + recompute) / steady_a / 1e12:.1f} TFLOP/s; card "
+          f"{card_line()}")
+    del params0
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--layers", type=int, default=40,
@@ -1595,6 +1745,7 @@ def main() -> int:
     launches["paged_decode"] += encdec_phase(torch, args.seed)
     for k, n in vision_phase(torch, args.seed).items():
         launches[k] += n
+    training_phase(torch, args.seed)
     # the paged decode launches go to the row of the depth the models run
     # (the tuned depth; 2 without a tuning entry), the other rows get none
     from repro_torch.kernels.paged_attention import autotune

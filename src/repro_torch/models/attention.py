@@ -1,14 +1,13 @@
 """Attention: GQA with optional sliding window / QKV bias.
 
-PyTorch counterpart of the forward half of ``repro.models.attention``:
-the projections, the O(S²) oracle, the forward of the chunked
-online-softmax attention (with its ``q_offset``, so a prefill chunk can
-slide along the sequence), the table helpers, the gather oracle of
-paged decode, the full-sequence residual block :func:`attn_layer` and
-the encoder-decoder cross attention (:func:`cross_attn_layer`,
-:func:`encode_cross_kv`).
-The custom backward of ``chunked_attention`` belongs to the training
-slice and is not here.
+PyTorch counterpart of ``repro.models.attention``: the projections,
+the O(S²) oracle, the chunked online-softmax attention with the
+reference's flash-style backward (:func:`chunked_attention`, an
+autograd Function) and its inference form (:func:`chunked_attention_fwd`,
+whose ``q_offset`` lets a prefill chunk slide along the sequence), the
+table helpers, the gather oracle of paged decode, the full-sequence
+residual block :func:`attn_layer` and the encoder-decoder cross
+attention (:func:`cross_attn_layer`, :func:`encode_cross_kv`).
 """
 
 from __future__ import annotations
@@ -82,38 +81,91 @@ def direct_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 # ----------------------------------------------------- chunked (flash-eager) --
 #: queries are processed in blocks of this many rows so the live
-#: (B, KV, G, q_block, chunk) score tile stays bounded
+#: (B, KV, G, q_block, chunk) score tile stays bounded, in both directions
 Q_BLOCK = 2048
+
+
+def _q_blocks(Sq: int) -> int:
+    return Q_BLOCK if (Sq > Q_BLOCK and Sq % Q_BLOCK == 0) else Sq
 
 
 def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                       causal: bool = True, window: int | None = None,
                       q_offset: int = 0, chunk: int = 256) -> torch.Tensor:
-    """Online-softmax attention over KV chunks (forward only)."""
-    return chunked_attention_fwd(q, k, v, causal=causal, window=window,
-                                 q_offset=q_offset, chunk=chunk)
+    """Online-softmax attention over KV chunks with a flash-style
+    backward: the gradient recomputes each chunk's probabilities from
+    (q, k, v, out, lse) instead of keeping every chunk's (B, KV, G, Sq,
+    chunk) tile, so both directions live in O(S·chunk) memory."""
+    return _ChunkedAttention.apply(q, k, v, causal, window, q_offset,
+                                   chunk)[0]
 
 
 def chunked_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           *, causal: bool = True, window: int | None = None,
                           q_offset=0, chunk: int = 256) -> torch.Tensor:
-    """Inference chunked attention; ``q_offset`` shifts the query
-    positions (a prefill chunk starting at ``q_offset``)."""
+    """Inference chunked attention; ``q_offset`` (an int or a scalar
+    tensor) shifts the query positions (a prefill chunk starting at
+    ``q_offset``)."""
+    return _chunked_fwd(q, k, v, causal, window, q_offset, chunk)[0]
+
+
+class _ChunkedAttention(torch.autograd.Function):
+    """The reference's ``_chunked_attention_vjp``: forward
+    :func:`_chunked_fwd`, backward :func:`_chunked_bwd`; lse is saved,
+    never differentiated."""
+
+    @staticmethod
+    def forward(q, k, v, causal, window, q_offset, chunk):
+        return _chunked_fwd(q, k, v, causal, window, q_offset, chunk)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        q, k, v, causal, window, q_offset, chunk = inputs
+        out, lse = output
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.args = (causal, window, q_offset, chunk)
+        ctx.mark_non_differentiable(lse)
+
+    @staticmethod
+    def backward(ctx, dout, _dlse):
+        dq, dk, dv = _chunked_bwd(*ctx.args, ctx.saved_tensors, dout)
+        return dq, dk, dv, None, None, None, None
+
+
+def _chunk_mask(qpos, kpos, Sk, causal, window):
+    mask = kpos[None, :] < Sk
+    if causal:
+        mask = mask & (qpos[:, None] >= kpos[None, :])
+    if window is not None:
+        mask = mask & (qpos[:, None] - kpos[None, :] < window)
+    return mask
+
+
+def _kv_chunk(t: torch.Tensor, ci: int, chunk: int) -> torch.Tensor:
+    """Keys or values of chunk ``ci`` in f32, the last chunk zero-padded."""
+    tb = t[:, ci * chunk:(ci + 1) * chunk].float()
+    if tb.shape[1] < chunk:
+        tb = torch.nn.functional.pad(tb, (0, 0, 0, 0, 0, chunk - tb.shape[1]))
+    return tb
+
+
+def _chunked_fwd(q, k, v, causal, window, q_offset, chunk):
+    """Forward online softmax over KV chunks → (out (B, Sq, H, hd), lse
+    (B, KV, G, Sq) f32); queries in Q_BLOCK-row blocks."""
     Sq = q.shape[1]
-    qc = Q_BLOCK if (Sq > Q_BLOCK and Sq % Q_BLOCK == 0) else Sq
+    qc = _q_blocks(Sq)
     if qc == Sq:
         return _chunked_fwd_body(q, k, v, causal, window, q_offset, chunk)
-    return torch.cat([
+    outs, lses = zip(*(
         _chunked_fwd_body(q[:, i:i + qc], k, v, causal, window,
-                          q_offset + i, chunk)
-        for i in range(0, Sq, qc)], dim=1)
+                          q_offset + i, chunk) for i in range(0, Sq, qc)))
+    return torch.cat(outs, dim=1), torch.cat(lses, dim=-1)
 
 
 def _chunked_fwd_body(q, k, v, causal, window, q_offset, chunk):
     B, Sq, H, hd = q.shape
     Sk, KV = k.shape[1], k.shape[2]
     G = H // KV
-    n_chunks = -(-Sk // chunk)
     qf = q.reshape(B, Sq, KV, G, hd).float() / math.sqrt(hd)
     qpos = torch.arange(Sq, device=q.device) + q_offset
     m = torch.full((B, KV, G, Sq), NEG_INF, dtype=torch.float32,
@@ -121,21 +173,12 @@ def _chunked_fwd_body(q, k, v, causal, window, q_offset, chunk):
     l = torch.zeros((B, KV, G, Sq), dtype=torch.float32, device=q.device)
     acc = torch.zeros((B, KV, G, Sq, hd), dtype=torch.float32,
                       device=q.device)
-    for ci in range(n_chunks):
-        kb = k[:, ci * chunk:(ci + 1) * chunk].float()
-        vb = v[:, ci * chunk:(ci + 1) * chunk].float()
-        if kb.shape[1] < chunk:                      # zero-pad the last chunk
-            pad = chunk - kb.shape[1]
-            kb = torch.nn.functional.pad(kb, (0, 0, 0, 0, 0, pad))
-            vb = torch.nn.functional.pad(vb, (0, 0, 0, 0, 0, pad))
+    for ci in range(-(-Sk // chunk)):
+        kb, vb = _kv_chunk(k, ci, chunk), _kv_chunk(v, ci, chunk)
         s = torch.einsum("bqkgd,bskd->bkgqs", qf, kb)   # (B,KV,G,Sq,chunk)
         kpos = ci * chunk + torch.arange(chunk, device=q.device)
-        mask = kpos[None, :] < Sk
-        if causal:
-            mask = mask & (qpos[:, None] >= kpos[None, :])
-        if window is not None:
-            mask = mask & (qpos[:, None] - kpos[None, :] < window)
-        s = torch.where(mask, s, NEG_INF)
+        s = torch.where(_chunk_mask(qpos, kpos, Sk, causal, window), s,
+                        NEG_INF)
         m_new = torch.maximum(m, s.amax(dim=-1))
         p = torch.exp(s - m_new[..., None])
         scale = torch.exp(m - m_new)
@@ -144,7 +187,63 @@ def _chunked_fwd_body(q, k, v, causal, window, q_offset, chunk):
         m = m_new
     out = acc / torch.clamp(l, min=1e-30)[..., None]
     out = out.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, hd)
-    return out.to(q.dtype)
+    lse = m + torch.log(torch.clamp(l, min=1e-30))
+    return out.to(q.dtype), lse
+
+
+def _chunked_bwd(causal, window, q_offset, chunk, res, dout):
+    """The reference's ``_chunked_bwd``: query blocks of Q_BLOCK rows,
+    dk and dv summed across them in f32."""
+    q, k, v, out, lse = res
+    Sq = q.shape[1]
+    qc = _q_blocks(Sq)
+    if qc == Sq:
+        return _chunked_bwd_body(causal, window, q_offset, chunk, res, dout)
+    dk = torch.zeros(k.shape, dtype=torch.float32, device=k.device)
+    dv = torch.zeros(v.shape, dtype=torch.float32, device=v.device)
+    dqs = []
+    for i in range(0, Sq, qc):
+        rows = slice(i, i + qc)
+        dqi, dki, dvi = _chunked_bwd_body(
+            causal, window, q_offset, chunk,
+            (q[:, rows], k, v, out[:, rows], lse[..., rows]), dout[:, rows],
+            q_base=i)
+        dk = dk + dki.float()
+        dv = dv + dvi.float()
+        dqs.append(dqi)
+    return torch.cat(dqs, dim=1), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _chunked_bwd_body(causal, window, q_offset, chunk, res, dout, q_base=0):
+    """Per KV chunk: p from the saved lse, ``delta = Σ dO·O`` (the softmax
+    backward's diagonal term), then that chunk's dq, dk and dv."""
+    q, k, v, out, lse = res
+    B, Sq, H, hd = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    scale = hd ** -0.5
+    qf = q.reshape(B, Sq, KV, G, hd).float()
+    dof = dout.reshape(B, Sq, KV, G, hd).float()
+    of = out.reshape(B, Sq, KV, G, hd).float()
+    qpos = torch.arange(Sq, device=q.device) + (q_offset + q_base)
+    delta = (dof * of).sum(-1).permute(0, 2, 3, 1)[..., None]  # (B,KV,G,Sq,1)
+    dq = torch.zeros((B, Sq, KV, G, hd), dtype=torch.float32, device=q.device)
+    dks, dvs = [], []
+    for ci in range(-(-Sk // chunk)):
+        kb, vb = _kv_chunk(k, ci, chunk), _kv_chunk(v, ci, chunk)
+        s = torch.einsum("bqkgd,bskd->bkgqs", qf, kb) * scale
+        kpos = ci * chunk + torch.arange(chunk, device=q.device)
+        mask = _chunk_mask(qpos, kpos, Sk, causal, window)
+        p = torch.where(mask, torch.exp(s - lse[..., None]), 0.0)
+        dp = torch.einsum("bqkgd,bskd->bkgqs", dof, vb)
+        ds = p * (dp - delta) * scale
+        dq = dq + torch.einsum("bkgqs,bskd->bqkgd", ds, kb)
+        dks.append(torch.einsum("bkgqs,bqkgd->bskd", ds, qf))
+        dvs.append(torch.einsum("bkgqs,bqkgd->bskd", p, dof))
+    dk = torch.cat(dks, dim=1)[:, :Sk]
+    dv = torch.cat(dvs, dim=1)[:, :Sk]
+    return (dq.reshape(B, Sq, H, hd).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
 
 
 # --------------------------------------------------------- paged decode ref ----

@@ -2,7 +2,8 @@
 
 PyTorch counterpart of ``repro.models.layers``: the same functions on
 tensors, with the same layouts.  Initializers take an explicit
-``torch.Generator``, ``device`` and ``dtype``.
+``torch.Generator``, ``device`` and ``dtype``.  :func:`remat` is the
+counterpart of ``jax.checkpoint``.
 """
 
 from __future__ import annotations
@@ -11,6 +12,7 @@ import math
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor,
@@ -81,3 +83,25 @@ def embed(tokens: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
 def unembed(x: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
     """Logits in f32 (loss stability)."""
     return x.float() @ table.float().T
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  ignore_id: int = -100) -> torch.Tensor:
+    """Mean negative log-likelihood over the labels that are not
+    ``ignore_id``."""
+    mask = labels != ignore_id
+    labels = torch.where(mask, labels, 0).long()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, labels[..., None])[..., 0]
+    nll = (logz - gold) * mask
+    return nll.sum() / mask.sum().clamp(min=1)
+
+
+# ------------------------------------------------------------------ remat ----
+def remat(fn, *args):
+    """``fn(*args)``, keeping only ``args`` for the backward, which runs
+    ``fn`` again (``jax.checkpoint``); a plain call where autograd records
+    nothing."""
+    if not torch.is_grad_enabled():
+        return fn(*args)
+    return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False)

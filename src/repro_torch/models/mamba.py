@@ -5,7 +5,8 @@ sequence one of three ways (``impl``):
 
   * ``"chunked"``: chunks of ``chunk`` steps, each scanned in parallel
     (a Hillis–Steele doubling scan in place of ``lax.associative_scan``),
-    the state carried from chunk to chunk;
+    the state carried from chunk to chunk, each chunk checkpointed
+    (:func:`~repro_torch.models.layers.remat`) as in the reference;
   * ``"sequential"``: the recurrence step by step (the oracle, and decode;
     the kernel's plain version);
   * ``"kernel"``: the CUDA kernel in ``kernels/mamba_scan`` (its plain
@@ -20,7 +21,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.mamba_scan.ref import mamba_scan_ref
-from repro_torch.models.layers import init_dense, rms_norm
+from repro_torch.models.layers import init_dense, remat, rms_norm
 
 IMPLS = ("chunked", "sequential", "kernel")
 
@@ -89,6 +90,13 @@ def _ssm_chunk_scan(dA: torch.Tensor, dBu: torch.Tensor, h0: torch.Tensor):
     return h_all, h_all[:, -1]
 
 
+def _chunk_step(h, dtk, Bk, Ck, xk, A):
+    dA = torch.exp(dtk[..., None] * A[None, None])             # (B,T,DI,N)
+    dBu = dtk[..., None] * Bk[:, :, None, :] * xk[..., None]
+    h_all, h = _ssm_chunk_scan(dA, dBu, h)
+    return h, torch.einsum("btdn,btn->btd", h_all, Ck)
+
+
 def _scan_chunked(dt, A, Bf, Cf, xf, h0, chunk):
     S = dt.shape[1]
     pad = (-S) % chunk
@@ -97,11 +105,11 @@ def _scan_chunked(dt, A, Bf, Cf, xf, h0, chunk):
     h = h0
     ys = []
     for c0 in range(0, dt.shape[1], chunk):
-        dtk, Bk, Ck, xk = (t[:, c0:c0 + chunk] for t in (dt, Bf, Cf, xf))
-        dA = torch.exp(dtk[..., None] * A[None, None])         # (B,T,DI,N)
-        dBu = dtk[..., None] * Bk[:, :, None, :] * xk[..., None]
-        h_all, h = _ssm_chunk_scan(dA, dBu, h)
-        ys.append(torch.einsum("btdn,btn->btd", h_all, Ck))
+        # checkpointed, as in the reference: the backward recomputes the
+        # chunk's (B, T, DI, N) dA, dBu and h_all instead of keeping them
+        h, y = remat(_chunk_step, h,
+                     *(t[:, c0:c0 + chunk] for t in (dt, Bf, Cf, xf)), A)
+        ys.append(y)
     return torch.cat(ys, dim=1)[:, :S], h
 
 

@@ -1,9 +1,9 @@
 """Mixture-of-Experts FFN — DeepSeek-style shared + routed top-k experts.
 
-PyTorch counterpart of ``repro.models.moe`` for one routing group (the
-reference's expert- and data-parallel sharding constraints are
+PyTorch counterpart of ``repro.models.moe``, routing groups included
+(the reference's expert- and data-parallel sharding constraints are
 distributed work and are not here).  Dispatch is the same sort-based,
-capacity-bounded scheme:
+capacity-bounded scheme, per group:
 
   1. top-k routing per token in f32, gates renormalised over the chosen k,
   2. flatten (token, k) slots and sort them stably by expert id,
@@ -112,28 +112,37 @@ def _dispatch_compute(x: torch.Tensor, gates: torch.Tensor,
                         gates).to(x.dtype)
 
 
-def moe_mix(params: dict, x: torch.Tensor, cfg, *,
+def moe_mix(params: dict, x: torch.Tensor, cfg, *, num_groups: int = 1,
             capacity_factor: float = 1.25):
-    """MoE FFN body on pre-normed x: (B, S, D) → (out, aux_loss).  All
-    B·S tokens form one routing group."""
+    """MoE FFN body on pre-normed x: (B, S, D) → (out, aux_loss).
+
+    The B·S tokens are split into ``num_groups`` routing groups (reduced
+    until it divides B·S), each routed and dispatched on its own with the
+    capacity of T / G tokens; the aux loss is the mean over groups."""
     mo = cfg.moe
     B, S, D = x.shape
     T = B * S
     xf = x.reshape(T, D)
-    cap = capacity_for(T, mo.top_k, mo.num_experts, capacity_factor)
-    gates, eidx, aux = _route(params["router"], xf, mo.top_k)
-    out = _dispatch_compute(xf, gates, eidx, params["w_gate"],
-                            params["w_up"], params["w_down"], cap)
-    out = out.reshape(B, S, D)
+    G = num_groups
+    while T % G:
+        G -= 1
+    cap = capacity_for(T // G, mo.top_k, mo.num_experts, capacity_factor)
+    outs, auxs = [], []
+    for xt in xf.reshape(G, T // G, D):
+        gates, eidx, aux = _route(params["router"], xt, mo.top_k)
+        outs.append(_dispatch_compute(xt, gates, eidx, params["w_gate"],
+                                      params["w_up"], params["w_down"], cap))
+        auxs.append(aux)
+    out = torch.cat(outs).reshape(B, S, D)
     if mo.num_shared:
         sh = (F.silu(xf @ params["s_gate"]) * (xf @ params["s_up"])
               ) @ params["s_down"]
         out = out + sh.reshape(B, S, D)
-    return out, aux * mo.router_aux_coef
+    return out, torch.stack(auxs).mean() * mo.router_aux_coef
 
 
-def moe_ffn(params: dict, x: torch.Tensor, cfg):
+def moe_ffn(params: dict, x: torch.Tensor, cfg, *, num_groups: int = 1):
     """Pre-norm residual MoE block: (B, S, D) → (x + out, aux)."""
     h = rms_norm(x, params["norm"], cfg.norm_eps)
-    out, aux = moe_mix(params, h, cfg)
+    out, aux = moe_mix(params, h, cfg, num_groups=num_groups)
     return x + out, aux

@@ -19,7 +19,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.layers import init_dense, rms_norm
+from repro_torch.models.layers import init_dense, remat, rms_norm
 
 HEAD_SIZE = 64
 IMPLS = ("chunked", "sequential", "kernel")
@@ -85,38 +85,46 @@ def _wkv_sequential(r, k, v, w, u, S0):
     return y, S
 
 
+def _wkv_chunk_step(St, rk, kk, vk, wk, u):
+    chunk = rk.shape[1]
+    tidx = torch.arange(chunk, device=rk.device)
+    mask = (tidx[:, None] > tidx[None, :])[None, :, :, None, None]
+    # decay products: W_t = prod_{s<=t} w_s within the chunk
+    logw = torch.log(wk)
+    cum = torch.cumsum(logw, dim=1)                          # inclusive
+    Wincl = torch.exp(cum)
+    Wexcl = torch.exp(cum - logw)                            # exclusive
+    # the carried state's contribution: r_t · diag(Wexcl_t) S
+    y_state = torch.einsum("bchk,bhkv->bchv", rk * Wexcl, St)
+    # pairwise decay D[t, s] = Wexcl_t / Wincl_s (valid for s < t)
+    ratio = Wexcl[:, :, None] / Wincl[:, None, :]            # (B,t,s,nH,hd)
+    att = torch.einsum("bthk,btshk,bshk->btsh", rk, ratio * mask, kk)
+    diag = torch.einsum("bthk,hk,bthk->bth", rk, u, kk)
+    y_intra = (torch.einsum("btsh,bshv->bthv", att, vk)
+               + diag[..., None] * vk)
+    # carry: S' = diag(Wincl_last) S + sum_s (prod_{s<u<=last} w) k_s v_s
+    tail = Wincl[:, -1:] / Wincl
+    St = (Wincl[:, -1][..., None] * St
+          + torch.einsum("bshk,bshv->bhkv", tail * kk, vk))
+    return St, y_state + y_intra
+
+
 def _wkv_chunked(r, k, v, w, u, S0, chunk=32):
     """Chunked WKV: state carried across chunks, each chunk in direct form
-    (the reference's algorithm, including its ``k / Wincl`` division)."""
-    B, S, nH, hd = r.shape
+    (the reference's algorithm, including its ``k / Wincl`` division) and
+    checkpointed, as in the reference: the backward recomputes the
+    chunk's (B, c, c, nH, hd) pairwise decays instead of keeping them."""
+    S = r.shape[1]
     pad = (-S) % chunk
     if pad:
         r, k, v = (F.pad(t, (0, 0, 0, 0, 0, pad)) for t in (r, k, v))
         w = F.pad(w, (0, 0, 0, 0, 0, pad), value=1.0)
-    tidx = torch.arange(chunk, device=r.device)
-    mask = (tidx[:, None] > tidx[None, :])[None, :, :, None, None]
     St = S0
     ys = []
     for c0 in range(0, r.shape[1], chunk):
-        rk, kk, vk, wk = (t[:, c0:c0 + chunk] for t in (r, k, v, w))
-        # decay products: W_t = prod_{s<=t} w_s within the chunk
-        logw = torch.log(wk)
-        cum = torch.cumsum(logw, dim=1)                      # inclusive
-        Wincl = torch.exp(cum)
-        Wexcl = torch.exp(cum - logw)                        # exclusive
-        # the carried state's contribution: r_t · diag(Wexcl_t) S
-        y_state = torch.einsum("bchk,bhkv->bchv", rk * Wexcl, St)
-        # pairwise decay D[t, s] = Wexcl_t / Wincl_s (valid for s < t)
-        ratio = Wexcl[:, :, None] / Wincl[:, None, :]        # (B,t,s,nH,hd)
-        att = torch.einsum("bthk,btshk,bshk->btsh", rk, ratio * mask, kk)
-        diag = torch.einsum("bthk,hk,bthk->bth", rk, u, kk)
-        y_intra = (torch.einsum("btsh,bshv->bthv", att, vk)
-                   + diag[..., None] * vk)
-        # carry: S' = diag(Wincl_last) S + sum_s (prod_{s<u<=last} w) k_s v_s
-        tail = Wincl[:, -1:] / Wincl
-        St = (Wincl[:, -1][..., None] * St
-              + torch.einsum("bshk,bshv->bhkv", tail * kk, vk))
-        ys.append(y_state + y_intra)
+        St, y = remat(_wkv_chunk_step, St,
+                      *(t[:, c0:c0 + chunk] for t in (r, k, v, w)), u)
+        ys.append(y)
     return torch.cat(ys, dim=1)[:, :S], St
 
 

@@ -37,8 +37,14 @@ their plain versions on the CPU) or ``"ref"`` (the gather oracles).
 ``forward_hidden`` runs attention layers through ``chunked_attention``
 when ``impl == "chunked"`` and through ``direct_attention`` otherwise,
 while ``prefill`` always uses ``chunked_attention``; decode steps the
-recurrences sequentially.  The forward and loss are forward only (no
-autograd path is ported).  MLA and hybrid models prefill monolithically
+recurrences sequentially.  :func:`forward_hidden` and :func:`loss_fn`
+are differentiable (the training stack in ``repro_torch.training`` runs
+autograd through them): ``chunked_attention`` carries the reference's
+flash-style backward, and ``remat`` checkpoints each body block of
+``cfg.segmentation()`` (``torch.utils.checkpoint``, the reference's
+``jax.checkpoint`` of its scanned block) while the loss chunks and the
+Mamba and RWKV-6 chunk steps are always checkpointed; the CUDA kernels
+are forward only.  MLA and hybrid models prefill monolithically
 (``prefill_chunk`` and ``ragged_step`` take attention-only decoder
 models, as in the reference: no encoder-decoder).  ``impl="direct"``
 runs attention through ``direct_attention`` in the forward and loss, as
@@ -61,6 +67,7 @@ from repro_torch.models.frontends import (audio_frames_to_embeddings,
 from repro_torch.models.layers import (dense_ffn, embed, init_dense,
                                        init_embed, init_swiglu, rms_norm,
                                        unembed)
+from repro_torch.models.layers import remat as checkpointed
 
 BLOCK_SIZE = 128   # tokens per physical KV block
 
@@ -173,12 +180,13 @@ def _unembed_table(params: dict, cfg: ModelConfig) -> torch.Tensor:
     return params["embed"] if cfg.tie_embeddings else params["unembed"]
 
 
-def _ffn_aux(lp: dict, x: torch.Tensor, cfg: ModelConfig, i: int):
+def _ffn_aux(lp: dict, x: torch.Tensor, cfg: ModelConfig, i: int,
+             moe_groups: int = 1):
     """Layer ``i``'s FFN on (B, S, D) → (x, aux loss).  An MoE layer
-    routes all B·S tokens as one group, padding included, exactly as the
-    reference does; a dense layer's aux is 0."""
+    routes the B·S tokens, padding included, in ``moe_groups`` groups
+    exactly as the reference does; a dense layer's aux is 0."""
     if cfg.ffns[i] == "moe":
-        return moe_mod.moe_ffn(lp["ffn"], x, cfg)
+        return moe_mod.moe_ffn(lp["ffn"], x, cfg, num_groups=moe_groups)
     return dense_ffn(lp["ffn"], x, cfg.norm_eps), 0.0
 
 
@@ -668,7 +676,7 @@ def embed_inputs(params, cfg: ModelConfig, tokens: torch.Tensor,
 
 
 def _apply_layer(lp, x, positions, cfg: ModelConfig, i: int, *, impl,
-                 enc_out=None):
+                 enc_out=None, moe_groups=1):
     """Layer ``i`` on (B, S, D) → (x, aux loss)."""
     mix = cfg.mixers[i]
     if mix == "attn":
@@ -688,33 +696,63 @@ def _apply_layer(lp, x, positions, cfg: ModelConfig, i: int, *, impl,
     if cfg.enc_dec and enc_out is not None:
         enc_kv = attn_mod.encode_cross_kv(lp["cross"], enc_out, cfg)
         x = attn_mod.cross_attn_layer(lp["cross"], x, enc_kv, cfg)
-    return _ffn_aux(lp, x, cfg, i)
+    return _ffn_aux(lp, x, cfg, i, moe_groups)
 
 
 def forward_hidden(params, cfg: ModelConfig, x: torch.Tensor, *,
-                   impl: str = "chunked", enc_out: torch.Tensor | None = None):
+                   impl: str = "chunked", enc_out: torch.Tensor | None = None,
+                   remat: bool = True, moe_groups: int = 1):
     """x: (B, S, D) embedded inputs → (hidden (B, S, D), aux loss).
 
     Attention layers run ``chunked_attention`` when ``impl ==
     "chunked"`` and ``direct_attention`` otherwise; Mamba and RWKV-6
     layers scan with ``impl`` (:data:`IMPLS`).  An encoder-decoder
-    model's layers cross-attend ``enc_out`` (:func:`encode`)."""
+    model's layers cross-attend ``enc_out`` (:func:`encode`).  With
+    ``remat`` each body block (``period`` layers of
+    ``cfg.segmentation()``) is checkpointed; the prefix layers never are.
+    MoE layers route in ``moe_groups`` groups."""
     check_supported(cfg)
     _check_impl(impl)
     B, S, _ = x.shape
     positions = torch.arange(S, device=x.device)[None].expand(B, S)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for i in range(cfg.n_layers):
-        x, a = _apply_layer(layer_params(params, cfg, i), x, positions, cfg,
-                            i, impl=impl, enc_out=enc_out)
+    kw = dict(impl=impl, enc_out=enc_out, moe_groups=moe_groups)
+    prefix, period = cfg.segmentation()
+    for i in range(prefix):
+        x, a = _apply_layer(params["prefix"][i], x, positions, cfg, i, **kw)
         aux = aux + a
+
+    def block(b, x, aux):
+        for j in range(period):
+            x, a = _apply_layer(params["body"][j][b], x, positions, cfg,
+                                prefix + b * period + j, **kw)
+            aux = aux + a
+        return x, aux
+
+    for b in range(len(params["body"][0]) if period else 0):
+        if remat:
+            x, aux = checkpointed(block, b, x, aux)
+        else:
+            x, aux = block(b, x, aux)
     return x, aux
+
+
+def _loss_chunk(table, hk, lk):
+    """Summed NLL and count of one loss chunk: hk (B, chunk, D) normed
+    hidden, lk (B, chunk) labels."""
+    logits = unembed(hk, table)                             # (B, chunk, V)
+    mask = lk != -100
+    lab = torch.where(mask, lk, 0).long()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, lab[..., None])[..., 0]
+    return ((logz - gold) * mask).sum(), mask.sum()
 
 
 def chunked_loss(params, cfg: ModelConfig, hidden: torch.Tensor,
                  labels: torch.Tensor, chunk: int = 512) -> torch.Tensor:
     """Mean cross-entropy over labels != -100, without materialising the
-    (B, S, V) logits at once."""
+    (B, S, V) logits at once: each chunk is checkpointed, so the backward
+    recomputes its logits too."""
     B, S, D = hidden.shape
     h = rms_norm(hidden, params["final_norm"], cfg.norm_eps)
     table = _unembed_table(params, cfg)
@@ -723,25 +761,24 @@ def chunked_loss(params, cfg: ModelConfig, hidden: torch.Tensor,
     nll = torch.zeros((), dtype=torch.float32, device=hidden.device)
     cnt = torch.zeros((), dtype=torch.int64, device=hidden.device)
     for c0 in range(0, S, chunk):
-        logits = unembed(h[:, c0:c0 + chunk], table)        # (B, chunk, V)
-        lk = labels[:, c0:c0 + chunk]
-        mask = lk != -100
-        lab = torch.where(mask, lk, 0).long()
-        logz = torch.logsumexp(logits, dim=-1)
-        gold = logits.gather(-1, lab[..., None])[..., 0]
-        nll = nll + ((logz - gold) * mask).sum()
-        cnt = cnt + mask.sum()
+        n, c = checkpointed(_loss_chunk, table, h[:, c0:c0 + chunk],
+                            labels[:, c0:c0 + chunk])
+        nll = nll + n
+        cnt = cnt + c
     return nll / cnt.clamp(min=1)
 
 
 def loss_fn(params, cfg: ModelConfig, batch: dict, *,
-            impl: str = "chunked") -> torch.Tensor:
+            impl: str = "chunked", remat: bool = True,
+            moe_groups: int = 1) -> torch.Tensor:
     """batch: tokens (B, S), labels (B, S) [, patches (B, P, D), frames
-    (B, enc_len, D)] → LM loss plus the MoE aux loss (forward only).  The
-    vision prefix positions carry no loss."""
+    (B, enc_len, D)] → LM loss plus the MoE aux loss.  The vision prefix
+    positions carry no loss.  ``remat`` and ``moe_groups`` go to
+    :func:`forward_hidden`."""
     enc_out = encode(params, cfg, batch["frames"]) if cfg.enc_dec else None
     x = embed_inputs(params, cfg, batch["tokens"], batch.get("patches"))
-    hidden, aux = forward_hidden(params, cfg, x, impl=impl, enc_out=enc_out)
+    hidden, aux = forward_hidden(params, cfg, x, impl=impl, enc_out=enc_out,
+                                 remat=remat, moe_groups=moe_groups)
     labels = batch["labels"]
     if cfg.frontend == "vision" and "patches" in batch:
         pad = torch.full((labels.shape[0], batch["patches"].shape[1]), -100,

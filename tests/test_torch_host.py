@@ -18,7 +18,8 @@ SRC = pathlib.Path(__file__).resolve().parents[1] / "src"
 REF, PORT = SRC / "repro", SRC / "repro_torch"
 
 #: the reference modules the port copies verbatim (imports renamed)
-COPIED = (["models/config.py", "serving/scheduler.py", "serving/sim.py"]
+COPIED = (["models/config.py", "serving/scheduler.py", "serving/sim.py",
+           "training/data.py"]
           + [f"core/{m}.py" for m in (
               "__init__", "tracking", "events", "config", "contexts",
               "block_table", "allocator", "prefix", "metrics", "shootdown",
@@ -60,6 +61,10 @@ def test_importing_the_port_loads_no_jax():
             for k in ("mla_attention", "mamba_scan", "rwkv6_scan",
                       "flash_attention")
             for m in (k, "ops", "ref")} <= set(mods)
+    # the training slice
+    assert {f"repro_torch.training.{m}"
+            for m in ("data", "optimizer", "grad_compression", "checkpoint",
+                      "train_loop")} <= set(mods)
     code = ("import sys, importlib\n"
             "import repro_torch, repro_torch.serving.engine\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
