@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port on one NVIDIA GPU: the FPR serving path, the
 full-sequence forward of the hybrid families, the encoder-decoder and
-vision-prefix families, and training.
+vision-prefix families, training, and serving on a device mesh.
 
 Run from the root of a checkout: ``python3 chip_smoke.py``.  Phases, any
 of which fails the script:
@@ -37,18 +37,25 @@ of which fails the script:
    scan its ex2 floor beside the bytes, the split-K kernels their
    geometry and scratch, and the flash, Mamba and RWKV-6 rows their op's
    time (``op_ms``, on the model's layout) beside the kernel's;
-3. serve granite-3-8b at full width and depth (random f32 weights from a
+3. tune the paged decode kernel's buffer depth with CUDA events
+   (``autotune``) for each (KV heads, head_dim, bs) the script serves:
+   granite-3-8b, Jamba and InternVL2 share (8, 128, 128), tuned at
+   granite's engine decode shape (B 8, G 4, 20 blocks a sequence), and
+   whisper-small's (12, 64, 128) at its own (B 2, G 1, 2 blocks); it
+   prints each depth's ms and the winner, and every later phase decodes
+   at the recorded depth;
+4. serve granite-3-8b at full width and depth (random f32 weights from a
    seeded generator) through the chunked path (decode through the paged
    decode kernel) and the ragged path (ragged kernel), each against the
    same engine with ``page_impl="ref"`` as the token oracle, and check
    the kernels' launch counts on those runs (and print the stream time
    their calls spanned in each run);
-4. serve DeepSeek-V2 at its published widths, cut to 4 layers (layer 0
+5. serve DeepSeek-V2 at its published widths, cut to 4 layers (layer 0
    dense, 1-3 MoE; random f32 weights), through monolithic prefill and
    paged MLA decode (the MLA kernel) against ``page_impl="ref"``, check
    the MLA kernel ran once per layer per decode step, and print the
    stream time its calls spanned;
-5. Jamba-v0.1 at its published widths cut to one 8-layer period, then
+6. Jamba-v0.1 at its published widths cut to one 8-layer period, then
    RWKV-6-7B whole (random f32 weights): ``prefill(impl="kernel")`` of 2
    prompts of 1000 tokens and 16 greedy ``decode_step``s against the
    ``impl="chunked"``/``page_impl="ref"`` oracle, ``loss_fn(impl=
@@ -57,19 +64,19 @@ of which fails the script:
    layer; each path's launches are counted on their own, and the stream
    time the scan op's calls spanned in prefill and in ``loss_fn`` is
    printed;
-6. whisper-small whole (12 decoder + 12 encoder layers over 1500 frames;
+7. whisper-small whole (12 decoder + 12 encoder layers over 1500 frames;
    random f32 weights and frames): ``prefill(enc_frames=...)`` of 2
    prompts of 200 tokens and 16 greedy ``decode_step``s through the paged
    decode kernel against ``page_impl="ref"`` (exactly 12 x 16 launches,
    no other kernel), and ``loss_fn`` with frames on (2, 448),
    ``impl="chunked"`` against ``"direct"``;
-7. InternVL2-26B at its published widths cut to 16 of 48 layers:
+8. InternVL2-26B at its published widths cut to 16 of 48 layers:
    ``prefill(patches=...)`` of a 256-token vision prefix plus 2 prompts of
    300 tokens and 16 greedy decode steps against the oracle, ``loss_fn``
    with patches, chunked against direct, and text traffic through the
    engine's ragged path against the same engine over ``page_impl="ref"``
    (the ragged kernel once per layer per ragged step);
-8. train granite-3-8b at its published widths cut to 8 of 40 layers
+9. train granite-3-8b at its published widths cut to 8 of 40 layers
    (random f32 weights, ``SyntheticLM`` batches of (2, 1024)) from the
    same params and fresh AdamW state three ways: (a) ``TrainConfig(
    attn_impl="chunked", remat=True)`` for 3 steps (the chunked
@@ -79,7 +86,20 @@ of which fails the script:
    (a)'s step-0 loss equals ``loss_fn``'s forward within 1e-6, (a) and
    (b) agree within 1e-4 in loss and grad norm at every step, (c) equals
    (a)'s first step within 1e-5, (a)'s peak memory is below (b)'s, and no
-   kernel launches; prints seconds per step, tokens/s and both peaks.
+   kernel launches; prints seconds per step, tokens/s and both peaks;
+10. serve on a device mesh: two processes on the one GPU, joined over
+   gloo (NCCL refuses two ranks on one GPU) through a file store, each
+   one rank of a (data 1, model 2) mesh of CUDA tensors: (a) the
+   sequence-parallel paged decode (every table column, "sp", and the
+   rank's own, "sp_opt") at granite-3-8b's attention widths over 8
+   sequences of 300-2500 tokens, and the SP absorbed-MLA context at
+   DeepSeek-V2's widths, against the single-device kernels and their
+   plain versions (2e-5), with each rank's ms per call; (b) granite-3-8b
+   at its published widths cut to 8 layers, ``prefill(mesh=)`` of 2 x
+   1000 tokens and 16 greedy ``decode_step(page_impl="sp")`` steps, whose
+   tokens must equal the single-process ``page_impl="ref"`` oracle run
+   here first (but at near-ties) on both ranks, launching no kernel.  A
+   failing rank fails the script.
 
 Prints the card's name and power limit, tokens/s per run, the script's
 wall time, one
@@ -919,6 +939,34 @@ NEW_TOKENS = 16
 ENTRY_POINTS = ("prefill", "prefill_chunk", "decode_step", "ragged_step")
 
 
+# the paged decode keys the script serves, each tuned once at the decode
+# shape of the run that serves it: (what, KV heads, head_dim, bs, batch,
+# query heads per KV head, blocks a sequence).  granite-3-8b, Jamba and
+# InternVL2 share (8, 128, 128) (the key has no G and no batch, in the
+# reference too): tuned at the engine's decode shape (max_seq_len 2560)
+TUNED = (("granite-3-8b, Jamba, InternVL2", KV, HD, BS, 8, G, 2560 // BS),
+         ("whisper-small", 12, 64, BS, 2, 1, 2))
+
+
+def tuner_phase(torch) -> dict:
+    """``autotune`` every key of TUNED; returns {key: depth}."""
+    from repro_torch.kernels.paged_attention import autotune
+    depths = {}
+    for what, kv, hd, bs, batch, group, n_blocks in TUNED:
+        t0 = time.perf_counter()
+        tuning = autotune.autotune(kv, hd, bs, n_blocks, batch=batch,
+                                   group=group, device=DEVICE)
+        ms = ", ".join(f"depth {d} {v:.4f} ms" for d, v in
+                       sorted(tuning.ms.items()))
+        print(f"tuner ({kv}, {hd}, {bs}) for {what} at B {batch}, G "
+              f"{group}, {n_blocks} blocks a sequence: {ms} (median of "
+              f"20 CUDA-event timed calls each); winner depth "
+              f"{tuning.buffer_depth}; {time.perf_counter() - t0:.2f} s; "
+              f"card {card_line()}")
+        depths[autotune.tuning_key(kv, hd, bs)] = tuning.buffer_depth
+    return depths
+
+
 def serve(torch, cfg, params, *, prompt_lens, page_impl: str, seed: int,
           **engine_kw):
     """One engine run; returns tokens by request, the snapshot, decode
@@ -1688,6 +1736,265 @@ def training_phase(torch, seed: int) -> None:
     torch.cuda.empty_cache()
 
 
+# phase 10: two ranks on the one GPU over gloo
+MESH_RANKS = 2
+MESH_LAYERS = 8
+MESH_PROMPT = (2, 1000)
+MESH_TIMEOUT = 300          # seconds for both ranks, weights and checks
+MESH_DIR = ROOT / "build" / "mesh_phase"
+
+
+def mesh_config():
+    from repro_torch.configs import get_config
+    full = get_config("granite-3-8b")
+    L = MESH_LAYERS
+    return full.with_(n_layers=L, mixers=full.mixers[:L], ffns=full.ffns[:L])
+
+
+def mesh_params(torch, cfg, seed: int):
+    """The same weights in every process: one seeded CUDA generator."""
+    from repro_torch.models import transformer as tfm
+    gen = torch.Generator(device=DEVICE).manual_seed(seed + 13)
+    return tfm.init_params(cfg, generator=gen, device=DEVICE,
+                           dtype=torch.float32)
+
+
+def mesh_prompts(torch, cfg, seed: int):
+    import numpy as np
+    rng = np.random.RandomState(seed + 13)
+    return torch.as_tensor(rng.randint(1, cfg.vocab, MESH_PROMPT),
+                           dtype=torch.int32, device=DEVICE)
+
+
+def mesh_phase(torch, seed: int) -> None:
+    """The single-process ``page_impl="ref"`` oracle, then MESH_RANKS
+    processes of :func:`mesh_rank` on the GPU; fails unless both exit 0,
+    their kernel checks hold and their tokens equal the oracle's."""
+    import shutil
+    from repro_torch.kernels.paged_attention import autotune
+    cfg = mesh_config()
+    t0 = time.perf_counter()
+    params = mesh_params(torch, cfg, seed)
+    made_line(torch, cfg, params, t0,
+              f"{MESH_LAYERS} of 40 layers (the mesh phase's oracle)")
+    with torch.no_grad():
+        want, margins, _, ref_secs = greedy(
+            torch, cfg, params, mesh_prompts(torch, cfg, seed),
+            impl="chunked", page_impl="ref")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    shutil.rmtree(MESH_DIR, ignore_errors=True)
+    MESH_DIR.mkdir(parents=True)
+    depth = autotune.get_tuning(KV, HD, BS).buffer_depth
+    (MESH_DIR / "args.json").write_text(json.dumps(
+        {"seed": seed, "depth": depth}))
+    t0 = time.perf_counter()
+    logs = [open(MESH_DIR / f"rank_{r}.log", "w") for r in range(MESH_RANKS)]
+    procs = [subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()), "--mesh-rank",
+         str(r)], stdout=log, stderr=subprocess.STDOUT)
+        for r, log in enumerate(logs)]
+    try:
+        # a rank that fails leaves the other waiting in a collective: stop
+        # at the first non-zero exit, or at the deadline
+        deadline = time.monotonic() + MESH_TIMEOUT
+        while time.monotonic() < deadline:
+            codes = [p.poll() for p in procs]
+            if None not in codes or any(codes):
+                break
+            time.sleep(0.5)
+    finally:
+        for p in procs:
+            p.kill()
+            p.wait()
+        for log in logs:
+            log.close()
+    secs = time.perf_counter() - t0
+    if codes != [0] * MESH_RANKS:
+        for r in range(MESH_RANKS):
+            tail = (MESH_DIR / f"rank_{r}.log").read_text()[-3000:]
+            print(f"mesh rank {r} log (end):\n{tail}", file=sys.stderr)
+        fail(f"mesh phase: ranks exited {codes} (None: still running, "
+             f"stopped)")
+    out = [json.loads((MESH_DIR / f"rank_{r}.json").read_text())
+           for r in range(MESH_RANKS)]
+    for r, res in enumerate(out):
+        for line in res["lines"]:
+            print(f"mesh rank {r}: {line}")
+        got = {int(b): v for b, v in res["tokens"].items()}
+        if got != {int(b): v for b, v in out[0]["tokens"].items()}:
+            fail(f"mesh rank {r}'s tokens differ from rank 0's")
+        check_tokens(got, want, margins, f"mesh rank {r}")
+    n = MESH_PROMPT[0] * HYBRID_NEW
+    print(f"mesh phase: {MESH_RANKS} gloo ranks on one GPU, "
+          f"{secs:.1f} s from spawn to exit (each rank: start, weights, "
+          f"checks); granite-3-8b {MESH_LAYERS} layers over the mesh: "
+          f"{MESH_PROMPT[0] * (HYBRID_NEW + 1)} tokens equal the "
+          f"single-process oracle (prefill {ref_secs[0]:.3f} s, decode "
+          f"{ref_secs[1]:.3f} s, {n / ref_secs[1]:.2f} tokens/s); card "
+          f"{card_line()}")
+
+
+def mesh_kernel_checks(torch, mesh, seq_axes, depth: int, seed: int) -> list:
+    """(a): the SP decode and the SP MLA context on this rank's shards
+    against the single-device kernels (rows 3 and 6) and their plain
+    versions; returns printable lines with this rank's ms per call."""
+    import torch.distributed as dist
+    from repro_torch.distributed import collectives as coll
+    from repro_torch.kernels.mla_attention import mla_attention as mk
+    from repro_torch.kernels.mla_attention import ref as mref
+    from repro_torch.kernels.paged_attention import ops as pa_ops
+    from repro_torch.models import attention as attn_mod
+    from repro_torch.models.transformer import sp_identity_tables
+    gen = torch.Generator(device=DEVICE).manual_seed(seed + 17)
+    sa, lines = tuple(seq_axes), []
+    n = coll.axis_size(mesh, sa)
+
+    def shard(x):                            # this rank's pool rows
+        return coll.local_shard(x, (sa,), mesh)
+
+    def cols(tables, opt):                   # "sp_opt": its table columns
+        return coll.local_shard(tables, (None, sa if opt else None), mesh)
+
+    def check(what, got, kernel, plain, sp_ms, k_ms):
+        e_k = (got - kernel).abs().max().item()
+        e_p = (got - plain).abs().max().item()
+        if not (e_k <= TOL and e_p <= TOL):
+            fail(f"mesh {what}: max abs err {e_k} vs the kernel, {e_p} vs "
+                 f"plain (> {TOL})")
+        # the transport alone: one SUM of the accumulator's shape over the
+        # ranks (the combine is one MAX of m and two SUMs, of l and acc)
+        acc = torch.zeros_like(got)
+        ar_ms = time_ms(torch, lambda: dist.all_reduce(acc), reps=10)
+        lines.append(f"{what}: {sp_ms:.4f} ms per call on this rank "
+                     f"(partials, all_reduce MAX + 2 SUM over {n} ranks; "
+                     f"one gloo all_reduce of the {tuple(got.shape)} f32 "
+                     f"accumulator {ar_ms:.4f} ms), single-device kernel "
+                     f"{k_ms:.4f} ms; max abs err {e_k:.3g} vs the kernel, "
+                     f"{e_p:.3g} vs plain")
+
+    # GQA at granite-3-8b's attention widths, the engine's 8 sequences
+    Mg = 2560 // BS
+    N = len(PROMPT_LENS) * Mg
+    q = torch.randn(len(PROMPT_LENS), KV * G, HD, generator=gen,
+                    device=DEVICE)
+    kv = torch.randn(N, BS, 2 * KV, HD, generator=gen, device=DEVICE)
+    lengths = torch.tensor(PROMPT_LENS, dtype=torch.int32, device=DEVICE)
+    k_l, v_l = attn_mod.split_fused_kv(shard(kv))
+    k, v = attn_mod.split_fused_kv(kv)
+    for impl, tables in (
+            ("sp", torch.randperm(N, generator=gen, device=DEVICE).reshape(
+                -1, Mg).to(torch.int32)),
+            ("sp_opt", sp_identity_tables(len(PROMPT_LENS), Mg, N, 1, n,
+                                          device=DEVICE))):
+        opt = impl == "sp_opt"
+
+        def sp():
+            return coll.paged_decode_attention_sp(
+                q, k_l, v_l, cols(tables, opt), lengths, mesh=mesh,
+                batch_axes=(), seq_axes=sa, table_cols_sharded=opt)
+
+        def kernel():
+            return pa_ops.paged_attention(q, kv, tables, lengths,
+                                          buffer_depth=depth)
+        check(f"paged decode {impl} (B {len(PROMPT_LENS)}, KV {KV}, G {G}, "
+              f"hd {HD}, 300-2500 tokens)", sp(), kernel(),
+              attn_mod.paged_decode_attention_ref(q, k, v, tables, lengths),
+              time_ms(torch, sp, reps=10), time_ms(torch, kernel, reps=10))
+    # the absorbed-MLA context at DeepSeek-V2's widths
+    c = mla_case(torch, gen, W=1)
+    c_l, kr_l = shard(c["c"]), shard(c["kr"])
+    args = (c["q_lat"], c["q_rope"], c["c"], c["kr"], c["stack"],
+            c["lengths"])
+    for impl, tables in (
+            ("sp", c["tables"]),
+            ("sp_opt", sp_identity_tables(MLA_B, MLA_M, c["c"].shape[0], 1,
+                                          n, device=DEVICE))):
+        opt = impl == "sp_opt"
+        if opt:                 # the identity layout: the same work
+            args = args[:4] + (stack_tables(torch, tables, 1),
+                               c["lengths"])
+
+        def sp():
+            return coll.mla_ctx_sp(
+                c["q_lat"], c["q_rope"], c_l, kr_l, cols(tables, opt),
+                c["lengths"], scale=MLA_SCALE, mesh=mesh, batch_axes=(),
+                seq_axes=sa, table_cols_sharded=opt)
+
+        def kernel():
+            return mk.mla_paged_ctx_fwd(*args, scale=MLA_SCALE)
+        check(f"MLA context {impl} (B {MLA_B}, H {MLA_H}, rank {RANK}, "
+              f"rope {ROPE}, {MLA_M} blocks)", sp(), kernel(),
+              mref.mla_paged_ctx_ref(*args, scale=MLA_SCALE),
+              time_ms(torch, sp, reps=10), time_ms(torch, kernel, reps=10))
+    return lines
+
+
+def mesh_rank(rank: int) -> int:
+    """One rank of phase 10 (``--mesh-rank``): (a) the kernel checks, then
+    (b) granite-3-8b cut to MESH_LAYERS over the mesh; writes its lines
+    and tokens to ``MESH_DIR/rank_<rank>.json``."""
+    from datetime import timedelta
+
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.distributed import collectives as coll
+    from repro_torch.distributed.sharding import decode_axes
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import transformer as tfm
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    args = json.loads((MESH_DIR / "args.json").read_text())
+    seed = args["seed"]
+    dist.init_process_group(
+        "gloo", init_method=f"file://{MESH_DIR / 'store'}", rank=rank,
+        world_size=MESH_RANKS, timeout=timedelta(seconds=180))
+    try:
+        mesh = make_host_mesh(1, MESH_RANKS)
+        cfg = mesh_config()
+        ba, sa = decode_axes(mesh, batch=MESH_PROMPT[0])
+        with torch.no_grad():
+            lines = mesh_kernel_checks(torch, mesh, sa, args["depth"], seed)
+            params = mesh_params(torch, cfg, seed)
+            prompts = mesh_prompts(torch, cfg, seed)
+            B, S = MESH_PROMPT
+            st = tfm.init_decode_state(
+                cfg, B, S + HYBRID_NEW + 1, dtype=torch.float32,
+                batch_shards=coll.axis_size(mesh, ba),
+                seq_shards=coll.axis_size(mesh, sa), device=DEVICE)
+            st = coll.local_state(st, cfg, mesh, batch_axes=ba, seq_axes=sa)
+            kw = dict(mesh=mesh, batch_axes=ba, seq_axes=sa)
+            reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            lg, st = tfm.prefill(params, cfg, prompts, st, **kw)
+            toks = [lg.argmax(-1)]
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            for _ in range(HYBRID_NEW):
+                lg, st = tfm.decode_step(params, cfg, st, toks[-1].to(
+                    torch.int32), page_impl="sp", **kw)
+                toks.append(lg.argmax(-1))
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            expect_launches(launch_counts(), {}, "the mesh model run")
+        rows = torch.stack(toks, 1).tolist()
+        lines.append(
+            f"{cfg.name} {MESH_LAYERS} layers on mesh {dict(zip(mesh.mesh_dim_names, mesh.shape))}"
+            f" (batch axes {ba}, seq axes {sa}): prefill {B}x{S} "
+            f"{t1 - t0:.3f} s, {HYBRID_NEW} decode steps {t2 - t1:.3f} s "
+            f"({B * HYBRID_NEW / (t2 - t1):.2f} tokens/s), no kernel "
+            f"launched; card {card_line()}")
+        (MESH_DIR / f"rank_{rank}.json").write_text(json.dumps(
+            {"lines": lines, "tokens": dict(enumerate(rows))}))
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--layers", type=int, default=40,
@@ -1696,7 +2003,11 @@ def main() -> int:
     ap.add_argument("--skip-engine", action="store_true",
                     help="build and check the kernels only (prints no "
                          "result line)")
+    ap.add_argument("--mesh-rank", type=int, default=None,
+                    help=argparse.SUPPRESS)       # phase 10 starts these
     args = ap.parse_args()
+    if args.mesh_rank is not None:
+        return mesh_rank(args.mesh_rank)
     start = time.perf_counter()
     try:
         import torch
@@ -1733,6 +2044,7 @@ def main() -> int:
     if args.skip_engine:                     # no main-path run: no result
         print(f"card: {card_line()}")
         return 0
+    depths = tuner_phase(torch)
     launches = engine_phase(torch, args.layers, args.seed)
     gc.collect()                             # granite's weights go first
     torch.cuda.empty_cache()
@@ -1742,20 +2054,24 @@ def main() -> int:
     for name in HYBRID_LAYERS:
         for k, n in hybrid_phase(torch, name, args.seed).items():
             launches[k] = launches.get(k, 0) + n
-    launches["paged_decode"] += encdec_phase(torch, args.seed)
+    whisper_decode = encdec_phase(torch, args.seed)
     for k, n in vision_phase(torch, args.seed).items():
         launches[k] += n
     training_phase(torch, args.seed)
-    # the paged decode launches go to the row of the depth the models run
-    # (the tuned depth; 2 without a tuning entry), the other rows get none
+    mesh_phase(torch, args.seed)
+    # the paged decode launches go to the row of the depth each model ran
+    # (its key's tuned depth: row 2 at depth 1, row 3 at 2 and 4); the
+    # split kernel (row 1) gets none
     from repro_torch.kernels.paged_attention import autotune
-    depth = autotune.get_tuning(KV, HD, BS).buffer_depth
-    decode_row = 1 if depth == 1 else 2
-    for i, name in enumerate(("paged_decode", "paged_decode",
-                              "paged_decode", "ragged", "flash_attention",
-                              "mla_ctx", "mamba_scan", "rwkv6_scan")):
-        if name != "paged_decode" or i == decode_row:
-            kernels[i]["launches"] = launches[name]
+    kernels[0]["launches"] = kernels[1]["launches"] = 0
+    kernels[2]["launches"] = 0
+    for n, key in ((launches.pop("paged_decode"), (KV, HD, BS)),
+                   (whisper_decode, (12, 64, BS))):
+        kernels[1 if depths[autotune.tuning_key(*key)] == 1 else 2][
+            "launches"] += n
+    for i, name in enumerate(("ragged", "flash_attention", "mla_ctx",
+                              "mamba_scan", "rwkv6_scan"), start=3):
+        kernels[i]["launches"] = launches[name]
     print(f"card: {card_line()}")
     print(f"chip_smoke: wall time {time.perf_counter() - start:.1f} s (the "
           f"kernels' build included)")

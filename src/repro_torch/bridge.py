@@ -119,7 +119,7 @@ def map_leaves(fn, *trees, _key: str = "", _block: int | None = None):
     return fn(_key, _block, *trees)
 
 
-def _to_numpy(t: torch.Tensor) -> np.ndarray:
+def to_numpy(t: torch.Tensor) -> np.ndarray:
     """A host copy (never a view: the caller may go on updating ``t`` in
     place); bfloat16 through ``ml_dtypes``, NumPy's bfloat16."""
     t = t.detach().to("cpu", copy=True)
@@ -151,4 +151,4 @@ def params_to_jax(tree):
                      for stack in tree)
     if isinstance(tree, (list, tuple)):
         return tuple(params_to_jax(v) for v in tree)
-    return _to_numpy(tree)
+    return to_numpy(tree)

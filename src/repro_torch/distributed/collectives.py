@@ -1,0 +1,361 @@
+"""SP collectives: distributed flash-decode over the sharded FPR pool.
+
+Counterpart of ``repro.distributed.collectives`` over ``torch.distributed``.
+Decode shards the **physical block pool** (the N dimension) over mesh dims
+rather than KV heads:
+
+    pool partition p = (batch_shard · n_seq + seq_shard)     (row-major)
+    data shards own their batch rows' blocks; model shards split each
+    sequence; per-shard online-softmax partials merge with the LSE combine
+
+        m = max_s m_s   l = Σ l_s·e^{m_s−m}   acc = Σ acc_s·e^{m_s−m}
+
+— one f32 (B, H) ``all_reduce(MAX)`` and two ``all_reduce(SUM)``s per
+layer instead of gathering the pool.
+
+SPMD form: one process is one mesh member and calls each function here
+with its **own shards**, laid out as the reference's ``shard_map``
+``in_specs`` lay them out:
+
+    pool:              P(batch_axes + seq_axes) on N
+    q/tables/lengths:  P(batch_axes) on B (tables also P(seq_axes) on M
+                       when ``table_cols_sharded``)
+    combine over       seq_axes (empty ⇒ batch-local, no collective)
+
+and gets back its ``out_specs`` shard (its batch rows).
+:func:`local_shard` cuts a rank's shard out of a whole tensor and
+:func:`gather_batch` gives every rank the whole batch again, so that
+replicated activations can follow.  Block tables hold *global* physical
+indices; each shard subtracts its pool offset and masks rows outside its
+window.  Only ``all_reduce`` (SUM and MAX) is used — the batch gather is
+a SUM of disjoint rows — because gloo, the backend that puts two ranks
+on one GPU, offers little else on CUDA tensors.  A tuple of mesh dims
+reduces over one process group spanning them, built once per (mesh,
+dims).
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.distributed as dist
+
+from repro_torch.distributed.sharding import decode_state_specs, spec_axes
+from repro_torch.launch.mesh import axis_sizes
+from repro_torch.models.attention import NEG_INF
+
+#: pool keys of the decode state (sharded over N); every other key stays
+#: whole on every rank
+POOL_KEYS = ("kv", "mla_c", "mla_rope")
+
+_GROUPS: dict = {}
+
+
+def axis_size(mesh, axes) -> int:
+    sizes = axis_sizes(mesh)
+    return math.prod(sizes[a] for a in axes)
+
+
+def axis_index(mesh, axes) -> int:
+    """This rank's row-major index over the mesh dims ``axes`` (the
+    reference's ``axis_index`` folded over a tuple of axes)."""
+    sizes = axis_sizes(mesh)
+    idx = 0
+    for a in axes:
+        idx = idx * sizes[a] + mesh.get_local_rank(a)
+    return idx
+
+
+def _group(mesh, axes):
+    """The process group of this rank's members along ``axes``."""
+    if len(axes) == 1:
+        return mesh.get_group(axes[0])
+    key = (id(mesh), tuple(axes))
+    if key not in _GROUPS:
+        names = list(mesh.mesh_dim_names)
+        dims = [names.index(a) for a in axes]
+        rest = [i for i in range(len(names)) if i not in dims]
+        ranks = mesh.mesh.permute(*rest, *dims).reshape(
+            -1, axis_size(mesh, axes)).tolist()
+        group, _ = dist.new_subgroups_by_enumeration(ranks)
+        _GROUPS[key] = (mesh, group)        # the mesh keeps its id unique
+    return _GROUPS[key][1]
+
+
+def _all_reduce(x: torch.Tensor, mesh, axes, op=dist.ReduceOp.SUM):
+    dist.all_reduce(x, op=op, group=_group(mesh, axes))
+    return x
+
+
+# ------------------------------------------------------- shard in, batch out
+def local_shard(x: torch.Tensor, spec, mesh) -> torch.Tensor:
+    """This rank's block of the whole tensor ``x`` under ``spec`` (a view):
+    what ``shard_map`` hands its body.  Each sharded dim must split
+    evenly."""
+    for d, entry in enumerate(spec):
+        axes = spec_axes(entry)
+        if not axes:
+            continue
+        n = axis_size(mesh, axes)
+        if x.shape[d] % n:
+            raise ValueError(f"dim {d} of size {x.shape[d]} does not split "
+                             f"evenly over {axes} ({n} shards)")
+        step = x.shape[d] // n
+        x = x.narrow(d, axis_index(mesh, axes) * step, step)
+    return x
+
+
+def local_state(state: dict, cfg, mesh, *, batch_axes, seq_axes) -> dict:
+    """This rank's decode state from a whole one: each pool's N rows
+    under ``sharding.decode_state_specs`` (copied), every other key
+    (tables, lengths, recurrent and cross states) whole, as the
+    activations that read them are replicated."""
+    specs = decode_state_specs(cfg, mesh, batch_axes=batch_axes,
+                               seq_axes=seq_axes)
+    return {k: (local_shard(v, specs[k], mesh).clone() if k in POOL_KEYS
+                else v) for k, v in state.items()}
+
+
+def gather_batch(x: torch.Tensor, mesh, batch_axes, batch: int):
+    """Each rank's batch rows (its ``P(batch_axes)`` shard) → the whole
+    (batch, ...) on every rank: a SUM of disjoint rows, exact."""
+    if not batch_axes:
+        return x
+    out = x.new_zeros((batch,) + x.shape[1:])
+    i = axis_index(mesh, batch_axes)
+    out[i * x.shape[0]:(i + 1) * x.shape[0]] = x
+    return _all_reduce(out, mesh, batch_axes)
+
+
+def _shard_offset(mesh, batch_axes, seq_axes, Nl: int) -> int:
+    """Pool-row offset of this shard inside the global pool."""
+    return (axis_index(mesh, batch_axes) * axis_size(mesh, seq_axes)
+            + axis_index(mesh, seq_axes)) * Nl
+
+
+def _localize(tables, offset: int, Nl: int):
+    local = tables - offset
+    return torch.where((tables >= 0) & (local >= 0) & (local < Nl), local,
+                       -1)
+
+
+def local_tables(tables, mesh, batch_axes, seq_axes, Nl: int):
+    """Global rows of a (B, M) table → this rank's pool rows (of ``Nl``);
+    rows of other shards and holes → -1, so writes through it drop."""
+    return _localize(tables, _shard_offset(mesh, batch_axes, seq_axes, Nl),
+                     Nl)
+
+
+def _lse_combine(m, l, acc, mesh, axes):
+    if not axes:
+        return acc / l.clamp(min=1e-30)[..., None]
+    m_g = _all_reduce(m.clone(), mesh, axes, dist.ReduceOp.MAX)
+    scale = torch.exp(m - m_g)
+    l_g = _all_reduce(l * scale, mesh, axes)
+    acc_g = _all_reduce(acc * scale[..., None], mesh, axes)
+    return acc_g / l_g.clamp(min=1e-30)[..., None]
+
+
+# ----------------------------------------------------------- local partials
+def _chunks(tables, row_bytes: int, chunk_bytes: int):
+    """Yield (column offset, (B, bpc) table chunk) with the table padded
+    by -1 to whole chunks of ~``chunk_bytes`` gathered rows."""
+    M = tables.shape[1]
+    bpc = max(1, min(M, chunk_bytes // max(1, row_bytes)))
+    padM = (-M) % bpc
+    if padM:
+        tables = torch.nn.functional.pad(tables, (0, padM), value=-1)
+    for c0 in range(0, tables.shape[1], bpc):
+        yield c0, tables[:, c0:c0 + bpc]
+
+
+def _paged_partials(q, k_pool, v_pool, tables, lengths, *,
+                    window: int | None, chunk_bytes: int = 1 << 27,
+                    pos_base: int = 0):
+    """Un-normalised attention over one pool shard, chunked over the block
+    table so the gathered KV copy never exceeds ~``chunk_bytes``.
+
+    q: (B, KV, G, hd) f32; pools: (Nl, bs, KV, hd); tables: (B, M) *local*
+    physical indices (<0 ⇒ not this shard / hole).  Returns m, l
+    (B, KV, G), acc (B, KV, G, hd).
+    """
+    B, KV, G, hd = q.shape
+    Nl, bs = k_pool.shape[:2]
+    m = q.new_full((B, KV, G), NEG_INF)
+    l = q.new_zeros((B, KV, G))
+    acc = q.new_zeros((B, KV, G, hd))
+    row_bytes = B * bs * KV * hd * k_pool.element_size()
+    for c0, tb in _chunks(tables, row_bytes, chunk_bytes):
+        n = tb.shape[1] * bs
+        tclamp = tb.clamp(0, Nl - 1).long()
+        k = k_pool[tclamp].reshape(B, n, KV, hd).float()
+        v = v_pool[tclamp].reshape(B, n, KV, hd).float()
+        s = torch.einsum("bkgd,bskd->bkgs", q, k) * (hd ** -0.5)
+        pos = (pos_base + c0 * bs
+               + torch.arange(n, device=q.device))[None, :]
+        valid = (pos < lengths[:, None]) & (tb >= 0).repeat_interleave(
+            bs, dim=1)
+        if window is not None:
+            valid &= pos > lengths[:, None] - 1 - window
+        s = torch.where(valid[:, None, None, :], s, NEG_INF)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = torch.exp(s - m_new[..., None]) * valid[:, None, None, :]
+        scale = torch.exp(m - m_new)
+        l = l * scale + p.sum(dim=-1)
+        acc = acc * scale[..., None] + torch.einsum("bkgs,bskd->bkgd", p, v)
+        m = m_new
+    return m, l, acc
+
+
+# --------------------------------------------------- vocab-parallel embed
+class _SumOverRanks(torch.autograd.Function):
+    """SUM over a process group forward; backward the identity on this
+    rank's shard (the output is replicated, so each rank's cotangent is
+    already the whole one: the transpose of the reference's psum)."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axes):
+        return _all_reduce(x.clone(), mesh, axes)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+def vocab_shard(table: torch.Tensor, mesh, axis: str = "model"):
+    """This rank's rows of a whole (V, D) table under ``P(axis, None)``: a
+    view of rows ``[i·Vl, (i+1)·Vl)`` with ``Vl = ceil(V / n)``, the last
+    shard short where the reference pads the table."""
+    V = table.shape[0]
+    Vl = -(-V // axis_size(mesh, (axis,)))
+    i = axis_index(mesh, (axis,))
+    return table[min(V, i * Vl):min(V, (i + 1) * Vl)]
+
+
+def vocab_parallel_embed(tokens, table, *, mesh, vocab: int,
+                         axis: str = "model"):
+    """Embedding lookup with the table V-sharded over ``axis``: one masked
+    local gather + one SUM over ``axis``
+
+        x = Σ_axis( mask·table_local[tokens − offset] )
+
+    tokens: this rank's (B, S) or (B,) ids (whatever batch rows it
+    holds: the reference's ``dp_spec`` picks them); table: this rank's
+    rows of the (vocab, D) table (:func:`vocab_shard`; rows ``[i·Vl,
+    i·Vl + len)``, ``Vl = ceil(vocab / n)``).  Differentiable in
+    ``table``.
+    """
+    Vl = -(-vocab // axis_size(mesh, (axis,)))
+    loc = tokens.long() - axis_index(mesh, (axis,)) * Vl
+    ok = (loc >= 0) & (loc < table.shape[0])
+    x = table[loc.clamp(0, max(table.shape[0] - 1, 0))]
+    x = torch.where(ok[..., None], x, torch.zeros((), dtype=x.dtype,
+                                                  device=x.device))
+    return _SumOverRanks.apply(x, mesh, (axis,))
+
+
+# --------------------------------------------------- SP prefill cache write
+def scatter_seq_sp(pool, seq, tab, *, mesh, batch_axes=("data",),
+                   seq_axes=("model",)):
+    """Write prefill cache rows into this rank's pool shard, in place.
+    Each shard localises the row indices to its own pool window and drops
+    the rest (holes too), masked explicitly.
+
+    pool: (Nl, bs, …) this rank's P(ba+sa) rows; seq: (R, bs, …) the
+    rank's rows (P(ba)); tab: (R,) their global physical rows.
+    """
+    Nl = pool.shape[0]
+    loc = tab.long() - _shard_offset(mesh, tuple(batch_axes),
+                                     tuple(seq_axes), Nl)
+    keep = ((tab >= 0) & (loc >= 0) & (loc < Nl)).nonzero()[:, 0]
+    pool[loc[keep]] = seq[keep].to(pool.dtype)
+    return pool
+
+
+# ------------------------------------------------------------- GQA SP decode
+def paged_decode_attention_sp(q, k_pool, v_pool, tables, lengths, *, mesh,
+                              batch_axes=("data",), seq_axes=("model",),
+                              window: int | None = None,
+                              table_cols_sharded: bool = False):
+    """SP decode attention on this rank's shards; same contract as
+    ``models.attention.paged_decode_attention_ref`` for its batch rows.
+
+    q: (Bl, H, hd); pools: (Nl, bs, KV, hd); tables: (Bl, M) global
+    indices, or (Bl, M / n_seq) — this rank's columns — with
+    ``table_cols_sharded``; lengths: (Bl,) → (Bl, H, hd).
+
+    ``table_cols_sharded`` (``"sp_opt"``): with the identity block layout
+    (column m lives on seq shard m // M_loc) each shard walks only its own
+    table columns instead of masking through all of them.
+    """
+    Bl, H, hd = q.shape
+    Nl, bs, KV, _ = k_pool.shape
+    ba, sa = tuple(batch_axes), tuple(seq_axes)
+    pos_base = (axis_index(mesh, sa) * tables.shape[1] * bs
+                if table_cols_sharded else 0)
+    m, l, acc = _paged_partials(
+        q.float().reshape(Bl, KV, H // KV, hd), k_pool, v_pool,
+        _localize(tables, _shard_offset(mesh, ba, sa, Nl), Nl),
+        lengths, window=window, pos_base=pos_base)
+    out = _lse_combine(m, l, acc, mesh, sa)
+    return out.reshape(Bl, H, hd).to(q.dtype)
+
+
+# ------------------------------------------------------------- MLA SP decode
+def mla_ctx_sp(q_lat, q_rope, c_pool, rope_pool, tables, lengths, *, scale,
+               mesh, batch_axes=("data",), seq_axes=("model",),
+               table_cols_sharded: bool = False):
+    """The SP latent context of the absorbed-MLA decode on this rank's
+    shards, the contract of the MLA kernel: q_lat (Bl, H, rank) and
+    q_rope (Bl, H, rope_hd) f32, pools (Nl, bs, rank) / (Nl, bs,
+    rope_hd), tables and lengths as in :func:`paged_decode_attention_sp`
+    → softmax-weighted latents (Bl, H, rank) f32 (0 for a slot that sees
+    nothing)."""
+    ba, sa = tuple(batch_axes), tuple(seq_axes)
+    Nl, bs, rank = c_pool.shape
+    Bl, H = q_lat.shape[:2]
+    pos_base = (axis_index(mesh, sa) * tables.shape[1] * bs
+                if table_cols_sharded else 0)
+    local = _localize(tables, _shard_offset(mesh, ba, sa, Nl), Nl)
+    mx = q_lat.new_full((Bl, H), NEG_INF)
+    l = q_lat.new_zeros((Bl, H))
+    acc = q_lat.new_zeros((Bl, H, rank))
+    row_bytes = Bl * bs * rank * c_pool.element_size()
+    for c0, tb in _chunks(local, row_bytes, 1 << 27):
+        n = tb.shape[1] * bs
+        tclamp = tb.clamp(0, Nl - 1).long()
+        c = c_pool[tclamp].reshape(Bl, n, rank).float()
+        kr = rope_pool[tclamp].reshape(Bl, n, -1).float()
+        s = (torch.einsum("bhr,bsr->bhs", q_lat, c)
+             + torch.einsum("bhr,bsr->bhs", q_rope, kr)) * scale
+        pos = (pos_base + c0 * bs
+               + torch.arange(n, device=q_lat.device))[None, :]
+        valid = (pos < lengths[:, None]) & (tb >= 0).repeat_interleave(
+            bs, dim=1)
+        s = torch.where(valid[:, None, :], s, NEG_INF)
+        m_new = torch.maximum(mx, s.amax(dim=-1))
+        p = torch.exp(s - m_new[..., None]) * valid[:, None, :]
+        sc = torch.exp(mx - m_new)
+        l = l * sc + p.sum(dim=-1)
+        acc = acc * sc[..., None] + torch.einsum("bhs,bsr->bhr", p, c)
+        mx = m_new
+    return _lse_combine(mx, l, acc, mesh, sa)
+
+
+def mla_decode_sp(params, x, positions, c_pool, rope_pool, tables, lengths,
+                  cfg, *, mesh, batch_axes=("data",), seq_axes=("model",),
+                  table_cols_sharded: bool = False):
+    """SP absorbed-MLA decode on this rank's shards; same contract as
+    ``models.mla.mla_decode_ref`` for its batch rows: x (Bl, D),
+    positions (Bl,), pools (Nl, bs, rank) / (Nl, bs, rope_hd), tables and
+    lengths as in :func:`paged_decode_attention_sp` → (Bl, D)."""
+    from repro_torch.models.mla import absorbed_query, mla_out
+
+    m_ = cfg.mla
+    q_lat, q_rope, w_uv = absorbed_query(params, x, positions, cfg)
+    ctx = mla_ctx_sp(q_lat, q_rope, c_pool, rope_pool, tables, lengths,
+                     scale=(m_.nope_head_dim + m_.rope_head_dim) ** -0.5,
+                     mesh=mesh, batch_axes=batch_axes, seq_axes=seq_axes,
+                     table_cols_sharded=table_cols_sharded)
+    return mla_out(params, x, ctx, w_uv)

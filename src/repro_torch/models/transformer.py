@@ -49,6 +49,24 @@ are forward only.  MLA and hybrid models prefill monolithically
 models, as in the reference: no encoder-decoder).  ``impl="direct"``
 runs attention through ``direct_attention`` in the forward and loss, as
 the reference's does; the scans refuse it.
+
+**On a device mesh** (``mesh``: a ``torch.distributed`` DeviceMesh, one
+process per member, ``distributed/collectives.py``), ``decode_step``
+takes ``page_impl="sp"`` or ``"sp_opt"`` (and only those): each rank
+holds its N rows of every paged pool (``collectives.local_state``), the
+whole tables, lengths and recurrent states, and the whole batch of
+activations.  Attention runs the sequence-parallel decode on the rank's
+batch rows and pool shard and gathers the batch back; the token writes
+and ``prefill``'s cache writes (``scatter_seq_sp``) land only in the
+rank's own pool rows; the embedding lookup is the vocab-parallel one
+over the rank's V rows of ``params["embed"]`` (a view: the table stays
+whole, as a tied unembedding needs it).  Every other weight is whole on
+every rank: GSPMD's sharding of the projections has no eager
+counterpart until the training slice applies ``param_specs`` through
+DTensor, and the reference's ``_constrain`` (a sharding constraint on
+the activations) has no eager meaning, so it has none here.  The
+reference's ``act_spec`` picks which batch rows a rank embeds; here a
+rank embeds the rows it is given, so there is no ``act_spec``.
 """
 
 from __future__ import annotations
@@ -71,7 +89,10 @@ from repro_torch.models.layers import remat as checkpointed
 
 BLOCK_SIZE = 128   # tokens per physical KV block
 
-PAGE_IMPLS = ("ref", "kernel")
+PAGE_IMPLS = ("ref", "kernel", "sp", "sp_opt")
+#: the page_impls of a mesh: the sequence-parallel decode, walking every
+#: table column ("sp") or only the rank's own ("sp_opt")
+SP_IMPLS = ("sp", "sp_opt")
 #: how the Mamba and RWKV-6 mixers scan a sequence, and whether the
 #: forward's attention is chunked (see the module doc)
 IMPLS = ("chunked", "sequential", "kernel", "direct")
@@ -338,10 +359,34 @@ def _scatter_blocks(pool: torch.Tensor, tab: torch.Tensor,
 
 
 # ================================================================ decode step
-def _paged_attn(q, kv_pool, tables, lengths, *, page_impl, window):
+def _sp_shards(tables, B, page_impl, mesh, batch_axes, seq_axes, *rows):
+    """This rank's part of the SP decode's inputs: its batch rows of the
+    monolithic view of ``tables`` (and, for ``"sp_opt"``, its columns)
+    and of each of ``rows``."""
+    from repro_torch.distributed.collectives import local_shard
+    ba = tuple(batch_axes)
+    cols = tuple(seq_axes) if page_impl == "sp_opt" else None
+    tab = local_shard(attn_mod.assemble_shard_tables(tables)[:B],
+                      (ba, cols), mesh)
+    return tab, [local_shard(x, (ba,), mesh) for x in rows]
+
+
+def _paged_attn(q, kv_pool, tables, lengths, *, page_impl, window,
+                mesh=None, batch_axes=(), seq_axes=()):
     """One decode-attention step over either table layout: ``kv_pool`` is
-    the fused ``(N, bs, KV*2, hd)`` pool, ``tables`` the ``(B, M)`` table
-    or the ``(W, Bs, M)`` shard stack."""
+    the fused ``(N, bs, KV*2, hd)`` pool (on a mesh the rank's N rows),
+    ``tables`` the ``(B, M)`` table or the ``(W, Bs, M)`` shard stack."""
+    if page_impl in SP_IMPLS:
+        from repro_torch.distributed import collectives as coll
+        B = q.shape[0]
+        tab, (q_l, len_l) = _sp_shards(tables, B, page_impl, mesh,
+                                       batch_axes, seq_axes, q, lengths)
+        k_pool, v_pool = attn_mod.split_fused_kv(kv_pool)
+        out = coll.paged_decode_attention_sp(
+            q_l, k_pool, v_pool, tab, len_l, mesh=mesh,
+            batch_axes=batch_axes, seq_axes=seq_axes, window=window,
+            table_cols_sharded=(page_impl == "sp_opt"))
+        return coll.gather_batch(out, mesh, tuple(batch_axes), B)
     if page_impl == "kernel":
         from repro_torch.kernels.paged_attention import autotune
         from repro_torch.kernels.paged_attention import ops as pa_ops
@@ -369,11 +414,25 @@ def _check_page_impl(page_impl: str) -> None:
                          f"got {page_impl!r}")
 
 
-def _mla_paged_decode(lp, x, positions, st, layer, cfg, *, page_impl):
+def _mla_paged_decode(lp, x, positions, st, layer, cfg, *, page_impl,
+                      mesh=None, batch_axes=(), seq_axes=()):
     """Absorbed-MLA decode of layer ``layer`` over the latent pools:
     ``"kernel"`` walks the table (either layout) in the CUDA kernel;
-    ``"ref"`` gathers through the monolithic view of the table."""
+    ``"ref"`` gathers through the monolithic view of the table; the SP
+    impls run ``mla_decode_sp`` on the rank's batch rows and pool shard
+    and gather the batch back."""
     c_pool, rope_pool = st["mla_c"][layer], st["mla_rope"][layer]
+    if page_impl in SP_IMPLS:
+        from repro_torch.distributed import collectives as coll
+        B = x.shape[0]
+        tab, (x_l, pos_l, len_l) = _sp_shards(
+            st["tables"], B, page_impl, mesh, batch_axes, seq_axes, x,
+            positions, st["lengths"] + 1)
+        out = coll.mla_decode_sp(
+            lp, x_l, pos_l, c_pool, rope_pool, tab, len_l, cfg, mesh=mesh,
+            batch_axes=batch_axes, seq_axes=seq_axes,
+            table_cols_sharded=(page_impl == "sp_opt"))
+        return coll.gather_batch(out, mesh, tuple(batch_axes), B)
     if page_impl == "kernel":
         from repro_torch.kernels.mla_attention import ops as mla_ops
         return mla_ops.mla_paged_decode(lp, x, positions, c_pool, rope_pool,
@@ -384,26 +443,50 @@ def _mla_paged_decode(lp, x, positions, st, layer, cfg, *, page_impl):
                                   tables, st["lengths"] + 1, cfg)
 
 
+def _embed_tokens(params, tokens, mesh):
+    """The embedding lookup; vocab-parallel on a mesh with ``"model"``."""
+    if mesh is None or "model" not in mesh.mesh_dim_names:
+        return embed(tokens, params["embed"])
+    from repro_torch.distributed import collectives as coll
+    return coll.vocab_parallel_embed(
+        tokens, coll.vocab_shard(params["embed"], mesh), mesh=mesh,
+        vocab=params["embed"].shape[0])
+
+
 def decode_step(params, cfg: ModelConfig, state: dict, tokens: torch.Tensor,
-                *, page_impl: str = "ref"):
+                *, page_impl: str = "ref", mesh=None, batch_axes=(),
+                seq_axes=()):
     """One decode step: tokens (B,) → (logits (B, V) f32, state).
 
     ``state['lengths']`` counts tokens already in the cache; the incoming
     token is written at position ``lengths`` and attends to ``lengths+1``
     tokens (itself included).  Mamba and RWKV-6 layers step their states
-    sequentially.  The pools and states are updated in place.
+    sequentially.  The pools and states are updated in place.  On a
+    ``mesh`` (the module doc), ``page_impl`` is ``"sp"`` or ``"sp_opt"``,
+    the pools are the rank's shards under ``batch_axes + seq_axes`` and
+    every rank returns the whole logits.
     """
     check_supported(cfg)
+    if (page_impl in SP_IMPLS) != (mesh is not None):
+        raise ValueError(f"page_impl {page_impl!r} "
+                         f"{'needs' if mesh is None else 'does not take'} "
+                         f"a mesh; on a mesh use one of {SP_IMPLS}")
     B = tokens.shape[0]
     st = dict(state)
     pos = st["lengths"]
-    x = embed(tokens, params["embed"])                   # (B, D)
+    x = _embed_tokens(params, tokens, mesh)              # (B, D)
     if cfg.enc_dec:
         x = x + params["dec_pos"][pos.long().clamp(max=DEC_POS - 1)]
     positions = pos[:, None]
-    targets = _token_targets(st["tables"],
-                             torch.arange(B, device=tokens.device), pos,
-                             BLOCK_SIZE)
+    tables = st["tables"]
+    if mesh is not None:            # only this rank's pool rows are written
+        from repro_torch.distributed.collectives import local_tables
+        Nl = st["kv" if "kv" in st else "mla_c"].shape[1]
+        tables = local_tables(
+            attn_mod.assemble_shard_tables(tables)[:B], mesh,
+            tuple(batch_axes), tuple(seq_axes), Nl)
+    targets = _token_targets(tables, torch.arange(B, device=tokens.device),
+                             pos, BLOCK_SIZE)
     attn_ids = attn_layer_ids(cfg)
     mamba_ids = mamba_layer_ids(cfg)
     for i in range(cfg.n_layers):
@@ -426,7 +509,8 @@ def decode_step(params, cfg: ModelConfig, state: dict, tokens: torch.Tensor,
             _scatter_rows(st["mla_c"][i], targets, c_kv[:, 0])
             _scatter_rows(st["mla_rope"][i], targets, k_rope[:, 0, 0])
             x = _mla_paged_decode(lp["mix"], x, pos, st, i, cfg,
-                                  page_impl=page_impl)
+                                  page_impl=page_impl, mesh=mesh,
+                                  batch_axes=batch_axes, seq_axes=seq_axes)
         else:
             a = attn_ids.index(i)
             h = rms_norm(x[:, None], lp["mix"]["norm"], cfg.norm_eps)
@@ -434,7 +518,9 @@ def decode_step(params, cfg: ModelConfig, state: dict, tokens: torch.Tensor,
             _scatter_rows(st["kv"][a], targets,
                           attn_mod.fuse_kv(k[:, 0], v[:, 0]))
             o = _paged_attn(q[:, 0], st["kv"][a], st["tables"], pos + 1,
-                            page_impl=page_impl, window=cfg.attn.window)
+                            page_impl=page_impl, window=cfg.attn.window,
+                            mesh=mesh, batch_axes=batch_axes,
+                            seq_axes=seq_axes)
             x = x + o.reshape(B, -1) @ lp["mix"]["wo"]
         if cfg.enc_dec:
             x = attn_mod.cross_attn_layer(
@@ -450,7 +536,8 @@ def decode_step(params, cfg: ModelConfig, state: dict, tokens: torch.Tensor,
 # ================================================================== prefill
 def prefill(params, cfg: ModelConfig, tokens: torch.Tensor, state: dict, *,
             impl: str = "chunked", enc_frames: torch.Tensor | None = None,
-            patches: torch.Tensor | None = None):
+            patches: torch.Tensor | None = None, mesh=None, batch_axes=(),
+            seq_axes=("model",)):
     """Process a full prompt, write every cache and recurrent state (in
     place), return (last_logits, state).  tokens: (B, S); a vision model's
     ``patches`` (B, P, D) go before the text, so the sequence is S_tot =
@@ -459,14 +546,18 @@ def prefill(params, cfg: ModelConfig, tokens: torch.Tensor, state: dict, *,
     ``enc_frames`` (B, enc_len, D) once and writes each layer's
     cross-attention keys and values.  ``impl`` scans the Mamba and RWKV-6
     mixers (:data:`IMPLS`); attention layers always run
-    ``chunked_attention``, as in the reference."""
+    ``chunked_attention``, as in the reference.  On a ``mesh`` the pools
+    are the rank's shards under ``batch_axes + seq_axes`` and each rank
+    writes only its own rows (``scatter_seq_sp``, whatever the mesh's
+    dims: the pools are always local here); the rest runs whole on every
+    rank."""
     check_supported(cfg)
     _check_impl(impl)
     B = tokens.shape[0]
     bs = BLOCK_SIZE
     st = dict(state)
     enc_out = encode(params, cfg, enc_frames) if cfg.enc_dec else None
-    x = embed_inputs(params, cfg, tokens, patches)
+    x = embed_inputs(params, cfg, tokens, patches, mesh=mesh)
     S = x.shape[1]                                       # S_tot
     positions = torch.arange(S, device=tokens.device)[None].expand(B, S)
     tables = attn_mod.assemble_shard_tables(st["tables"])[:B]
@@ -478,8 +569,15 @@ def prefill(params, cfg: ModelConfig, tokens: torch.Tensor, state: dict, *,
         drop."""
         pad = [0, 0] * (seq.dim() - 2) + [0, M_used * bs - S]
         seq = torch.nn.functional.pad(seq, pad)
-        _scatter_blocks(pool, tab,
-                        seq.reshape((B * M_used, bs) + seq.shape[2:]))
+        rows = seq.reshape((B * M_used, bs) + seq.shape[2:])
+        if mesh is None:
+            _scatter_blocks(pool, tab, rows)
+            return
+        from repro_torch.distributed import collectives as coll
+        ba = (tuple(batch_axes),)
+        coll.scatter_seq_sp(pool, coll.local_shard(rows, ba, mesh),
+                            coll.local_shard(tab, ba, mesh), mesh=mesh,
+                            batch_axes=batch_axes, seq_axes=seq_axes)
 
     attn_ids = attn_layer_ids(cfg)
     mamba_ids = mamba_layer_ids(cfg)
@@ -659,12 +757,14 @@ def encode(params, cfg: ModelConfig, frames: torch.Tensor) -> torch.Tensor:
 
 
 def embed_inputs(params, cfg: ModelConfig, tokens: torch.Tensor,
-                 patches: torch.Tensor | None = None) -> torch.Tensor:
+                 patches: torch.Tensor | None = None, *,
+                 mesh=None) -> torch.Tensor:
     """tokens (B, S_text) [+ patches (B, P, D)] → x (B, S, D): a vision
     prefix goes before the text; an encoder-decoder model adds its
-    learned decoder positions."""
+    learned decoder positions.  On a mesh with ``"model"`` the lookup is
+    the vocab-parallel one (the module doc)."""
     check_supported(cfg)
-    x = embed(tokens, params["embed"])
+    x = _embed_tokens(params, tokens, mesh)
     if cfg.frontend == "vision" and patches is not None:
         vis = vision_patches_to_embeddings(params, patches)
         x = torch.cat([vis.to(x.dtype), x], dim=1)
@@ -770,13 +870,15 @@ def chunked_loss(params, cfg: ModelConfig, hidden: torch.Tensor,
 
 def loss_fn(params, cfg: ModelConfig, batch: dict, *,
             impl: str = "chunked", remat: bool = True,
-            moe_groups: int = 1) -> torch.Tensor:
+            moe_groups: int = 1, mesh=None) -> torch.Tensor:
     """batch: tokens (B, S), labels (B, S) [, patches (B, P, D), frames
     (B, enc_len, D)] → LM loss plus the MoE aux loss.  The vision prefix
     positions carry no loss.  ``remat`` and ``moe_groups`` go to
-    :func:`forward_hidden`."""
+    :func:`forward_hidden`; on a ``mesh`` the embedding is the
+    vocab-parallel one (:func:`embed_inputs`)."""
     enc_out = encode(params, cfg, batch["frames"]) if cfg.enc_dec else None
-    x = embed_inputs(params, cfg, batch["tokens"], batch.get("patches"))
+    x = embed_inputs(params, cfg, batch["tokens"], batch.get("patches"),
+                     mesh=mesh)
     hidden, aux = forward_hidden(params, cfg, x, impl=impl, enc_out=enc_out,
                                  remat=remat, moe_groups=moe_groups)
     labels = batch["labels"]

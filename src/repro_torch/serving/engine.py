@@ -959,7 +959,7 @@ class Engine:
 
         # host-side kernel accounting: one fused descriptor per resident
         # block per row per attention layer (the split layout would pay
-        # two — see kernels/paged_attention/autotune.KernelCostModel)
+        # two — see the reference's autotune.KernelCostModel)
         kvp = self.cache.state["kv"]
         block_bytes = int(np.prod(kvp.shape[2:])) * kvp.element_size()
         bs = self.cache.block_size

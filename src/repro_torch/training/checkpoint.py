@@ -1,4 +1,4 @@
-"""Atomic, sharded checkpoint manager with the reference's on-disk format.
+"""Atomic, sharded, elastic checkpoint manager with the reference's format.
 
 PyTorch counterpart of ``repro.training.checkpoint``; a checkpoint
 written by either package restores in the other:
@@ -8,15 +8,16 @@ written by either package restores in the other:
   shard index ranges) plus ``shards.npz`` holding ``<key>::<i>`` arrays.
   Keys are the reference's flattened paths (``params/body/0/mix/wq``),
   and body leaves are stored stacked over their blocks, as the reference
-  keeps them (:func:`repro_torch.bridge.params_to_jax`).  The port runs
-  on one device, so each leaf is one shard covering the whole array; a
-  reference checkpoint's shards of any mesh are reassembled on restore.
+  keeps them: each block is its own shard of the stacked leaf.
+* **Sharded**: a DTensor leaf is saved per shard with its global index
+  (``distributed/elastic.py``); every rank's entries are gathered to
+  rank 0, which writes the checkpoint, and all ranks then pass a
+  barrier.  A plain tensor is one shard covering it.
+* **Elastic**: restore reassembles leaves by index math and, given a
+  mesh and specs, places them onto that mesh, whatever mesh saved them.
 * **Async**: ``save(..., blocking=False)`` copies to the host, then
   writes on a background thread.
 * **Retention**: keeps the newest ``keep`` checkpoints.
-
-Restoring onto a mesh (the reference's ``reshard``) needs the port's
-distributed slice and raises here.
 """
 
 from __future__ import annotations
@@ -27,45 +28,43 @@ import shutil
 import threading
 
 import numpy as np
+import torch.distributed as dist
+from torch.distributed.device_mesh import DeviceMesh
+from torch.distributed.tensor import DTensor
 
-from repro_torch.bridge import from_numpy, map_leaves, params_to_jax
-
-_SEP = "/"
-
-
-def shard_entries(arr: np.ndarray):
-    """Yield (index_tuple, host_ndarray) per shard: one device, so one
-    entry covering the whole array."""
-    yield tuple((0, dim) for dim in arr.shape), arr
+from repro_torch.bridge import from_numpy, leaves, map_leaves
+from repro_torch.distributed.elastic import assemble, reshard, shard_entries
 
 
-def assemble(shape, dtype, entries) -> np.ndarray:
-    """Rebuild the global array from (index, data) shard entries."""
-    out = np.zeros(shape, dtype=dtype)
-    covered = np.zeros(shape, dtype=bool) if entries else None
-    for idx, data in entries:
-        sl = tuple(slice(a, b) for a, b in idx)
-        out[sl] = data
-        covered[sl] = True
-    if covered is not None and not covered.all():
-        raise ValueError("checkpoint shards do not cover the global array "
-                         "(missing ranks?)")
+def _entries(tree) -> dict:
+    """{key: [shape, dtype or None, [(index, data), ...]]} of this rank's
+    shards, keyed and indexed as the reference's stacked leaves."""
+    out: dict = {}
+
+    def collect(key, block, t):
+        shape = list(t.shape)
+        if block is not None:
+            shape = [block + 1] + shape
+        meta = out.setdefault(key, [shape, None, []])
+        meta[0] = [max(a, b) for a, b in zip(meta[0], shape)]
+        for idx, data in shard_entries(t):
+            if block is not None:
+                idx, data = ((block, block + 1),) + idx, data[None]
+            meta[1] = str(data.dtype)
+            meta[2].append((idx, data))
+
+    map_leaves(collect, tree)
     return out
 
 
-def _flatten(tree, prefix: str = "") -> dict:
-    """{path: leaf} of a reference-layout tree (dicts and tuples), paths
-    joined as the reference's ``_flatten`` joins them."""
-    if isinstance(tree, dict):
-        items = sorted(tree.items())
-    elif isinstance(tree, (list, tuple)):
-        items = enumerate(tree)
-    else:
-        return {prefix: tree}
-    flat = {}
-    for k, v in items:
-        flat.update(_flatten(v, f"{prefix}{_SEP}{k}" if prefix else str(k)))
-    return flat
+def _merge(per_rank: list) -> dict:
+    out: dict = {}
+    for entries in per_rank:
+        for key, (shape, dtype, shards) in entries.items():
+            meta = out.setdefault(key, [shape, None, []])
+            meta[1] = meta[1] or dtype
+            meta[2] += shards
+    return out
 
 
 class CheckpointManager:
@@ -78,15 +77,23 @@ class CheckpointManager:
     # ------------------------------------------------------------------ save
     def save(self, step: int, tree, blocking: bool = True) -> str:
         # snapshot to host *now* (the caller updates its tensors in place)
-        flat = _flatten(params_to_jax(tree))
+        entries = _entries(tree)
+        sharded = any(isinstance(t, DTensor) for t in leaves(tree))
+        if sharded:
+            per_rank = [None] * dist.get_world_size()
+            dist.gather_object(entries, per_rank if dist.get_rank() == 0
+                               else None, dst=0)
+            if dist.get_rank() != 0:
+                dist.barrier()
+                return os.path.join(self.dir, f"step_{step}")
+            entries = _merge(per_rank)
         manifest = {"step": step, "leaves": {}}
         payload: dict[str, np.ndarray] = {}
-        for key, arr in flat.items():
-            entries = list(shard_entries(arr))
+        for key, (shape, dtype, shards) in entries.items():
             manifest["leaves"][key] = {
-                "shape": list(arr.shape), "dtype": str(arr.dtype),
-                "shards": [list(map(list, idx)) for idx, _ in entries]}
-            for i, (_, data) in enumerate(entries):
+                "shape": shape, "dtype": dtype,
+                "shards": [list(map(list, idx)) for idx, _ in shards]}
+            for i, (_, data) in enumerate(shards):
                 payload[f"{key}::{i}"] = data
 
         def _write():
@@ -101,8 +108,10 @@ class CheckpointManager:
             os.replace(tmp, final)             # atomic publish
             self._gc()
 
-        if blocking:
+        if blocking or sharded:             # the other ranks wait for it
             _write()
+            if sharded:
+                dist.barrier()
         else:
             self.wait()
             self._thread = threading.Thread(target=_write, daemon=True)
@@ -153,21 +162,27 @@ class CheckpointManager:
 
     def restore(self, step: int, like_tree, mesh=None, specs=None):
         """Restore into the structure of ``like_tree`` (the port's layout),
-        each leaf on its like's device with the checkpoint's dtype."""
-        if mesh is not None or specs is not None:
-            raise NotImplementedError(
-                "restoring onto a mesh needs the port's distributed/ slice "
-                "(ROADMAP Queue 1 item 4)")
+        each leaf on its like's device with the checkpoint's dtype; with
+        a ``DeviceMesh`` and a tree of specs, as DTensors placed on that
+        mesh (``elastic.reshard``)."""
+        if mesh is not None and not isinstance(mesh, DeviceMesh):
+            raise TypeError(f"mesh must be a torch.distributed DeviceMesh, "
+                            f"got {type(mesh).__name__}")
+        if (mesh is None) != (specs is None):
+            raise ValueError("restoring onto a mesh takes both mesh and "
+                             "specs")
         flat, _ = self.restore_host(step)
         keys = set()
         map_leaves(lambda key, _b, _x: keys.add(key), like_tree)
         missing = keys - set(flat)
         if missing:
             raise KeyError(f"checkpoint missing leaves: {sorted(missing)[:5]}")
-        return map_leaves(
-            lambda key, b, like: from_numpy(
-                flat[key] if b is None else flat[key][b], like.device),
-            like_tree)
+        host = map_leaves(lambda key, b, _like: flat[key] if b is None
+                          else flat[key][b], like_tree)
+        if mesh is not None:
+            return reshard(host, mesh, specs)
+        return map_leaves(lambda key, b, x, like: from_numpy(x, like.device),
+                          host, like_tree)
 
 
 def _dtype(name: str) -> np.dtype:

@@ -65,6 +65,10 @@ def test_importing_the_port_loads_no_jax():
     assert {f"repro_torch.training.{m}"
             for m in ("data", "optimizer", "grad_compression", "checkpoint",
                       "train_loop")} <= set(mods)
+    # serving on a mesh
+    assert {f"repro_torch.distributed.{m}"
+            for m in ("sharding", "collectives", "elastic")} | {
+        "repro_torch.launch.mesh"} <= set(mods)
     code = ("import sys, importlib\n"
             "import repro_torch, repro_torch.serving.engine\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"

@@ -1,7 +1,9 @@
 """The CUDA kernels (paged attention, absorbed-MLA paged decode, the Mamba
 and RWKV-6 scans, flash attention) against their plain versions, on the
-card, and the training path there (the chunked attention's backward
-against autograd through direct attention, one train step).  These skip without a CUDA device; on a machine with one run them
+card, the training path there (the chunked attention's backward
+against autograd through direct attention, one train step), the decode
+tuner, and the SP decode on two gloo ranks sharing the card.  These skip
+without a CUDA device; on a machine with one run them
 with ``python -m pytest -q -m cuda tests/test_torch_kernels_cuda.py``
 (the file imports no JAX)."""
 
@@ -522,3 +524,54 @@ def test_train_step_runs_on_card(cuda):
     assert all(p.is_cuda and not p.requires_grad for p in leaves(params))
     assert any(not torch.equal(a, b)
                for a, b in zip(leaves(params), before))
+
+
+@pytest.mark.cuda
+def test_autotune_records_a_depth_on_card(cuda):
+    """The tuner times every depth (positive ms), records the fastest, and
+    the decode output at that depth is bit-identical to depth 2's."""
+    from repro_torch.kernels.paged_attention import autotune as ttune
+    try:
+        tuning = ttune.autotune(2, 16, 128, 4, batch=5, group=2, reps=5)
+        assert tuning.buffer_depth in ttune.BUFFER_DEPTHS
+        assert sorted(tuning.ms) == list(ttune.BUFFER_DEPTHS)
+        assert all(ms > 0 for ms in tuning.ms.values())
+        assert ttune.get_tuning(2, 16, 128) == tuning
+        c = paged_case(11)
+        args = (t(c["q"], cuda), t(c["kv"], cuda), t(c["stack"], cuda),
+                t(c["lengths"], cuda))
+        tuned = tops.paged_attention(*args, buffer_depth=tuning.buffer_depth)
+        assert torch.equal(tuned, tops.paged_attention(*args, buffer_depth=2))
+    finally:
+        ttune.clear()
+
+
+@pytest.mark.cuda
+def test_sp_decode_on_two_gloo_ranks_on_card(cuda, tmp_path):
+    """Two processes on one GPU over gloo (a (data 1, model 2) mesh of CUDA
+    tensors): the SP decode, walking every table column and only the
+    rank's own, equals the single-device kernel within 2e-5."""
+    import json
+
+    from _torch_dist_ranks import spawn
+    from repro_torch.models.transformer import sp_identity_tables
+    c = paged_case(12, B=4, M=4)
+    B, M = c["mono"].shape
+    N = c["kv"].shape[0] + 1                    # even: two pool shards
+    kv = np.concatenate([c["kv"], c["kv"][:1]])
+    ident = sp_identity_tables(B, M, N, 1, 2, device="cpu").numpy()
+    case = {}
+    for name, tables in (("sp", c["mono"]), ("sp_opt", ident)):
+        args = (t(c["q"], cuda), t(kv, cuda), t(tables, cuda),
+                t(c["lengths"], cuda))
+        case[name] = {"q": args[0].cpu(), "kv": args[1].cpu(),
+                      "tables": args[2].cpu(), "lengths": args[3].cpu(),
+                      "want": tops.paged_attention(*args).cpu()}
+    torch.save(case, tmp_path / "case.pt")
+    for r, (code, log) in enumerate(spawn(tmp_path, 2, "cuda", timeout=180)):
+        assert code == 0, log
+        with open(tmp_path / f"result_{r}.json") as f:
+            res = json.load(f)
+        assert sorted(res) == ["cuda_sp/sp", "cuda_sp/sp_opt"]
+        for name, out in res.items():
+            assert out["ok"], f"rank {r}, {name}:\n{out['error']}"

@@ -298,3 +298,35 @@ def test_tuning_cache_defaults_match_reference():
     finally:
         ttune.clear()
     assert ttune.get_tuning(2, 16, 128).buffer_depth == 2
+
+
+def test_autotune_refuses_the_cpu():
+    """The tuner times the CUDA kernel with CUDA events: no modelled
+    fallback on the CPU, and nothing recorded."""
+    with pytest.raises(RuntimeError, match="CUDA events"):
+        ttune.autotune(2, 16, 128, 4, batch=2, group=2, device="cpu")
+    assert ttune.get_tuning(2, 16, 128).ms is None
+
+
+def test_decode_reads_the_recorded_depth(monkeypatch):
+    """``_paged_attn(page_impl="kernel")`` passes the depth recorded for
+    its (KV heads, head_dim, bs) to the kernel, and the default after
+    ``clear()``."""
+    from repro_torch.models import transformer as ttfm
+    c = paged_case(3)
+    seen = []
+    real = tops.paged_attention
+
+    def spy(*a, buffer_depth, **k):
+        seen.append(buffer_depth)
+        return real(*a, buffer_depth=buffer_depth, **k)
+    monkeypatch.setattr(tops, "paged_attention", spy)
+    args = (t(c["q"]), t(c["kv"]), t(c["mono"]), t(c["lengths"]))
+    ttune.set_tuning(2, 16, 128, ttune.KernelTuning(128, 4))
+    try:
+        tuned = ttfm._paged_attn(*args, page_impl="kernel", window=None)
+    finally:
+        ttune.clear()
+    default = ttfm._paged_attn(*args, page_impl="kernel", window=None)
+    assert seen == [4, ttune.DEFAULT_BUFFER_DEPTH]
+    assert torch.equal(tuned, default)

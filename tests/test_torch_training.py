@@ -462,8 +462,8 @@ def test_checkpoint_atomic_and_retention(tmp_path):
     assert torch.equal(back["w"], tree["w"])
     with pytest.raises(KeyError, match="missing"):
         mgr.restore(3, {"w": tree["w"], "v": tree["w"]})
-    with pytest.raises(NotImplementedError, match="distributed"):
-        mgr.restore(3, tree, mesh=object())
+    with pytest.raises(TypeError, match="DeviceMesh"):
+        mgr.restore(3, tree, mesh=object(), specs={"w": None})
 
 
 def test_bf16_checkpoints_restore_in_the_port(tmp_path):
