@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port on one NVIDIA GPU: the FPR serving path, the
 full-sequence forward of the hybrid families, the encoder-decoder and
-vision-prefix families, training, and serving on a device mesh.
+vision-prefix families, training, and serving and training on a device
+mesh.
 
 Run from the root of a checkout: ``python3 chip_smoke.py``.  Phases, any
 of which fails the script:
@@ -99,7 +100,25 @@ of which fails the script:
    1000 tokens and 16 greedy ``decode_step(page_impl="sp")`` steps, whose
    tokens must equal the single-process ``page_impl="ref"`` oracle run
    here first (but at near-ties) on both ranks, launching no kernel.  A
-   failing rank fails the script.
+   failing rank fails the script;
+11. train on a device mesh: two processes on the one GPU over gloo, as in
+   phase 10 (``--train-rank R``, files under ``build/train_mesh_phase/``).
+   Each first probes gloo's collectives on CUDA tensors
+   (``repro_torch.distributed.probe``: which work, and the seconds of
+   ``all_reduce``, ``all_gather_into_tensor`` and ``broadcast`` at 64 MB,
+   256 MB and 1 GB), then trains phase 9's model from (a)'s params and
+   batches for 2 steps with ``make_train_step(cfg, tc, mesh)`` on a (data
+   2, model 1) mesh (FSDP) and a (data 1, model 2) mesh (tensor parallel,
+   the vocab-parallel loss over the tied table): loss and grad norm at
+   each step and each leaf's sum of squares after them within 1e-5
+   relative of (a)'s, and on the FSDP mesh each rank's resident state
+   before the first step at most 0.55 of (a)'s; it prints seconds per
+   step, tokens/s, resident and peak memory, and the collectives' calls,
+   bytes and seconds per step.  Then ``pipeline_apply`` over the two ranks
+   (one granite-3-8b layer a stage, 4 microbatches of (1, 1024, 4096))
+   within 1e-5 of the layers applied in sequence here.  No kernel
+   launches (the kernels are forward only).  A failing rank fails the
+   script.
 
 Prints the card's name and power limit, tokens/s per run, the script's
 wall time, one
@@ -1622,28 +1641,38 @@ def train_flops(cfg, B: int, S: int) -> tuple[float, float]:
     return 3 * fwd, cfg.n_layers * layer + unembed
 
 
-def training_phase(torch, seed: int) -> None:
+def leaf_sumsq(torch, params) -> dict:
+    """Each reference leaf's sum of squares (a body leaf's over all of
+    its blocks), in f64."""
+    from repro_torch.bridge import map_leaves
+    out: dict = {}
+    map_leaves(lambda key, _b, t: out.__setitem__(
+        key, out.get(key, 0.0) + t.double().square().sum().item()), params)
+    return out
+
+
+def training_phase(torch, seed: int) -> dict:
     """granite-3-8b at its published widths cut to TRAIN_LAYERS, trained
     from the same random f32 params and fresh AdamW state three ways:
     (a) ``attn_impl="chunked", remat=True`` (the chunked attention's
     autograd Function and checkpointed blocks), (b) ``"direct"`` without
     remat (plain autograd through the O(S²) oracle), (c) (a) with two
     microbatches for one step.  No kernel launches (the kernels are
-    forward only)."""
+    forward only).  Returns (a)'s record for phase 11: its first
+    TRAIN_MESH_STEPS losses and grad norms, each leaf's sum of squares
+    after them, and the memory resident before its first step."""
     from repro_torch.bridge import tree_map
-    from repro_torch.configs import get_config
     from repro_torch.models import transformer as tfm
     from repro_torch.training import optimizer as topt
     from repro_torch.training import train_loop as ttl
     from repro_torch.training.data import DataConfig, SyntheticLM
-    full = get_config("granite-3-8b")
+    cfg = train_config_of()
     L = TRAIN_LAYERS
-    cfg = full.with_(n_layers=L, mixers=full.mixers[:L], ffns=full.ffns[:L])
     t0 = time.perf_counter()
     gen = torch.Generator(device=DEVICE).manual_seed(seed + 11)
     params0 = tfm.init_params(cfg, generator=gen, device=DEVICE,
                               dtype=torch.float32)
-    made_line(torch, cfg, params0, t0, f"{L} of {full.n_layers} layers")
+    made_line(torch, cfg, params0, t0, f"{L} of 40 layers")
     B, S = TRAIN_BATCH
     data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=S,
                                   global_batch=B))
@@ -1658,6 +1687,8 @@ def training_phase(torch, seed: int) -> None:
                for b in host]
     with torch.no_grad():
         forward = tfm.loss_fn(params0, cfg, batches[0]).item()
+
+    sumsq: dict = {}
 
     def run(what: str, steps: int, **kw):
         tc = ttl.TrainConfig(**kw)
@@ -1678,6 +1709,8 @@ def training_phase(torch, seed: int) -> None:
             loss, gnorm = m["loss"].item(), m["grad_norm"].item()
             torch.cuda.synchronize()
             out.append((loss, gnorm, time.perf_counter() - t1))
+            if not kw and s + 1 == TRAIN_MESH_STEPS:    # (a): the oracle
+                sumsq.update(leaf_sumsq(torch, params))
         peak = torch.cuda.max_memory_allocated()
         expect_launches(launch_counts(), {}, f"training {what}")
         if not all(math.isfinite(x) for row in out for x in row[:2]):
@@ -1734,6 +1767,9 @@ def training_phase(torch, seed: int) -> None:
     del params0
     gc.collect()
     torch.cuda.empty_cache()
+    return {"loss": [h[0] for h in a[:TRAIN_MESH_STEPS]],
+            "grad_norm": [h[1] for h in a[:TRAIN_MESH_STEPS]],
+            "sumsq": sumsq, "resident": peak_a[1]}
 
 
 # phase 10: two ranks on the one GPU over gloo
@@ -1790,33 +1826,8 @@ def mesh_phase(torch, seed: int) -> None:
     (MESH_DIR / "args.json").write_text(json.dumps(
         {"seed": seed, "depth": depth}))
     t0 = time.perf_counter()
-    logs = [open(MESH_DIR / f"rank_{r}.log", "w") for r in range(MESH_RANKS)]
-    procs = [subprocess.Popen(
-        [sys.executable, str(Path(__file__).resolve()), "--mesh-rank",
-         str(r)], stdout=log, stderr=subprocess.STDOUT)
-        for r, log in enumerate(logs)]
-    try:
-        # a rank that fails leaves the other waiting in a collective: stop
-        # at the first non-zero exit, or at the deadline
-        deadline = time.monotonic() + MESH_TIMEOUT
-        while time.monotonic() < deadline:
-            codes = [p.poll() for p in procs]
-            if None not in codes or any(codes):
-                break
-            time.sleep(0.5)
-    finally:
-        for p in procs:
-            p.kill()
-            p.wait()
-        for log in logs:
-            log.close()
+    run_ranks("--mesh-rank", MESH_DIR, MESH_TIMEOUT, "mesh phase")
     secs = time.perf_counter() - t0
-    if codes != [0] * MESH_RANKS:
-        for r in range(MESH_RANKS):
-            tail = (MESH_DIR / f"rank_{r}.log").read_text()[-3000:]
-            print(f"mesh rank {r} log (end):\n{tail}", file=sys.stderr)
-        fail(f"mesh phase: ranks exited {codes} (None: still running, "
-             f"stopped)")
     out = [json.loads((MESH_DIR / f"rank_{r}.json").read_text())
            for r in range(MESH_RANKS)]
     for r, res in enumerate(out):
@@ -1834,6 +1845,35 @@ def mesh_phase(torch, seed: int) -> None:
           f"single-process oracle (prefill {ref_secs[0]:.3f} s, decode "
           f"{ref_secs[1]:.3f} s, {n / ref_secs[1]:.2f} tokens/s); card "
           f"{card_line()}")
+
+
+def run_ranks(flag: str, directory, timeout: float, what: str) -> None:
+    """Start MESH_RANKS processes of this script with ``flag RANK``, logs
+    in ``directory``; fail unless all exit 0 within ``timeout``."""
+    logs = [open(directory / f"rank_{r}.log", "w") for r in range(MESH_RANKS)]
+    procs = [subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()), flag, str(r)],
+        stdout=log, stderr=subprocess.STDOUT) for r, log in enumerate(logs)]
+    try:
+        # a rank that fails leaves the other waiting in a collective: stop
+        # at the first non-zero exit, or at the deadline
+        deadline = time.monotonic() + timeout
+        while time.monotonic() < deadline:
+            codes = [p.poll() for p in procs]
+            if None not in codes or any(codes):
+                break
+            time.sleep(0.5)
+    finally:
+        for p in procs:
+            p.kill()
+            p.wait()
+        for log in logs:
+            log.close()
+    if codes != [0] * MESH_RANKS:
+        for r in range(MESH_RANKS):
+            tail = (directory / f"rank_{r}.log").read_text()[-3000:]
+            print(f"{what} rank {r} log (end):\n{tail}", file=sys.stderr)
+        fail(f"{what}: ranks exited {codes} (None: still running, stopped)")
 
 
 def mesh_kernel_checks(torch, mesh, seq_axes, depth: int, seed: int) -> list:
@@ -1995,6 +2035,255 @@ def mesh_rank(rank: int) -> int:
     return 0
 
 
+# phase 11: training on a mesh, two ranks on the one GPU over gloo
+TRAIN_MESH_STEPS = 2
+#: (data, model): FSDP, then tensor parallel with the vocab-parallel loss
+TRAIN_MESHES = ((2, 1), (1, 2))
+TRAIN_MESH_RTOL = 1e-5
+#: the FSDP mesh's resident state per rank, at most this share of phase
+#: 9's before its first step
+TRAIN_MESH_RESIDENT = 0.55
+#: pipeline_apply: microbatches of (1, 1024, d_model), one layer a stage
+PIPE_MICRO = (4, 1, 1024)
+PIPE_TOL = 1e-5
+TRAIN_MESH_TIMEOUT = 600    # seconds for both ranks, the probe included
+TRAIN_MESH_DIR = ROOT / "build" / "train_mesh_phase"
+
+
+def train_config_of():
+    """Phase 9's model: granite-3-8b cut to TRAIN_LAYERS."""
+    from repro_torch.configs import get_config
+    full = get_config("granite-3-8b")
+    L = TRAIN_LAYERS
+    return full.with_(n_layers=L, mixers=full.mixers[:L], ffns=full.ffns[:L])
+
+
+def pipe_case(torch, seed: int):
+    """granite-3-8b's first two layers (one a stage) and PIPE_MICRO
+    microbatches, the same in every process; the stage function."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.attention import attn_layer
+    from repro_torch.models.layers import dense_ffn
+    full = get_config("granite-3-8b")
+    cfg = full.with_(n_layers=2, mixers=full.mixers[:2], ffns=full.ffns[:2])
+    gen = torch.Generator(device=DEVICE).manual_seed(seed + 19)
+    params = tfm.init_params(cfg, generator=gen, device=DEVICE,
+                             dtype=torch.float32)
+    layers = [tfm.layer_params(params, cfg, i) for i in range(2)]
+    x = torch.randn(PIPE_MICRO + (cfg.d_model,), generator=gen,
+                    device=DEVICE)
+
+    def stage(p, a):
+        pos = torch.arange(a.shape[1], device=a.device)[None].expand(
+            a.shape[0], -1)
+        h = attn_layer(p["mix"], a, pos, cfg, impl="chunked")
+        return dense_ffn(p["ffn"], h, cfg.norm_eps)
+    return layers, x, stage
+
+
+def train_mesh_phase(torch, seed: int, oracle: dict) -> None:
+    """The sequential pipeline oracle, then MESH_RANKS processes of
+    :func:`train_mesh_rank`; fails unless both exit 0 and their numbers
+    hold against phase 9 (a)'s (``oracle``) and the oracle."""
+    import shutil
+    layers, x, stage = pipe_case(torch, seed)
+    with torch.no_grad():
+        want = x
+        for lp in layers:
+            want = torch.stack([stage(lp, m) for m in want])
+    shutil.rmtree(TRAIN_MESH_DIR, ignore_errors=True)
+    TRAIN_MESH_DIR.mkdir(parents=True)
+    torch.save(want.cpu(), TRAIN_MESH_DIR / "pipe_want.pt")
+    del layers, x, want
+    gc.collect()
+    torch.cuda.empty_cache()
+    (TRAIN_MESH_DIR / "args.json").write_text(json.dumps({"seed": seed}))
+    t0 = time.perf_counter()
+    run_ranks("--train-rank", TRAIN_MESH_DIR, TRAIN_MESH_TIMEOUT,
+              "training mesh phase")
+    secs = time.perf_counter() - t0
+    out = [json.loads((TRAIN_MESH_DIR / f"rank_{r}.json").read_text())
+           for r in range(MESH_RANKS)]
+    for line in out[0]["probe"]:
+        print(f"training mesh probe (rank 0): {line}")
+
+    def rel(x, y):
+        return abs(x - y) / abs(y)
+    B, S = TRAIN_BATCH
+    for name in out[0]["runs"]:
+        for r, res in enumerate(out):
+            run = res["runs"][name]
+            for s, h in enumerate(run["steps"]):
+                for k in ("loss", "grad_norm"):
+                    if not rel(h[k], oracle[k][s]) <= TRAIN_MESH_RTOL:
+                        fail(f"training mesh {name} rank {r} step {s} {k} "
+                             f"{h[k]} vs phase 9 (a) {oracle[k][s]}")
+            worst = max(rel(v, oracle["sumsq"][k])
+                        for k, v in run["sumsq"].items())
+            if set(run["sumsq"]) != set(oracle["sumsq"]) or not (
+                    worst <= TRAIN_MESH_RTOL):
+                fail(f"training mesh {name} rank {r}: leaf sums of squares "
+                     f"off phase 9 (a)'s by {worst:.3g} relative")
+            if name == "2x1" and run["resident"] > (
+                    TRAIN_MESH_RESIDENT * oracle["resident"]):
+                fail(f"training mesh {name} rank {r}: {run['resident']} B "
+                     f"resident > {TRAIN_MESH_RESIDENT} x phase 9's "
+                     f"{oracle['resident']}")
+            steps = run["steps"]
+            off = {k: max(rel(h[k], oracle[k][s]) for s, h in enumerate(steps))
+                   for k in ("loss", "grad_norm")}
+            print(
+                f"training mesh {name} (data, model) rank {r}: losses "
+                f"{[h['loss'] for h in steps]}, grad norms "
+                f"{[h['grad_norm'] for h in steps]} (worst relative to "
+                f"phase 9 (a): loss {off['loss']:.3g}, grad norm "
+                f"{off['grad_norm']:.3g}, leaf sums of squares "
+                f"{worst:.3g}); seconds per step "
+                f"{[round(h['secs'], 4) for h in steps]} ("
+                f"{B * S / steps[-1]['secs']:.1f} tokens/s at the last); "
+                f"collectives per step {[h['calls'] for h in steps]} calls, "
+                f"{[round(h['bytes'] / 1e9, 3) for h in steps]} GB, "
+                f"{[round(h['coll_secs'], 3) for h in steps]} s; resident "
+                f"before the first step {run['resident'] / 1e9:.2f} GB "
+                f"({run['resident'] / oracle['resident']:.3f} of phase 9's "
+                f"{oracle['resident'] / 1e9:.2f} GB), peak "
+                f"{run['peak'] / 1e9:.2f} GB")
+    for r, res in enumerate(out):
+        p = res["pipeline"]
+        if not p["err"] <= PIPE_TOL * max(1.0, p["scale"]):
+            fail(f"pipeline_apply rank {r}: max abs err {p['err']} vs the "
+                 f"sequential layers (max |want| {p['scale']})")
+        print(f"pipeline_apply rank {r}: 2 stages of one granite-3-8b layer,"
+              f" {PIPE_MICRO[0]} microbatches of {PIPE_MICRO[1:]} x 4096: "
+              f"{p['secs']:.3f} s, max abs err {p['err']:.3g} vs the "
+              f"sequential layers (max |want| {p['scale']:.3g})")
+    print(f"training mesh phase: {MESH_RANKS} gloo ranks on one GPU, "
+          f"{secs:.1f} s from spawn to exit; no kernel launched; card "
+          f"{card_line()}")
+
+
+def train_on_mesh(torch, shape, seed: int) -> dict:
+    """Phase 9's model and batches trained TRAIN_MESH_STEPS steps on a
+    (data, model) mesh of ``shape``: per step loss, grad norm, seconds
+    and collectives; the memory resident before the first step and the
+    peak; each leaf's sum of squares after the last step (its blocks'
+    summed over the ranks, each block counted once)."""
+    import torch.distributed as dist
+    from repro_torch.bridge import map_leaves
+    from repro_torch.distributed import collectives as coll
+    from repro_torch.distributed import sharding
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import transformer as tfm
+    from repro_torch.training import train_loop as ttl
+    from repro_torch.training.data import DataConfig, SyntheticLM
+    mesh = make_host_mesh(*shape, device_type=DEVICE)
+    cfg = train_config_of()
+    gen = torch.Generator(device=DEVICE).manual_seed(seed + 11)
+    whole = tfm.init_params(cfg, generator=gen, device=DEVICE,
+                            dtype=torch.float32)
+    tc = ttl.TrainConfig()
+    params, opt, err = ttl.shard_state(whole, None, tc, mesh)
+    del whole
+    B, S = TRAIN_BATCH
+    data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=S,
+                                  global_batch=B))
+    batches = [{k: torch.as_tensor(v, device=DEVICE)
+                for k, v in data.batch(s).items()}
+               for s in range(TRAIN_MESH_STEPS)]
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
+    step = ttl.make_train_step(cfg, tc, mesh)
+    coll.TRAFFIC.timed = True
+    reset_launches()
+    steps = []
+    for b in batches:
+        coll.TRAFFIC.reset()
+        t0 = time.perf_counter()
+        params, opt, err, m = step(params, opt, err, b)
+        loss, gnorm = m["loss"].item(), m["grad_norm"].item()
+        torch.cuda.synchronize()
+        steps.append({"loss": loss, "grad_norm": gnorm,
+                      "secs": time.perf_counter() - t0,
+                      "calls": coll.TRAFFIC.calls,
+                      "bytes": coll.TRAFFIC.bytes,
+                      "coll_secs": coll.TRAFFIC.seconds})
+    coll.TRAFFIC.timed = False
+    peak = torch.cuda.max_memory_allocated()
+    expect_launches(launch_counts(), {}, f"the training mesh {shape}")
+    world = coll.axis_size(mesh, tuple(mesh.mesh_dim_names))
+    sums: dict = {}
+
+    def add(key, _b, t, spec):
+        share = coll.axis_size(mesh, coll.split_axes(spec)) / world
+        sums[key] = sums.get(key, 0.0) + share * t.double().square().sum(
+        ).item()
+    map_leaves(add, sharding.local_blocks(params),
+               sharding.param_specs(params, mesh))
+    vec = torch.tensor(list(sums.values()), dtype=torch.float64)
+    dist.all_reduce(vec)
+    del params, opt, err, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"steps": steps, "resident": resident, "peak": peak,
+            "sumsq": dict(zip(sums, vec.tolist()))}
+
+
+def pipeline_on_ranks(torch, seed: int) -> dict:
+    """``pipeline_apply`` over a ("pipe",) mesh of the ranks, one granite
+    layer a stage, against the parent's sequential application."""
+    from torch.distributed.device_mesh import DeviceMesh
+    from repro_torch.bridge import tree_map
+    from repro_torch.distributed.pipeline import pipeline_apply
+    mesh = DeviceMesh(DEVICE, torch.arange(MESH_RANKS),
+                      mesh_dim_names=("pipe",))
+    layers, x, stage = pipe_case(torch, seed)
+    mine = tree_map(lambda t: t[None], layers[mesh.get_local_rank("pipe")])
+    del layers
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = pipeline_apply(stage, mine, x, mesh=mesh)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    expect_launches(launch_counts(), {}, "pipeline_apply")
+    want = torch.load(TRAIN_MESH_DIR / "pipe_want.pt").to(DEVICE)
+    return {"err": (got - want).abs().max().item(),
+            "scale": want.abs().max().item(), "secs": secs}
+
+
+def train_mesh_rank(rank: int) -> int:
+    """One rank of phase 11 (``--train-rank``): the collective probe,
+    training on each of TRAIN_MESHES, then ``pipeline_apply``; writes
+    its results to ``TRAIN_MESH_DIR/rank_<rank>.json``."""
+    from datetime import timedelta
+
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.distributed import probe
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    seed = json.loads((TRAIN_MESH_DIR / "args.json").read_text())["seed"]
+    dist.init_process_group(
+        "gloo", init_method=f"file://{TRAIN_MESH_DIR / 'store'}", rank=rank,
+        world_size=MESH_RANKS, timeout=timedelta(seconds=300))
+    try:
+        lines = probe.describe(probe.probe())
+        runs = {f"{d}x{m}": train_on_mesh(torch, (d, m), seed)
+                for d, m in TRAIN_MESHES}
+        pipe = pipeline_on_ranks(torch, seed)
+        (TRAIN_MESH_DIR / f"rank_{rank}.json").write_text(json.dumps(
+            {"probe": lines, "runs": runs, "pipeline": pipe}))
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--layers", type=int, default=40,
@@ -2005,9 +2294,13 @@ def main() -> int:
                          "result line)")
     ap.add_argument("--mesh-rank", type=int, default=None,
                     help=argparse.SUPPRESS)       # phase 10 starts these
+    ap.add_argument("--train-rank", type=int, default=None,
+                    help=argparse.SUPPRESS)       # phase 11 starts these
     args = ap.parse_args()
     if args.mesh_rank is not None:
         return mesh_rank(args.mesh_rank)
+    if args.train_rank is not None:
+        return train_mesh_rank(args.train_rank)
     start = time.perf_counter()
     try:
         import torch
@@ -2057,8 +2350,9 @@ def main() -> int:
     whisper_decode = encdec_phase(torch, args.seed)
     for k, n in vision_phase(torch, args.seed).items():
         launches[k] += n
-    training_phase(torch, args.seed)
+    oracle = training_phase(torch, args.seed)
     mesh_phase(torch, args.seed)
+    train_mesh_phase(torch, args.seed, oracle)
     # the paged decode launches go to the row of the depth each model ran
     # (its key's tuned depth: row 2 at depth 1, row 3 at 2 and 4); the
     # split kernel (row 1) gets none

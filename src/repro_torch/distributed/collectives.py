@@ -32,16 +32,28 @@ a SUM of disjoint rows — because gloo, the backend that puts two ranks
 on one GPU, offers little else on CUDA tensors.  A tuple of mesh dims
 reduces over one process group spanning them, built once per (mesh,
 dims).
+
+The training collectives (the second half of the module) serve
+``distributed/parallel.py``: :func:`gather_shards` (a leaf whole from its
+blocks, one ``all_gather_into_tensor``) and its transpose
+:func:`reduce_to_shard` (one ``reduce_scatter_tensor``), Megatron's
+:func:`copy_to_model` / :func:`reduce_from_model`, and the
+vocab-parallel :func:`vocab_parallel_nll`.  gloo runs these on CUDA
+tensors but refuses ``send``/``recv`` (``distributed/probe.py``).
+:data:`TRAFFIC` counts every collective's calls and bytes (and, when
+asked, its seconds).
 """
 
 from __future__ import annotations
 
 import math
+import time
 
 import torch
 import torch.distributed as dist
 
-from repro_torch.distributed.sharding import decode_state_specs, spec_axes
+from repro_torch.distributed.sharding import (block_of, decode_state_specs,
+                                             shard_of, spec_axes)
 from repro_torch.launch.mesh import axis_sizes
 from repro_torch.models.attention import NEG_INF
 
@@ -83,8 +95,55 @@ def _group(mesh, axes):
     return _GROUPS[key][1]
 
 
-def _all_reduce(x: torch.Tensor, mesh, axes, op=dist.ReduceOp.SUM):
-    dist.all_reduce(x, op=op, group=_group(mesh, axes))
+class Traffic:
+    """What this process's collectives moved: calls, bytes (each call's
+    message: the reduced tensor, the gathered output, the scattered
+    input, the broadcast tensor) and, with ``timed``, the host seconds
+    inside them (the device is synchronised first, so queued compute is
+    not counted)."""
+
+    def __init__(self):
+        self.timed = False
+        self.reset()
+
+    def reset(self) -> None:
+        self.calls, self.bytes, self.seconds = 0, 0, 0.0
+
+    def run(self, fn, nbytes: int, device) -> None:
+        self.calls += 1
+        self.bytes += nbytes
+        if not self.timed:
+            fn()
+            return
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        fn()
+        self.seconds += time.perf_counter() - t0
+
+
+#: the collectives of this process (every function below reports here)
+TRAFFIC = Traffic()
+
+
+def _nbytes(x: torch.Tensor) -> int:
+    return x.numel() * x.element_size()
+
+
+def all_reduce(x: torch.Tensor, mesh, axes, op=dist.ReduceOp.SUM):
+    """In-place ``all_reduce`` of ``x`` over the mesh dims ``axes``."""
+    TRAFFIC.run(lambda: dist.all_reduce(x, op=op, group=_group(mesh, axes)),
+                _nbytes(x), x.device)
+    return x
+
+
+def broadcast(x: torch.Tensor, mesh, axes, src: int):
+    """In-place ``broadcast`` of ``x`` from the member ``src`` (its index
+    over ``axes``, :func:`axis_index`) to the others along ``axes``."""
+    group = _group(mesh, axes)
+    TRAFFIC.run(lambda: dist.broadcast(
+        x, src=dist.get_global_rank(group, src), group=group), _nbytes(x),
+        x.device)
     return x
 
 
@@ -94,16 +153,11 @@ def local_shard(x: torch.Tensor, spec, mesh) -> torch.Tensor:
     what ``shard_map`` hands its body.  Each sharded dim must split
     evenly."""
     for d, entry in enumerate(spec):
-        axes = spec_axes(entry)
-        if not axes:
-            continue
-        n = axis_size(mesh, axes)
+        n = axis_size(mesh, spec_axes(entry))
         if x.shape[d] % n:
             raise ValueError(f"dim {d} of size {x.shape[d]} does not split "
-                             f"evenly over {axes} ({n} shards)")
-        step = x.shape[d] // n
-        x = x.narrow(d, axis_index(mesh, axes) * step, step)
-    return x
+                             f"evenly over {spec_axes(entry)} ({n} shards)")
+    return shard_of(x, spec, mesh)
 
 
 def local_state(state: dict, cfg, mesh, *, batch_axes, seq_axes) -> dict:
@@ -125,7 +179,7 @@ def gather_batch(x: torch.Tensor, mesh, batch_axes, batch: int):
     out = x.new_zeros((batch,) + x.shape[1:])
     i = axis_index(mesh, batch_axes)
     out[i * x.shape[0]:(i + 1) * x.shape[0]] = x
-    return _all_reduce(out, mesh, batch_axes)
+    return all_reduce(out, mesh, batch_axes)
 
 
 def _shard_offset(mesh, batch_axes, seq_axes, Nl: int) -> int:
@@ -150,10 +204,10 @@ def local_tables(tables, mesh, batch_axes, seq_axes, Nl: int):
 def _lse_combine(m, l, acc, mesh, axes):
     if not axes:
         return acc / l.clamp(min=1e-30)[..., None]
-    m_g = _all_reduce(m.clone(), mesh, axes, dist.ReduceOp.MAX)
+    m_g = all_reduce(m.clone(), mesh, axes, dist.ReduceOp.MAX)
     scale = torch.exp(m - m_g)
-    l_g = _all_reduce(l * scale, mesh, axes)
-    acc_g = _all_reduce(acc * scale[..., None], mesh, axes)
+    l_g = all_reduce(l * scale, mesh, axes)
+    acc_g = all_reduce(acc * scale[..., None], mesh, axes)
     return acc_g / l_g.clamp(min=1e-30)[..., None]
 
 
@@ -216,7 +270,7 @@ class _SumOverRanks(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, mesh, axes):
-        return _all_reduce(x.clone(), mesh, axes)
+        return all_reduce(x.clone(), mesh, axes)
 
     @staticmethod
     def backward(ctx, g):
@@ -227,10 +281,7 @@ def vocab_shard(table: torch.Tensor, mesh, axis: str = "model"):
     """This rank's rows of a whole (V, D) table under ``P(axis, None)``: a
     view of rows ``[i·Vl, (i+1)·Vl)`` with ``Vl = ceil(V / n)``, the last
     shard short where the reference pads the table."""
-    V = table.shape[0]
-    Vl = -(-V // axis_size(mesh, (axis,)))
-    i = axis_index(mesh, (axis,))
-    return table[min(V, i * Vl):min(V, (i + 1) * Vl)]
+    return shard_of(table, (axis,), mesh)
 
 
 def vocab_parallel_embed(tokens, table, *, mesh, vocab: int,
@@ -359,3 +410,199 @@ def mla_decode_sp(params, x, positions, c_pool, rope_pool, tables, lengths,
                      mesh=mesh, batch_axes=batch_axes, seq_axes=seq_axes,
                      table_cols_sharded=table_cols_sharded)
     return mla_out(params, x, ctx, w_uv)
+
+
+# ==================================================== training collectives
+def _coordinates(mesh, axes, p: int) -> dict:
+    """{dim: index} of the member at row-major position ``p`` over
+    ``axes`` (the inverse of :func:`axis_index`)."""
+    sizes = axis_sizes(mesh)
+    out = {}
+    for a in reversed(tuple(axes)):
+        p, out[a] = divmod(p, sizes[a])
+    return out
+
+
+def split_axes(spec) -> tuple:
+    """Every mesh dim that ``spec`` splits a tensor dim over."""
+    return tuple(a for e in spec for a in spec_axes(e))
+
+
+def _axes_of(spec, axes, mesh) -> tuple:
+    """The dims of ``axes`` (in their order) that ``spec`` splits and
+    that have more than one member."""
+    used = {a for e in spec for a in spec_axes(e)}
+    sizes = axis_sizes(mesh)
+    return tuple(a for a in axes if a in used and sizes[a] > 1)
+
+
+def _padded(x: torch.Tensor, shape) -> torch.Tensor:
+    if tuple(x.shape) == tuple(shape):
+        return x
+    out = x.new_zeros(shape)
+    out[tuple(slice(0, n) for n in x.shape)] = x
+    return out
+
+
+def _chunk_shape(shape, spec, mesh, axes) -> tuple:
+    """The largest block over ``axes`` (the first one's)."""
+    first = block_of(shape, spec, mesh, {a: 0 for a in axes}, axes)
+    return tuple(s.stop - s.start for s in first)
+
+
+def gather_shards(local: torch.Tensor, spec, shape, mesh, axes=None):
+    """The tensor of global ``shape`` whole along the dims that ``spec``
+    splits over the mesh dims ``axes`` (default: all of its dims), from
+    each member's block ``local``: one ``all_gather_into_tensor`` over
+    the members along ``axes``, blocks padded to the largest.  Dims split
+    over other mesh dims keep this rank's block."""
+    axes = _axes_of(spec, axes if axes is not None else axis_sizes(mesh),
+                    mesh)
+    if not axes:
+        return local
+    part = [n if _axes_of((spec[d] if d < len(spec) else None,), axes, mesh)
+            else local.shape[d] for d, n in enumerate(shape)]
+    chunk = _chunk_shape(part, spec, mesh, axes)
+    n = axis_size(mesh, axes)
+    # gloo wants the members' blocks stacked along dim 0: (n·c0, c1, ...)
+    out = local.new_empty((n * chunk[0],) + chunk[1:])
+    src = _padded(local.contiguous(), chunk)
+    group = _group(mesh, axes)
+    TRAFFIC.run(lambda: dist.all_gather_into_tensor(out, src, group=group),
+                _nbytes(out), local.device)
+    out = out.view((n,) + chunk)
+    whole = local.new_empty(part)
+    for p in range(n):
+        blk = block_of(part, spec, mesh, _coordinates(mesh, axes, p), axes)
+        whole[blk] = out[p][tuple(slice(0, s.stop - s.start) for s in blk)]
+    return whole
+
+
+def reduce_to_shard(whole: torch.Tensor, spec, mesh, axes=None,
+                    sum_axes=()):
+    """The transpose of :func:`gather_shards`: this rank's block of
+    ``whole`` (whole along the dims ``spec`` splits over ``axes``),
+    summed over the members along ``sum_axes`` (a subset of ``axes``:
+    the data dims, whose members computed from other rows) with one
+    ``reduce_scatter_tensor``; along the other dims of ``axes`` every
+    member holds the same values, so the rank only keeps its block."""
+    axes = _axes_of(spec, axes if axes is not None else axis_sizes(mesh),
+                    mesh)
+    sum_axes = _axes_of(spec, sum_axes, mesh)
+    keep = tuple(a for a in axes if a not in sum_axes)
+    if keep:
+        coord = {a: mesh.get_local_rank(a) for a in keep}
+        whole = whole[block_of(whole.shape, spec, mesh, coord, keep)]
+    if not sum_axes:
+        return whole.clone()
+    chunk = _chunk_shape(whole.shape, spec, mesh, sum_axes)
+    n = axis_size(mesh, sum_axes)
+    src = whole.new_zeros((n * chunk[0],) + chunk[1:])
+    blocks = src.view((n,) + chunk)
+    for p in range(n):
+        blk = block_of(whole.shape, spec, mesh,
+                       _coordinates(mesh, sum_axes, p), sum_axes)
+        blocks[p][tuple(slice(0, s.stop - s.start) for s in blk)] = whole[blk]
+    out = whole.new_empty(chunk)
+    group = _group(mesh, sum_axes)
+    TRAFFIC.run(lambda: dist.reduce_scatter_tensor(out, src, group=group),
+                _nbytes(src), whole.device)
+    mine = block_of(whole.shape, spec, mesh, {
+        a: mesh.get_local_rank(a) for a in sum_axes}, sum_axes)
+    return out[tuple(slice(0, s.stop - s.start) for s in mine)]
+
+
+class _Gather(torch.autograd.Function):
+    """:func:`gather_shards` forward, :func:`reduce_to_shard` backward:
+    a block gathered just in time for compute, whose gradient comes back
+    summed over the data dims and cut to the block."""
+
+    @staticmethod
+    def forward(ctx, local, spec, shape, mesh, axes, sum_axes):
+        ctx.args = (spec, mesh, axes, sum_axes)
+        return gather_shards(local, spec, shape, mesh, axes)
+
+    @staticmethod
+    def backward(ctx, g):
+        spec, mesh, axes, sum_axes = ctx.args
+        return (reduce_to_shard(g.contiguous(), spec, mesh, axes, sum_axes),
+                None, None, None, None, None)
+
+
+def gather(local, spec, shape, mesh, axes=None, sum_axes=()):
+    """Differentiable :func:`gather_shards` (the backward is
+    :func:`reduce_to_shard` with ``sum_axes``)."""
+    axes = _axes_of(spec, axes if axes is not None else axis_sizes(mesh),
+                    mesh)
+    if not axes:
+        return local
+    return _Gather.apply(local, spec, tuple(shape), mesh, axes,
+                         tuple(sum_axes))
+
+
+class _CopyToRanks(torch.autograd.Function):
+    """Identity forward; SUM over a process group backward: Megatron's
+    "copy to model" at the input of a column-parallel product, whose
+    ranks each return the input's gradient through their own columns."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axes):
+        ctx.args = (mesh, axes)
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g.clone(), *ctx.args), None, None
+
+
+def copy_to_model(x, mesh, axis: str = "model"):
+    """Megatron's "copy to model": identity forward, SUM over ``axis``
+    backward."""
+    return _CopyToRanks.apply(x, mesh, (axis,))
+
+
+def reduce_from_model(x, mesh, axis: str = "model"):
+    """Megatron's "reduce from model": SUM over ``axis`` forward (the
+    partial products of a row-parallel product), identity backward."""
+    return _SumOverRanks.apply(x, mesh, (axis,))
+
+
+class _VocabParallelNLL(torch.autograd.Function):
+    """−log softmax at the gold label, with the vocabulary split over a
+    mesh dim: ``logits`` are this rank's (..., Vl) columns starting at
+    ``offset``.  logsumexp through a MAX and a SUM over the ranks, the
+    gold logit through a masked SUM (one SUM carries both); backward
+    ``softmax − onehot`` on the rank's columns, no collective."""
+
+    @staticmethod
+    def forward(ctx, logits, labels, offset, mesh, axes):
+        m = all_reduce(logits.amax(dim=-1), mesh, axes, dist.ReduceOp.MAX)
+        loc = labels.long() - offset
+        mine = (loc >= 0) & (loc < logits.shape[-1])
+        gold = torch.where(mine, logits.gather(
+            -1, loc.clamp(0, logits.shape[-1] - 1)[..., None])[..., 0], 0.0)
+        sums = all_reduce(torch.stack(
+            [torch.exp(logits - m[..., None]).sum(-1), gold]), mesh, axes)
+        logz = m + torch.log(sums[0])
+        ctx.save_for_backward(logits, logz, loc, mine)
+        return logz - sums[1]
+
+    @staticmethod
+    def backward(ctx, g):
+        logits, logz, loc, mine = ctx.saved_tensors
+        d = torch.exp(logits - logz[..., None])
+        d.scatter_add_(-1, loc.clamp(0, logits.shape[-1] - 1)[..., None],
+                       -mine[..., None].to(d.dtype))
+        return d * g[..., None], None, None, None, None
+
+
+def vocab_parallel_nll(logits, labels, *, mesh, vocab: int,
+                       axis: str = "model"):
+    """Per-token NLL (the labels' shape) from this rank's vocabulary
+    columns of the logits (rows ``[i·Vl, i·Vl + len)`` of the table,
+    ``Vl = ceil(vocab / n)``: :func:`vocab_shard`).  Labels outside the
+    vocabulary (the caller masks them) give logsumexp alone."""
+    Vl = -(-vocab // axis_size(mesh, (axis,)))
+    return _VocabParallelNLL.apply(logits, labels,
+                                   axis_index(mesh, (axis,)) * Vl, mesh,
+                                   (axis,))

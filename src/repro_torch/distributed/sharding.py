@@ -25,17 +25,24 @@ dim.  Rules go by leaf *path*: the port's params tree is walked with
 those of the reference's stacked leaves; a body block's own tensor takes
 ``spec[1:]``.
 
-In this slice only the serving state is placed by these rules (the KV
-pools over N, the embedding's V rows inside ``vocab_parallel_embed``);
-every weight stays whole on every rank until the training slice applies
-:func:`param_specs` through DTensor.
+Serving places only its state by these rules (the KV pools over N, the
+embedding's V rows inside ``vocab_parallel_embed``) and keeps every
+weight whole on every rank.  Training holds its parameters, AdamW
+moments and error state sharded: :func:`shard_params` makes each tensor a
+DTensor of this rank's block under :func:`param_specs` (split as DTensor
+splits, uneven dims with a short last block: :func:`block_of`), and
+compute reads the local blocks (:func:`local_blocks`,
+``distributed/parallel.py``).
 """
 
 from __future__ import annotations
 
-from torch.distributed.tensor import Replicate, Shard
+import math
 
-from repro_torch.bridge import map_leaves
+import torch
+from torch.distributed.tensor import DTensor, Replicate, Shard
+
+from repro_torch.bridge import map_leaves, tree_map
 from repro_torch.launch.mesh import axis_sizes
 
 
@@ -240,3 +247,80 @@ def tokens_spec(mesh, *, shard_batch: bool = True) -> P:
 def filter_state_specs(specs: dict, state: dict) -> dict:
     """Keep only the spec entries whose key exists in the state dict."""
     return {k: specs[k] for k in state}
+
+
+# ----------------------------------------------------- sharded training state
+def block_of(shape, spec, mesh, coord: dict, axes) -> tuple:
+    """Slices of the block that the member at ``coord`` ({mesh dim:
+    index}) holds of a tensor of ``shape`` split by ``spec`` over the
+    mesh dims ``axes`` only (dims split over other mesh dims stay
+    whole): each dim split row-major over its entry's dims in
+    ``torch.chunk`` sizes, a short last block, as DTensor splits it."""
+    sizes = axis_sizes(mesh)
+    out = []
+    for d, n in enumerate(shape):
+        start, stop = 0, n
+        for a in (spec_axes(spec[d]) if d < len(spec) else ()):
+            if a not in axes:
+                continue
+            step = -(-(stop - start) // sizes[a])
+            start, stop = (min(stop, start + coord[a] * step),
+                           min(stop, start + (coord[a] + 1) * step))
+        out.append(slice(start, stop))
+    return tuple(out)
+
+
+def shard_of(x: torch.Tensor, spec, mesh) -> torch.Tensor:
+    """This rank's block of the whole tensor ``x`` under ``spec`` (a
+    view), split as DTensor splits it: an uneven dim gives a short last
+    block."""
+    axes = tuple(a for e in spec for a in spec_axes(e))
+    coord = {a: mesh.get_local_rank(a) for a in axes}
+    return x[block_of(x.shape, spec, mesh, coord, axes)]
+
+
+def _tensor_spec(spec, block):
+    """A body block's tensor drops its stack's leading spec entry."""
+    return spec if block is None else P(*spec[1:])
+
+
+def shard_params(params, mesh, specs=None):
+    """Each tensor of ``params`` (whole, on every rank) as a DTensor over
+    ``mesh`` holding only this rank's block (a copy) under ``specs``
+    (default :func:`param_specs`).  Built with ``DTensor.from_local``:
+    every rank cuts its own block, so nothing is scattered.  Any tree in
+    the params' layout will do (moments, error state)."""
+    specs = specs if specs is not None else param_specs(params, mesh)
+
+    def place(key, block, x, spec):
+        spec = _tensor_spec(spec, block)
+        return DTensor.from_local(
+            shard_of(x, spec, mesh).clone(), mesh, to_placements(spec, mesh),
+            run_check=False, shape=x.shape, stride=_contiguous(x.shape))
+
+    return map_leaves(place, params, specs)
+
+
+def _contiguous(shape) -> tuple:
+    return tuple(math.prod(shape[d + 1:]) for d in range(len(shape)))
+
+
+def map_shards(fn, tree):
+    """``fn`` over each tensor's local block; a DTensor comes back as a
+    DTensor of the same global shape and placements, a plain tensor
+    plain."""
+    def one(t):
+        if not isinstance(t, DTensor):
+            return fn(t)
+        return DTensor.from_local(fn(t.to_local()), t.device_mesh,
+                                  t.placements, run_check=False,
+                                  shape=t.shape, stride=t.stride())
+    return tree_map(one, tree)
+
+
+def local_blocks(tree):
+    """Each DTensor's local block itself (no copy: writes reach the
+    DTensor); plain tensors as they are."""
+    with torch.no_grad():
+        return tree_map(lambda t: t.to_local() if isinstance(t, DTensor)
+                        else t, tree)

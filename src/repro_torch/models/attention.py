@@ -39,17 +39,19 @@ def init_attn(cfg, *, generator: torch.Generator, device,
 
 def qkv_proj(params: dict, x: torch.Tensor, cfg,
              positions: torch.Tensor | None):
-    """x: (B,S,D) → q (B,S,H,hd), k/v (B,S,KV,hd), rope applied."""
+    """x: (B,S,D) → q (B,S,H,hd), k/v (B,S,KV,hd), rope applied.  The
+    head counts are the projections' widths over hd: a tensor-parallel
+    rank's column blocks give its own heads."""
     B, S, _ = x.shape
-    H, KV, HD = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    HD = cfg.head_dim
     q = x @ params["wq"]
     k = x @ params["wk"]
     v = x @ params["wv"]
     if cfg.attn.qkv_bias:
         q, k, v = q + params["bq"], k + params["bk"], v + params["bv"]
-    q = q.reshape(B, S, H, HD)
-    k = k.reshape(B, S, KV, HD)
-    v = v.reshape(B, S, KV, HD)
+    q = q.reshape(B, S, -1, HD)
+    k = k.reshape(B, S, -1, HD)
+    v = v.reshape(B, S, -1, HD)
     if cfg.attn.rope and positions is not None:
         q = apply_rope(q, positions, cfg.attn.rope_theta)
         k = apply_rope(k, positions, cfg.attn.rope_theta)
@@ -319,9 +321,15 @@ IMPLS = ("direct", "chunked", "kernel")
 
 
 def attn_layer(params: dict, x: torch.Tensor, positions: torch.Tensor, cfg,
-               *, impl: str = "chunked") -> torch.Tensor:
-    """Pre-norm residual causal attention block over (B, S, D)."""
+               *, impl: str = "chunked", tp=None) -> torch.Tensor:
+    """Pre-norm residual causal attention block over (B, S, D).  With
+    ``tp`` (``distributed.parallel.TensorParallel``) the projections are
+    this rank's head-major column blocks and ``wo``'s row block: the
+    normed input passes ``tp.copy_in``, the partial output
+    ``tp.reduce_out``."""
     h = rms_norm(x, params["norm"], cfg.norm_eps)
+    if tp is not None:
+        h = tp.copy_in(h)
     q, k, v = qkv_proj(params, h, cfg, positions)
     w = cfg.attn.window
     if impl == "direct":
@@ -334,7 +342,8 @@ def attn_layer(params: dict, x: torch.Tensor, positions: torch.Tensor, cfg,
     else:
         raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
     B, S, H, hd = o.shape
-    return x + o.reshape(B, S, H * hd) @ params["wo"]
+    out = o.reshape(B, S, H * hd) @ params["wo"]
+    return x + (out if tp is None else tp.reduce_out(out))
 
 
 def cross_attn_layer(params: dict, x: torch.Tensor, enc_kv: tuple, cfg

@@ -63,9 +63,16 @@ def init_swiglu(d_model: int, d_ff: int, *, generator: torch.Generator,
             "w_down": init_dense(d_ff, d_model, **kw)}
 
 
-def dense_ffn(params: dict, x: torch.Tensor, eps: float) -> torch.Tensor:
+def dense_ffn(params: dict, x: torch.Tensor, eps: float,
+              tp=None) -> torch.Tensor:
+    """Pre-norm residual SwiGLU.  With ``tp`` the gate and up columns and
+    the down rows are this rank's blocks: the normed input passes
+    ``tp.copy_in``, the partial output ``tp.reduce_out``."""
     h = rms_norm(x, params["norm"], eps)
-    return x + swiglu(h, params["w_gate"], params["w_up"], params["w_down"])
+    if tp is not None:
+        h = tp.copy_in(h)
+    out = swiglu(h, params["w_gate"], params["w_up"], params["w_down"])
+    return x + (out if tp is None else tp.reduce_out(out))
 
 
 # ------------------------------------------------------------- embeddings ----

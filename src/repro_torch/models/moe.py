@@ -1,9 +1,11 @@
 """Mixture-of-Experts FFN — DeepSeek-style shared + routed top-k experts.
 
-PyTorch counterpart of ``repro.models.moe``, routing groups included
-(the reference's expert- and data-parallel sharding constraints are
-distributed work and are not here).  Dispatch is the same sort-based,
-capacity-bounded scheme, per group:
+PyTorch counterpart of ``repro.models.moe``, routing groups included;
+on a mesh the groups are those of the global token stream (``dp`` in
+:func:`moe_mix`).  The reference's expert-parallel constraint
+(``_ep_constrain``) pins the expert dim of GSPMD's buffers and has no
+eager meaning: each rank runs the experts whole.  Dispatch is the same
+sort-based, capacity-bounded scheme, per group:
 
   1. top-k routing per token in f32, gates renormalised over the chosen k,
   2. flatten (token, k) slots and sort them stably by expert id,
@@ -113,36 +115,53 @@ def _dispatch_compute(x: torch.Tensor, gates: torch.Tensor,
 
 
 def moe_mix(params: dict, x: torch.Tensor, cfg, *, num_groups: int = 1,
-            capacity_factor: float = 1.25):
+            capacity_factor: float = 1.25, dp=None):
     """MoE FFN body on pre-normed x: (B, S, D) → (out, aux_loss).
 
     The B·S tokens are split into ``num_groups`` routing groups (reduced
     until it divides B·S), each routed and dispatched on its own with the
-    capacity of T / G tokens; the aux loss is the mean over groups."""
+    capacity of T / G tokens; the aux loss is the mean over groups.
+
+    With ``dp`` (``distributed.parallel.DataParallel``) x is this rank's
+    rows of the global batch, and the groups are the reference's: G
+    groups of the *global* token stream (``dp.size`` ranks' rows in rank
+    order).  Where G splits over the ranks a rank's rows are whole
+    groups and it routes them; otherwise it gathers every rank's tokens,
+    routes all G groups and keeps its rows.  ``aux`` is then this rank's
+    share: the SUM over the ranks is the mean over all G groups."""
     mo = cfg.moe
     B, S, D = x.shape
-    T = B * S
-    xf = x.reshape(T, D)
+    n = dp.size if dp is not None else 1
+    T = B * S * n
+    xf = x.reshape(B * S, D)
     G = num_groups
     while T % G:
         G -= 1
     cap = capacity_for(T // G, mo.top_k, mo.num_experts, capacity_factor)
+    gathered = n > 1 and G % n != 0
+    xs = dp.gather_rows(xf) if gathered else xf
     outs, auxs = [], []
-    for xt in xf.reshape(G, T // G, D):
+    for xt in xs.reshape(-1, T // G, D):
         gates, eidx, aux = _route(params["router"], xt, mo.top_k)
         outs.append(_dispatch_compute(xt, gates, eidx, params["w_gate"],
                                       params["w_up"], params["w_down"], cap))
         auxs.append(aux)
-    out = torch.cat(outs).reshape(B, S, D)
+    out = torch.cat(outs)
+    if gathered:
+        out = out[dp.index * B * S:(dp.index + 1) * B * S]
+    out = out.reshape(B, S, D)
     if mo.num_shared:
         sh = (F.silu(xf @ params["s_gate"]) * (xf @ params["s_up"])
               ) @ params["s_down"]
         out = out + sh.reshape(B, S, D)
-    return out, torch.stack(auxs).mean() * mo.router_aux_coef
+    aux = (torch.stack(auxs).mean() if n == 1 else
+           torch.stack(auxs).sum() / (G * (n if gathered else 1)))
+    return out, aux * mo.router_aux_coef
 
 
-def moe_ffn(params: dict, x: torch.Tensor, cfg, *, num_groups: int = 1):
+def moe_ffn(params: dict, x: torch.Tensor, cfg, *, num_groups: int = 1,
+            dp=None):
     """Pre-norm residual MoE block: (B, S, D) → (x + out, aux)."""
     h = rms_norm(x, params["norm"], cfg.norm_eps)
-    out, aux = moe_mix(params, h, cfg, num_groups=num_groups)
+    out, aux = moe_mix(params, h, cfg, num_groups=num_groups, dp=dp)
     return x + out, aux

@@ -60,16 +60,25 @@ batch rows and pool shard and gathers the batch back; the token writes
 and ``prefill``'s cache writes (``scatter_seq_sp``) land only in the
 rank's own pool rows; the embedding lookup is the vocab-parallel one
 over the rank's V rows of ``params["embed"]`` (a view: the table stays
-whole, as a tied unembedding needs it).  Every other weight is whole on
-every rank: GSPMD's sharding of the projections has no eager
-counterpart until the training slice applies ``param_specs`` through
-DTensor, and the reference's ``_constrain`` (a sharding constraint on
-the activations) has no eager meaning, so it has none here.  The
-reference's ``act_spec`` picks which batch rows a rank embeds; here a
-rank embeds the rows it is given, so there is no ``act_spec``.
+whole, as a tied unembedding needs it).  Serving keeps every other
+weight whole on every rank.
+
+**Training on a mesh** passes a ``layout`` (``distributed.parallel.
+Layout``) to :func:`loss_fn` and :func:`forward_hidden`: ``params`` are
+then the rank's blocks under ``param_specs`` and the batch its rows.
+Each layer gathers its data-sharded leaves just in time, attention and
+the dense FFN run tensor-parallel over ``model``, every other leaf runs
+whole, the loss is vocab-parallel and normalised by the global label
+count, and MoE layers route the reference's groups of the global token
+stream; the result is the rank's share of the reference's loss.  The
+reference's ``_constrain`` (a sharding constraint on the activations)
+has no eager meaning, so it has none here; its ``act_spec`` picks which
+batch rows a rank embeds, and here a rank embeds the rows it is given.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -202,13 +211,15 @@ def _unembed_table(params: dict, cfg: ModelConfig) -> torch.Tensor:
 
 
 def _ffn_aux(lp: dict, x: torch.Tensor, cfg: ModelConfig, i: int,
-             moe_groups: int = 1):
+             moe_groups: int = 1, tp=None, dp=None):
     """Layer ``i``'s FFN on (B, S, D) → (x, aux loss).  An MoE layer
     routes the B·S tokens, padding included, in ``moe_groups`` groups
-    exactly as the reference does; a dense layer's aux is 0."""
+    exactly as the reference does (on a mesh, ``dp``: the groups of the
+    global stream); a dense layer's aux is 0 (``tp``: tensor-parallel)."""
     if cfg.ffns[i] == "moe":
-        return moe_mod.moe_ffn(lp["ffn"], x, cfg, num_groups=moe_groups)
-    return dense_ffn(lp["ffn"], x, cfg.norm_eps), 0.0
+        return moe_mod.moe_ffn(lp["ffn"], x, cfg, num_groups=moe_groups,
+                               dp=dp)
+    return dense_ffn(lp["ffn"], x, cfg.norm_eps, tp), 0.0
 
 
 def _ffn(lp: dict, x: torch.Tensor, cfg: ModelConfig, i: int) -> torch.Tensor:
@@ -443,8 +454,16 @@ def _mla_paged_decode(lp, x, positions, st, layer, cfg, *, page_impl,
                                   tables, st["lengths"] + 1, cfg)
 
 
-def _embed_tokens(params, tokens, mesh):
-    """The embedding lookup; vocab-parallel on a mesh with ``"model"``."""
+def _embed_tokens(params, tokens, mesh, layout=None):
+    """The embedding lookup; vocab-parallel on a mesh with ``"model"``
+    (over the rank's rows of the whole table, or under a ``layout`` over
+    the rows it holds)."""
+    if layout is not None:
+        if layout.tp is None:
+            return embed(tokens, params["embed"])
+        from repro_torch.distributed import collectives as coll
+        return coll.vocab_parallel_embed(tokens, params["embed"], mesh=mesh,
+                                         vocab=layout.vocab)
     if mesh is None or "model" not in mesh.mesh_dim_names:
         return embed(tokens, params["embed"])
     from repro_torch.distributed import collectives as coll
@@ -758,13 +777,13 @@ def encode(params, cfg: ModelConfig, frames: torch.Tensor) -> torch.Tensor:
 
 def embed_inputs(params, cfg: ModelConfig, tokens: torch.Tensor,
                  patches: torch.Tensor | None = None, *,
-                 mesh=None) -> torch.Tensor:
+                 mesh=None, layout=None) -> torch.Tensor:
     """tokens (B, S_text) [+ patches (B, P, D)] → x (B, S, D): a vision
     prefix goes before the text; an encoder-decoder model adds its
     learned decoder positions.  On a mesh with ``"model"`` the lookup is
     the vocab-parallel one (the module doc)."""
     check_supported(cfg)
-    x = _embed_tokens(params, tokens, mesh)
+    x = _embed_tokens(params, tokens, mesh, layout)
     if cfg.frontend == "vision" and patches is not None:
         vis = vision_patches_to_embeddings(params, patches)
         x = torch.cat([vis.to(x.dtype), x], dim=1)
@@ -776,17 +795,14 @@ def embed_inputs(params, cfg: ModelConfig, tokens: torch.Tensor,
 
 
 def _apply_layer(lp, x, positions, cfg: ModelConfig, i: int, *, impl,
-                 enc_out=None, moe_groups=1):
-    """Layer ``i`` on (B, S, D) → (x, aux loss)."""
+                 enc_out=None, moe_groups=1, tp=(None, None), dp=None):
+    """Layer ``i`` on (B, S, D) → (x, aux loss); ``tp`` (mixer, FFN) and
+    ``dp`` as :meth:`distributed.parallel.Layout.layer` gives them."""
     mix = cfg.mixers[i]
     if mix == "attn":
-        h = rms_norm(x, lp["mix"]["norm"], cfg.norm_eps)
-        q, k, v = attn_mod.qkv_proj(lp["mix"], h, cfg, positions)
-        attend = (attn_mod.chunked_attention if impl == "chunked"
-                  else attn_mod.direct_attention)
-        o = attend(q, k, v, causal=True, window=cfg.attn.window)
-        B, S, H, hd = o.shape
-        x = x + o.reshape(B, S, H * hd) @ lp["mix"]["wo"]
+        x = attn_mod.attn_layer(
+            lp["mix"], x, positions, cfg, tp=tp[0],
+            impl="chunked" if impl == "chunked" else "direct")
     elif mix == "mla":
         x = mla_mod.mla_layer(lp["mix"], x, positions, cfg)
     elif mix == "mamba":
@@ -796,12 +812,12 @@ def _apply_layer(lp, x, positions, cfg: ModelConfig, i: int, *, impl,
     if cfg.enc_dec and enc_out is not None:
         enc_kv = attn_mod.encode_cross_kv(lp["cross"], enc_out, cfg)
         x = attn_mod.cross_attn_layer(lp["cross"], x, enc_kv, cfg)
-    return _ffn_aux(lp, x, cfg, i, moe_groups)
+    return _ffn_aux(lp, x, cfg, i, moe_groups, tp[1], dp)
 
 
 def forward_hidden(params, cfg: ModelConfig, x: torch.Tensor, *,
                    impl: str = "chunked", enc_out: torch.Tensor | None = None,
-                   remat: bool = True, moe_groups: int = 1):
+                   remat: bool = True, moe_groups: int = 1, layout=None):
     """x: (B, S, D) embedded inputs → (hidden (B, S, D), aux loss).
 
     Attention layers run ``chunked_attention`` when ``impl ==
@@ -810,22 +826,36 @@ def forward_hidden(params, cfg: ModelConfig, x: torch.Tensor, *,
     model's layers cross-attend ``enc_out`` (:func:`encode`).  With
     ``remat`` each body block (``period`` layers of
     ``cfg.segmentation()``) is checkpointed; the prefix layers never are.
-    MoE layers route in ``moe_groups`` groups."""
+    MoE layers route in ``moe_groups`` groups.
+
+    With a ``layout`` (``distributed.parallel.Layout``) ``params`` are
+    this rank's blocks and x its rows: each layer gathers its leaves
+    just in time (inside the checkpointed block, so the recompute gathers
+    again), attention and the dense FFN run tensor-parallel, and the aux
+    loss is this rank's share."""
     check_supported(cfg)
     _check_impl(impl)
     B, S, _ = x.shape
     positions = torch.arange(S, device=x.device)[None].expand(B, S)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    kw = dict(impl=impl, enc_out=enc_out, moe_groups=moe_groups)
+    kw = dict(impl=impl, enc_out=enc_out, moe_groups=moe_groups,
+              dp=layout.dp if layout is not None else None)
     prefix, period = cfg.segmentation()
+
+    def layer(lp, where, i, x):
+        tp = (None, None)
+        if layout is not None:
+            lp, *tp = layout.layer(lp, where, i)
+        return _apply_layer(lp, x, positions, cfg, i, tp=tuple(tp), **kw)
+
     for i in range(prefix):
-        x, a = _apply_layer(params["prefix"][i], x, positions, cfg, i, **kw)
+        x, a = layer(params["prefix"][i], ("prefix", i), i, x)
         aux = aux + a
 
     def block(b, x, aux):
         for j in range(period):
-            x, a = _apply_layer(params["body"][j][b], x, positions, cfg,
-                                prefix + b * period + j, **kw)
+            x, a = layer(params["body"][j][b], ("body", j, b),
+                         prefix + b * period + j, x)
             aux = aux + a
         return x, aux
 
@@ -848,42 +878,76 @@ def _loss_chunk(table, hk, lk):
     return ((logz - gold) * mask).sum(), mask.sum()
 
 
+def _loss_chunk_vp(mesh, vocab, table, hk, lk):
+    """:func:`_loss_chunk` over this rank's vocabulary rows of the table:
+    the NLL through ``collectives.vocab_parallel_nll``."""
+    from repro_torch.distributed import collectives as coll
+    logits = unembed(hk, table)                            # (B, chunk, Vl)
+    mask = lk != -100
+    nll = coll.vocab_parallel_nll(logits, torch.where(mask, lk, 0),
+                                  mesh=mesh, vocab=vocab)
+    return (nll * mask).sum(), mask.sum()
+
+
 def chunked_loss(params, cfg: ModelConfig, hidden: torch.Tensor,
-                 labels: torch.Tensor, chunk: int = 512) -> torch.Tensor:
+                 labels: torch.Tensor, chunk: int = 512, *,
+                 layout=None) -> torch.Tensor:
     """Mean cross-entropy over labels != -100, without materialising the
     (B, S, V) logits at once: each chunk is checkpointed, so the backward
-    recomputes its logits too."""
+    recomputes its logits too.
+
+    With a ``layout`` these are this rank's rows and the table its
+    vocabulary rows: the loss is vocab-parallel over ``model``, and the
+    rank's summed NLL is divided by the label count of the whole batch
+    (a SUM over the data dims), so the ranks' losses sum to the
+    reference's mean."""
     B, S, D = hidden.shape
     h = rms_norm(hidden, params["final_norm"], cfg.norm_eps)
     table = _unembed_table(params, cfg)
     while S % chunk:
         chunk //= 2
+    step = _loss_chunk
+    if layout is not None and layout.tp is not None:
+        h = layout.tp.copy_in(h)
+        step = functools.partial(_loss_chunk_vp, layout.mesh, layout.vocab)
     nll = torch.zeros((), dtype=torch.float32, device=hidden.device)
     cnt = torch.zeros((), dtype=torch.int64, device=hidden.device)
     for c0 in range(0, S, chunk):
-        n, c = checkpointed(_loss_chunk, table, h[:, c0:c0 + chunk],
+        n, c = checkpointed(step, table, h[:, c0:c0 + chunk],
                             labels[:, c0:c0 + chunk])
         nll = nll + n
         cnt = cnt + c
+    if layout is not None:
+        cnt = layout.dp.sum(cnt.detach().to(torch.int32))
     return nll / cnt.clamp(min=1)
 
 
 def loss_fn(params, cfg: ModelConfig, batch: dict, *,
             impl: str = "chunked", remat: bool = True,
-            moe_groups: int = 1, mesh=None) -> torch.Tensor:
+            moe_groups: int = 1, mesh=None, layout=None) -> torch.Tensor:
     """batch: tokens (B, S), labels (B, S) [, patches (B, P, D), frames
     (B, enc_len, D)] → LM loss plus the MoE aux loss.  The vision prefix
     positions carry no loss.  ``remat`` and ``moe_groups`` go to
     :func:`forward_hidden`; on a ``mesh`` the embedding is the
-    vocab-parallel one (:func:`embed_inputs`)."""
+    vocab-parallel one (:func:`embed_inputs`).
+
+    With a ``layout`` (``distributed.parallel.Layout``; training on a
+    mesh) ``params`` are this rank's blocks and ``batch`` its rows, and
+    the result is this rank's share: the SUM over the data ranks is the
+    reference's loss of the whole batch (:func:`chunked_loss`), and so
+    is the SUM of the ranks' gradients."""
+    if layout is not None:
+        mesh = layout.mesh
+        params = layout.top(params)
     enc_out = encode(params, cfg, batch["frames"]) if cfg.enc_dec else None
     x = embed_inputs(params, cfg, batch["tokens"], batch.get("patches"),
-                     mesh=mesh)
+                     mesh=mesh, layout=layout)
     hidden, aux = forward_hidden(params, cfg, x, impl=impl, enc_out=enc_out,
-                                 remat=remat, moe_groups=moe_groups)
+                                 remat=remat, moe_groups=moe_groups,
+                                 layout=layout)
     labels = batch["labels"]
     if cfg.frontend == "vision" and "patches" in batch:
         pad = torch.full((labels.shape[0], batch["patches"].shape[1]), -100,
                          dtype=labels.dtype, device=labels.device)
         labels = torch.cat([pad, labels], dim=1)
-    return chunked_loss(params, cfg, hidden, labels) + aux
+    return chunked_loss(params, cfg, hidden, labels, layout=layout) + aux

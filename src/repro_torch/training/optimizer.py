@@ -44,9 +44,24 @@ def init_opt_state(params, moments_dtype: str = "float32") -> dict:
             "step": torch.zeros((), dtype=torch.int32, device=device)}
 
 
-def global_norm(tree) -> torch.Tensor:
-    return torch.sqrt(sum(torch.sum(torch.square(x.float()))
-                          for x in leaves(tree)))
+def global_norm(tree, *, mesh=None, specs=None) -> torch.Tensor:
+    """sqrt of the sum of squares of every element.  On a ``mesh`` the
+    tree holds this rank's blocks under ``specs``: each logical element
+    counts once, as one SUM over the mesh of each block's sum of squares
+    divided by the number of ranks holding that block."""
+    if mesh is None:
+        return torch.sqrt(sum(torch.sum(torch.square(x.float()))
+                              for x in leaves(tree)))
+    from repro_torch.distributed import collectives as coll
+    from repro_torch.launch.mesh import axis_sizes
+    sizes = axis_sizes(mesh)
+    world = coll.axis_size(mesh, tuple(sizes))
+    local = map_leaves(
+        lambda key, block, x, spec: torch.sum(torch.square(x.float())) * (
+            coll.axis_size(mesh, coll.split_axes(spec)) / world),
+        tree, specs)
+    return torch.sqrt(coll.all_reduce(sum(leaves(local)).reshape(1), mesh,
+                                      tuple(sizes))[0])
 
 
 def schedule(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
@@ -57,15 +72,17 @@ def schedule(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
 
 @torch.no_grad()
 def adamw_update(params, grads, state, cfg: AdamWConfig, *,
-                 donate: bool = False):
+                 donate: bool = False, mesh=None, specs=None):
     """Returns (new_params, new_state, metrics).  With ``donate`` the new
     values are written into ``params`` and the moments (the reference
     donates their buffers to its jitted step), so an update holds a few
     of one leaf's temporaries at a time, not a second copy of the tree.
     In-place or not, each value is rounded as in the reference's
-    expressions."""
+    expressions.  On a ``mesh`` every tree holds this rank's blocks
+    under ``specs``: only the norm is global (:func:`global_norm`), the
+    update is elementwise."""
     step = state["step"] + 1
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads, mesh=mesh, specs=specs)
     scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-12),
                         max=1.0)
     lr = schedule(cfg, state["step"])

@@ -235,12 +235,14 @@ def checks(inp) -> list:
     return out
 
 
-def spawn(work, world: int, *args, timeout: float = 240) -> list:
-    """Start ``world`` ranks of this script (``[*args, rank, world,
-    work]``), logs under ``work``; wait until all exit, one exits
-    non-zero (the others would wait in a collective) or ``timeout``
-    passes, then stop any still running.  Returns (exit codes, None for a
-    rank stopped, and each rank's log)."""
+def spawn(work, world: int, *args, timeout: float = 240,
+          script: str | None = None, then=None) -> list:
+    """Start ``world`` ranks of ``script`` (default: this one; ``[*args,
+    rank, world, work]``), logs under ``work``; call ``then()`` if given
+    (work of the parent's that overlaps the ranks'); wait until all exit,
+    one exits non-zero (the others would wait in a collective) or
+    ``timeout`` passes, then stop any still running.  Returns (exit
+    codes, None for a rank stopped, and each rank's log)."""
     import os
     import subprocess
     import time
@@ -249,10 +251,12 @@ def spawn(work, world: int, *args, timeout: float = 240) -> list:
     env.pop("XLA_FLAGS", None)
     logs = [open(f"{work}/rank_{r}.log", "w") for r in range(world)]
     procs = [subprocess.Popen(
-        [sys.executable, os.path.abspath(__file__), *args, str(r),
+        [sys.executable, script or os.path.abspath(__file__), *args, str(r),
          str(world), str(work)], env=env, stdout=log,
         stderr=subprocess.STDOUT) for r, log in enumerate(logs)]
     try:
+        if then is not None:
+            then()
         deadline = time.monotonic() + timeout
         while time.monotonic() < deadline:
             codes = [p.poll() for p in procs]

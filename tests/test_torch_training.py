@@ -351,10 +351,12 @@ def test_trained_params_are_plain_and_serve():
 
 
 def test_train_refuses_a_mesh():
+    """A mesh must be a ``torch.distributed`` DeviceMesh (training on one
+    is ``tests/test_torch_train_mesh.py``'s)."""
     tc = ttl.TrainConfig()
-    with pytest.raises(NotImplementedError, match="distributed"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         ttl.make_train_step(TCFG, tc, mesh=object())
-    with pytest.raises(NotImplementedError, match="distributed"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         ttl.train(TCFG, tc, None, steps=1, mesh=object(), device="cpu")
 
 
