@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port on one NVIDIA GPU: the FPR serving path, the
 full-sequence forward of the hybrid families, the encoder-decoder and
-vision-prefix families, training, and serving and training on a device
-mesh.
+vision-prefix families, training, serving and training on a device mesh,
+and the multi-pod dry run.
 
 Run from the root of a checkout: ``python3 chip_smoke.py``.  Phases, any
 of which fails the script:
@@ -118,7 +118,19 @@ of which fails the script:
    (one granite-3-8b layer a stage, 4 microbatches of (1, 1024, 4096))
    within 1e-5 of the layers applied in sequence here.  No kernel
    launches (the kernels are forward only).  A failing rank fails the
-   script.
+   script;
+12. the dry run (``repro_torch.launch.dryrun``), after every timed
+   phase, in two subprocesses run side by side (``--dryrun-phase``,
+   files under ``build/dryrun_phase/``) on fake tensors and fake process
+   groups, so no group meets phase 11's gloo ranks: (a) phase 11's step
+   on both of its meshes as rank 0 of 2 fake ranks on fake CUDA
+   tensors, whose collective calls and bytes must equal phase 11's at
+   every step, its resident state be within 2% of phase 11's
+   ``memory_allocated`` before the first step, its MemTracker peak
+   within 15% of ``max_memory_allocated`` and its FLOPs on both ranks
+   equal phase 9's count of what eager runs (``train_flops``); (b)
+   granite-3-8b x train_4k on the 256-rank fake production mesh (meta
+   tensors), its record line printed.
 
 Prints the card's name and power limit, tokens/s per run, the script's
 wall time, one
@@ -131,6 +143,7 @@ repository beside it.
 from __future__ import annotations
 
 import argparse
+import atexit
 import contextlib
 import gc
 import json
@@ -1626,19 +1639,24 @@ TRAIN_MB_RTOL = 1e-5     # (c), two microbatches, against (a)'s first step
 
 
 def train_flops(cfg, B: int, S: int) -> tuple[float, float]:
-    """(forward + backward, recompute) FLOP of one step: 2·T per weight of
-    the layers' and the tied unembedding's products and 4·B·S²·H·hd per
-    attention layer (every chunk is computed, masked or not) forward,
-    twice that backward; remat runs the layers' forward again and the
-    loss chunks' unembedding again."""
+    """(forward + backward, recompute) FLOP of one chunked + remat step,
+    as eager runs it: forward, 2·T per weight of the layers' and the tied
+    unembedding's products and 4·B·S²·H·hd per attention layer (every
+    chunk is computed, masked or not); backward, twice the products' and
+    2.5 times the attention's (the chunked backward's five S² products to
+    the forward's two: QKᵀ again, dP, dV, dQ, dK); remat runs each
+    block's forward again but for its last product (the FFN's down
+    projection: the non-reentrant checkpoint stops once the backward's
+    saved tensors are rebuilt), and the loss chunks' unembedding again."""
     D, H, KV, hd, F = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
                        cfg.head_dim, cfg.d_ff)
-    T = B * S
-    layer = 2 * T * (D * (H + 2 * KV) * hd + H * hd * D + 3 * D * F) + (
-        4 * B * S * S * H * hd)
+    T, L = B * S, cfg.n_layers
+    down = 2 * T * F * D
+    linear = 2 * T * (D * (H + 2 * KV) * hd + H * hd * D) + 3 * down
+    attn = 4 * B * S * S * H * hd
     unembed = 2 * T * cfg.vocab * D
-    fwd = cfg.n_layers * layer + unembed
-    return 3 * fwd, cfg.n_layers * layer + unembed
+    return (L * (3 * linear + 3.5 * attn) + 3 * unembed,
+            L * (linear - down + attn) + unembed)
 
 
 def leaf_sumsq(torch, params) -> dict:
@@ -2082,10 +2100,11 @@ def pipe_case(torch, seed: int):
     return layers, x, stage
 
 
-def train_mesh_phase(torch, seed: int, oracle: dict) -> None:
+def train_mesh_phase(torch, seed: int, oracle: dict) -> dict:
     """The sequential pipeline oracle, then MESH_RANKS processes of
     :func:`train_mesh_rank`; fails unless both exit 0 and their numbers
-    hold against phase 9 (a)'s (``oracle``) and the oracle."""
+    hold against phase 9 (a)'s (``oracle``) and the oracle.  Returns
+    rank 0's runs (for phase 12)."""
     import shutil
     layers, x, stage = pipe_case(torch, seed)
     with torch.no_grad():
@@ -2161,6 +2180,7 @@ def train_mesh_phase(torch, seed: int, oracle: dict) -> None:
     print(f"training mesh phase: {MESH_RANKS} gloo ranks on one GPU, "
           f"{secs:.1f} s from spawn to exit; no kernel launched; card "
           f"{card_line()}")
+    return out[0]["runs"]
 
 
 def train_on_mesh(torch, shape, seed: int) -> dict:
@@ -2284,6 +2304,157 @@ def train_mesh_rank(rank: int) -> int:
     return 0
 
 
+# phase 12: the dry run (launch/dryrun.py) on fake tensors, in subprocesses
+DRYRUN_DIR = ROOT / "build" / "dryrun_phase"
+#: phase 11's step on its two meshes, predicted as rank 0 of 2 fake ranks
+DRYRUN_RESIDENT_RTOL = 0.02     # resident state against memory_allocated
+DRYRUN_PEAK_RTOL = 0.15         # MemTracker's peak against the allocator's
+DRYRUN_FLOPS_RTOL = 1e-9        # FLOPs on both ranks against train_flops
+DRYRUN_TIMEOUT = 300            # seconds for (a)'s two meshes
+#: (b): one production cell on the 256-rank fake mesh, started beside (a)
+#: once every timed phase has ended
+DRYRUN_CELL = ("granite-3-8b", "train_4k")
+DRYRUN_CELL_TIMEOUT = 800       # seconds from the phase's start
+
+
+def start_dryrun(what: str):
+    """``--dryrun-phase what`` in a subprocess, its output in
+    DRYRUN_DIR/<what>.log: it needs no card."""
+    log = open(DRYRUN_DIR / f"{what}.log", "w")
+    proc = subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()), "--dryrun-phase",
+         what], stdout=log, stderr=subprocess.STDOUT)
+    atexit.register(proc.kill)               # a failing phase stops it too
+    return proc, log
+
+
+def wait_dryrun(what: str, run, timeout: float) -> None:
+    """Wait for a ``start_dryrun`` subprocess; fail if it failed."""
+    proc, log = run
+    try:
+        code = proc.wait(timeout=max(1.0, timeout))
+        why = f"exited {code}"
+    except subprocess.TimeoutExpired:
+        code, why = -1, f"not done after {timeout:.0f} s"
+    finally:
+        proc.kill()
+        proc.wait()
+        log.close()
+    if code:
+        print((DRYRUN_DIR / f"{what}.log").read_text()[-3000:],
+              file=sys.stderr)
+        fail(f"dry-run phase ({what}): {why}")
+
+
+def dryrun_subprocess(what: str) -> int:
+    """The body of ``--dryrun-phase``: ``predict`` dry-runs phase 11's
+    step on both TRAIN_MESHES (2 fake ranks, fake CUDA tensors) and
+    writes the records to DRYRUN_DIR/predict.json; ``production`` runs
+    DRYRUN_CELL on the 256-rank fake mesh into DRYRUN_DIR, on meta
+    tensors (two to three times faster than fake ones; (a) runs fake
+    CUDA tensors, whose storages MemTracker rounds as the card's
+    allocator does)."""
+    import torch
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.configs import ShapeSpec
+    from repro_torch.distributed.collectives import make_groups
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_host_mesh
+    DRYRUN_DIR.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    if what == "production":
+        arch, shape = DRYRUN_CELL
+        rec = dryrun.run_cell(arch, shape, out_dir=str(DRYRUN_DIR),
+                              verbose=True, device="meta")
+        rec["wall_s"] = time.perf_counter() - t0
+        (DRYRUN_DIR / "production.json").write_text(json.dumps(rec))
+        return 0
+    dryrun.fake_world(MESH_RANKS)
+    B, S = TRAIN_BATCH
+    out = {}
+    for d, m in TRAIN_MESHES:
+        mesh = make_host_mesh(d, m, device_type=DEVICE)
+        make_groups(mesh)
+        out[f"{d}x{m}"] = dryrun.run_cell(
+            "granite-3-8b", "phase11", mesh=mesh, verbose=False,
+            cfg=train_config_of(), shape=ShapeSpec("phase11", S, B, "train"),
+            param_dtype=torch.float32, microbatches=1, moe_groups=1)
+    out["wall_s"] = time.perf_counter() - t0
+    (DRYRUN_DIR / "predict.json").write_text(json.dumps(out))
+    return 0
+
+
+def dryrun_phase(measured: dict) -> None:
+    """Phase 12, after every timed phase: (a) phase 11's step predicted on
+    fake tensors, held against phase 11's measurement in this run:
+    collective calls and bytes equal at every step, the resident state
+    within DRYRUN_RESIDENT_RTOL of ``memory_allocated``, MemTracker's
+    peak within DRYRUN_PEAK_RTOL of ``max_memory_allocated``, the FLOPs
+    on both ranks within DRYRUN_FLOPS_RTOL of ``train_flops``.  (b) the
+    production cell, run beside (a): its record line."""
+    import shutil
+    t0 = time.perf_counter()
+    shutil.rmtree(DRYRUN_DIR, ignore_errors=True)
+    DRYRUN_DIR.mkdir(parents=True)
+    runs = {what: start_dryrun(what) for what in ("predict", "production")}
+    wait_dryrun("predict", runs["predict"], DRYRUN_TIMEOUT)
+    pred = json.loads((DRYRUN_DIR / "predict.json").read_text())
+    B, S = TRAIN_BATCH
+    flops, recompute = train_flops(train_config_of(), B, S)
+    for name, run in measured.items():
+        p = pred[name]
+        calls, nbytes = p["collectives"]["calls"], p["collectives"]["bytes"]
+        for s, h in enumerate(run["steps"]):
+            if (h["calls"], h["bytes"]) != (calls, nbytes):
+                fail(f"dry run {name}: step {s} made {h['calls']} "
+                     f"collectives of {h['bytes']} B, predicted {calls} of "
+                     f"{nbytes} B")
+        res = p["memory"]["argument_bytes"] / run["resident"] - 1
+        peak = p["memory"]["peak_bytes"] / run["peak"] - 1
+        if abs(res) > DRYRUN_RESIDENT_RTOL or abs(peak) > DRYRUN_PEAK_RTOL:
+            fail(f"dry run {name}: resident {p['memory']['argument_bytes']}"
+                 f" B vs measured {run['resident']} ({res:+.3%}), peak "
+                 f"{p['memory']['peak_bytes']} B vs {run['peak']} "
+                 f"({peak:+.3%})")
+        rl = p["roofline"]
+        both = rl["flops_per_chip"] * MESH_RANKS
+        if abs(both / (flops + recompute) - 1) > DRYRUN_FLOPS_RTOL:
+            fail(f"dry run {name}: {both} FLOP on both ranks vs "
+                 f"train_flops' {flops + recompute}")
+        print(f"dry run of phase 11's {name} (data, model) step, rank 0 of "
+              f"{MESH_RANKS} fake ranks: {calls} collectives of "
+              f"{nbytes / 1e9:.3f} GB {p['collectives']['payload_by_kind']}"
+              f" equal phase 11's at every step; resident "
+              f"{p['memory']['argument_bytes'] / 1e9:.3f} GB vs measured "
+              f"{run['resident'] / 1e9:.3f} GB ({res:+.3%}); peak "
+              f"{p['memory']['peak_bytes'] / 1e9:.3f} GB vs measured "
+              f"{run['peak'] / 1e9:.3f} GB ({peak:+.3%}); "
+              f"{rl['flops_per_chip'] / 1e12:.4f} TFLOP on rank 0, "
+              f"{both / 1e12:.4f} on both, equal to train_flops' "
+              f"{(flops + recompute) / 1e12:.4f} (forward + backward + "
+              f"recompute); roofline {rl['step_s']:.4f} s "
+              f"({rl['bottleneck']}) at {rl['constants']['peak_flops']:.3g} "
+              f"FLOP/s")
+    wait_dryrun("production", runs["production"],
+                DRYRUN_CELL_TIMEOUT - (time.perf_counter() - t0))
+    rec = json.loads((DRYRUN_DIR / "production.json").read_text())
+    rl, mem = rec["roofline"], rec["memory"]
+    import torch
+    print(f"dry run {rec['arch']} x {rec['shape']} on the "
+          f"{rec['chips']}-rank fake mesh {rec['mesh']} (torch "
+          f"{torch.__version__}, {rec['wall_s']:.1f} s beside (a)): rank 0 {rl['flops_per_chip'] / 1e12:.1f} TFLOP, "
+          f"{rl['hbm_bytes_per_chip'] / 1e9:.1f} GB HBM, collectives "
+          f"{rec['collectives']['payload_by_kind']} B, peak "
+          f"{mem['peak_bytes'] / 1e9:.2f} GB (fits 80 GB: "
+          f"{rec['fits_hbm_80g']}), roofline compute {rl['compute_s']:.3f}"
+          f" s, memory {rl['memory_s']:.3f} s, collective "
+          f"{rl['collective_s']:.3f} s <- {rl['bottleneck']}; useful "
+          f"FLOPs {rec['useful_flops_ratio']:.3f}")
+    secs = time.perf_counter() - t0
+    print(f"dry-run phase: (a) {pred['wall_s']:.1f} s, {secs:.1f} s with "
+          f"(b); card {card_line()}")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--layers", type=int, default=40,
@@ -2296,11 +2467,15 @@ def main() -> int:
                     help=argparse.SUPPRESS)       # phase 10 starts these
     ap.add_argument("--train-rank", type=int, default=None,
                     help=argparse.SUPPRESS)       # phase 11 starts these
+    ap.add_argument("--dryrun-phase", choices=("predict", "production"),
+                    help=argparse.SUPPRESS)       # phase 12 starts these
     args = ap.parse_args()
     if args.mesh_rank is not None:
         return mesh_rank(args.mesh_rank)
     if args.train_rank is not None:
         return train_mesh_rank(args.train_rank)
+    if args.dryrun_phase is not None:
+        return dryrun_subprocess(args.dryrun_phase)
     start = time.perf_counter()
     try:
         import torch
@@ -2352,7 +2527,8 @@ def main() -> int:
         launches[k] += n
     oracle = training_phase(torch, args.seed)
     mesh_phase(torch, args.seed)
-    train_mesh_phase(torch, args.seed, oracle)
+    measured = train_mesh_phase(torch, args.seed, oracle)
+    dryrun_phase(measured)
     # the paged decode launches go to the row of the depth each model ran
     # (its key's tuned depth: row 2 at depth 1, row 3 at 2 and 4); the
     # split kernel (row 1) gets none

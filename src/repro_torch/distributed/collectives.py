@@ -41,11 +41,13 @@ blocks, one ``all_gather_into_tensor``) and its transpose
 vocab-parallel :func:`vocab_parallel_nll`.  gloo runs these on CUDA
 tensors but refuses ``send``/``recv`` (``distributed/probe.py``).
 :data:`TRAFFIC` counts every collective's calls and bytes (and, when
-asked, its seconds).
+asked, its seconds), summed by kind and group, from which the dry
+run (``launch/op_analysis.py``) sums the ring's wire bytes.
 """
 
 from __future__ import annotations
 
+import itertools
 import math
 import time
 
@@ -56,12 +58,14 @@ from repro_torch.distributed.sharding import (block_of, decode_state_specs,
                                              shard_of, spec_axes)
 from repro_torch.launch.mesh import axis_sizes
 from repro_torch.models.attention import NEG_INF
+from repro_torch.models.layers import drop_index, drop_write
 
 #: pool keys of the decode state (sharded over N); every other key stays
 #: whole on every rank
 POOL_KEYS = ("kv", "mla_c", "mla_rope")
 
 _GROUPS: dict = {}
+_RANKS: dict = {}
 
 
 def axis_size(mesh, axes) -> int:
@@ -95,31 +99,98 @@ def _group(mesh, axes):
     return _GROUPS[key][1]
 
 
+def wire_factor(kind: str, n: int) -> float:
+    """Bytes a member sends per payload byte in a ring over ``n``
+    members, as ``repro.launch.hlo_analysis._wire_factor`` models them:
+    all-reduce 2(n−1)/n, all-gather, reduce-scatter and all-to-all
+    (n−1)/n, a permute (and a broadcast, modelled as one) 1."""
+    if n <= 1:
+        return 0.0
+    if kind == "all-reduce":
+        return 2.0 * (n - 1) / n
+    if kind in ("collective-permute", "broadcast"):
+        return 1.0
+    return (n - 1) / n
+
+
+def group_ranks(group) -> tuple:
+    """The global ranks of a process group, in group order (kept per
+    group)."""
+    if group not in _RANKS:
+        _RANKS[group] = tuple(dist.get_process_group_ranks(group))
+    return _RANKS[group]
+
+
+def make_groups(mesh) -> None:
+    """Make the process group of every set of ``mesh``'s dims now.  A
+    group's ranks come from tensor ops on the mesh's rank grid, which
+    must not run inside the dry run's fake-tensor and analysis modes
+    (``launch/op_analysis.py``); every rank of a real process group
+    would have to call this too."""
+    names = tuple(mesh.mesh_dim_names)
+    for r in range(1, len(names) + 1):
+        for axes in itertools.combinations(names, r):
+            group_ranks(_group(mesh, axes))
+
+
 class Traffic:
     """What this process's collectives moved: calls, bytes (each call's
     message: the reduced tensor, the gathered output, the scattered
     input, the broadcast tensor) and, with ``timed``, the host seconds
     inside them (the device is synchronised first, so queued compute is
-    not counted)."""
+    not counted).  ``groups`` sums the calls and bytes by (kind, the
+    group's global ranks), kinds named as the reference's HLO names them
+    (``"all-reduce"``, ``"all-gather"``, ``"reduce-scatter"``;
+    ``"broadcast"``): one entry a kind and group, so it stays as small
+    as the mesh's groups however long the process runs.
+    :meth:`by_kind` and :attr:`wire_bytes` are summed from it."""
 
     def __init__(self):
         self.timed = False
+        #: True while a collective runs (the backend's own tensor work,
+        #: which the dry run's op counts leave out)
+        self.busy = False
         self.reset()
 
     def reset(self) -> None:
         self.calls, self.bytes, self.seconds = 0, 0, 0.0
+        #: {(kind, global ranks): [calls, bytes]}
+        self.groups: dict[tuple[str, tuple], list[int]] = {}
 
-    def run(self, fn, nbytes: int, device) -> None:
+    def run(self, fn, nbytes: int, device, kind: str, group) -> None:
         self.calls += 1
         self.bytes += nbytes
-        if not self.timed:
-            fn()
-            return
-        if device.type == "cuda":
+        entry = self.groups.setdefault((kind, group_ranks(group)), [0, 0])
+        entry[0] += 1
+        entry[1] += nbytes
+        if self.timed and device.type == "cuda":
             torch.cuda.synchronize(device)
         t0 = time.perf_counter()
-        fn()
-        self.seconds += time.perf_counter() - t0
+        self.busy = True
+        try:
+            fn()
+        finally:
+            self.busy = False
+        if self.timed:
+            self.seconds += time.perf_counter() - t0
+
+    def by_kind(self) -> dict:
+        """``{kind: {"calls", "bytes", "wire_bytes"}}``."""
+        out: dict = {}
+        for (kind, ranks), (calls, nbytes) in self.groups.items():
+            k = out.setdefault(kind, {"calls": 0, "bytes": 0,
+                                      "wire_bytes": 0.0})
+            k["calls"] += calls
+            k["bytes"] += nbytes
+            k["wire_bytes"] += nbytes * wire_factor(kind, len(ranks))
+        return out
+
+    @property
+    def wire_bytes(self) -> float:
+        """Bytes this member sends over the ring model (:func:`wire_factor`
+        of each call's kind and group size)."""
+        return sum(b * wire_factor(k, len(r))
+                   for (k, r), (_, b) in self.groups.items())
 
 
 #: the collectives of this process (every function below reports here)
@@ -132,8 +203,9 @@ def _nbytes(x: torch.Tensor) -> int:
 
 def all_reduce(x: torch.Tensor, mesh, axes, op=dist.ReduceOp.SUM):
     """In-place ``all_reduce`` of ``x`` over the mesh dims ``axes``."""
-    TRAFFIC.run(lambda: dist.all_reduce(x, op=op, group=_group(mesh, axes)),
-                _nbytes(x), x.device)
+    group = _group(mesh, axes)
+    TRAFFIC.run(lambda: dist.all_reduce(x, op=op, group=group), _nbytes(x),
+                x.device, "all-reduce", group)
     return x
 
 
@@ -143,7 +215,7 @@ def broadcast(x: torch.Tensor, mesh, axes, src: int):
     group = _group(mesh, axes)
     TRAFFIC.run(lambda: dist.broadcast(
         x, src=dist.get_global_rank(group, src), group=group), _nbytes(x),
-        x.device)
+        x.device, "broadcast", group)
     return x
 
 
@@ -311,7 +383,8 @@ def scatter_seq_sp(pool, seq, tab, *, mesh, batch_axes=("data",),
                    seq_axes=("model",)):
     """Write prefill cache rows into this rank's pool shard, in place.
     Each shard localises the row indices to its own pool window and drops
-    the rest (holes too), masked explicitly.
+    the rest (holes too) with a write of fixed length
+    (``layers.drop_write``).
 
     pool: (Nl, bs, …) this rank's P(ba+sa) rows; seq: (R, bs, …) the
     rank's rows (P(ba)); tab: (R,) their global physical rows.
@@ -319,9 +392,8 @@ def scatter_seq_sp(pool, seq, tab, *, mesh, batch_axes=("data",),
     Nl = pool.shape[0]
     loc = tab.long() - _shard_offset(mesh, tuple(batch_axes),
                                      tuple(seq_axes), Nl)
-    keep = ((tab >= 0) & (loc >= 0) & (loc < Nl)).nonzero()[:, 0]
-    pool[loc[keep]] = seq[keep].to(pool.dtype)
-    return pool
+    return drop_write(pool, drop_index(
+        (loc,), (tab >= 0) & (loc >= 0) & (loc < Nl)), seq)
 
 
 # ------------------------------------------------------------- GQA SP decode
@@ -450,12 +522,46 @@ def _chunk_shape(shape, spec, mesh, axes) -> tuple:
     return tuple(s.stop - s.start for s in first)
 
 
+def _block_layout(shape, spec, mesh, axes):
+    """How the members' blocks of a tensor of ``shape`` (split by
+    ``spec``) lie in the buffer a collective over ``axes`` moves: every
+    block padded to the first, the largest, the members row-major over
+    ``axes``.  Returns (the padded whole's shape with each split dim
+    unfolded into its members and the block, the permutation of it that
+    puts the members first and then the block's dims, the padded
+    whole's shape, {dim: the positions of its entries along the padded
+    dim} for each dim that splits unevenly)."""
+    sizes = axis_sizes(mesh)
+    chunk = _chunk_shape(shape, spec, mesh, axes)
+    unfolded, pos, padded, real = [], {}, [], {}
+    for d, n in enumerate(shape):
+        split = tuple(a for a in (spec_axes(spec[d]) if d < len(spec)
+                                  else ()) if a in axes)
+        for a in split:
+            pos[a] = len(unfolded)
+            unfolded.append(sizes[a])
+        pos[d] = len(unfolded)
+        unfolded.append(chunk[d])
+        parts = math.prod(sizes[a] for a in split)
+        padded.append(parts * chunk[d])
+        if padded[d] != n:
+            blocks = (block_of((n,), (spec[d],), mesh,
+                               _coordinates(mesh, split, p), split)[0]
+                      for p in range(parts))
+            real[d] = [p * chunk[d] + i for p, blk in enumerate(blocks)
+                       for i in range(blk.stop - blk.start)]
+    perm = [pos[a] for a in axes] + [pos[d] for d in range(len(shape))]
+    return unfolded, perm, padded, real
+
+
 def gather_shards(local: torch.Tensor, spec, shape, mesh, axes=None):
     """The tensor of global ``shape`` whole along the dims that ``spec``
     splits over the mesh dims ``axes`` (default: all of its dims), from
     each member's block ``local``: one ``all_gather_into_tensor`` over
-    the members along ``axes``, blocks padded to the largest.  Dims split
-    over other mesh dims keep this rank's block."""
+    the members along ``axes``, blocks padded to the largest, then one
+    copy puts every block in place (and one ``index_select`` a dim drops
+    the padding of a dim that splits unevenly).  Dims split over other
+    mesh dims keep this rank's block."""
     axes = _axes_of(spec, axes if axes is not None else axis_sizes(mesh),
                     mesh)
     if not axes:
@@ -469,12 +575,12 @@ def gather_shards(local: torch.Tensor, spec, shape, mesh, axes=None):
     src = _padded(local.contiguous(), chunk)
     group = _group(mesh, axes)
     TRAFFIC.run(lambda: dist.all_gather_into_tensor(out, src, group=group),
-                _nbytes(out), local.device)
-    out = out.view((n,) + chunk)
-    whole = local.new_empty(part)
-    for p in range(n):
-        blk = block_of(part, spec, mesh, _coordinates(mesh, axes, p), axes)
-        whole[blk] = out[p][tuple(slice(0, s.stop - s.start) for s in blk)]
+                _nbytes(out), local.device, "all-gather", group)
+    unfolded, perm, padded, real = _block_layout(part, spec, mesh, axes)
+    whole = out.view([unfolded[i] for i in perm]).permute(
+        [perm.index(i) for i in range(len(perm))]).reshape(padded)
+    for d, idx in real.items():
+        whole = whole.index_select(d, torch.tensor(idx, device=out.device))
     return whole
 
 
@@ -495,19 +601,23 @@ def reduce_to_shard(whole: torch.Tensor, spec, mesh, axes=None,
         whole = whole[block_of(whole.shape, spec, mesh, coord, keep)]
     if not sum_axes:
         return whole.clone()
-    chunk = _chunk_shape(whole.shape, spec, mesh, sum_axes)
+    shape = tuple(whole.shape)
+    chunk = _chunk_shape(shape, spec, mesh, sum_axes)
     n = axis_size(mesh, sum_axes)
-    src = whole.new_zeros((n * chunk[0],) + chunk[1:])
-    blocks = src.view((n,) + chunk)
-    for p in range(n):
-        blk = block_of(whole.shape, spec, mesh,
-                       _coordinates(mesh, sum_axes, p), sum_axes)
-        blocks[p][tuple(slice(0, s.stop - s.start) for s in blk)] = whole[blk]
+    unfolded, perm, padded, real = _block_layout(shape, spec, mesh,
+                                                 sum_axes)
+    for d, idx in real.items():     # pad each block to the largest
+        grown = list(whole.shape)
+        grown[d] = padded[d]
+        whole = whole.new_zeros(grown).index_copy_(
+            d, torch.tensor(idx, device=whole.device), whole)
+    src = whole.reshape(unfolded).permute(perm).reshape(
+        (n * chunk[0],) + chunk[1:])
     out = whole.new_empty(chunk)
     group = _group(mesh, sum_axes)
     TRAFFIC.run(lambda: dist.reduce_scatter_tensor(out, src, group=group),
-                _nbytes(src), whole.device)
-    mine = block_of(whole.shape, spec, mesh, {
+                _nbytes(src), whole.device, "reduce-scatter", group)
+    mine = block_of(shape, spec, mesh, {
         a: mesh.get_local_rank(a) for a in sum_axes}, sum_axes)
     return out[tuple(slice(0, s.stop - s.start) for s in mine)]
 

@@ -44,11 +44,13 @@ def _mesh(device_type: str, shape: tuple, names: tuple) -> DeviceMesh:
                       mesh_dim_names=names)
 
 
-def make_production_mesh(*, multi_pod: bool = False) -> DeviceMesh:
-    """16 × 16 = 256 GPUs per pod; 2 pods = 512 GPUs multi-pod."""
+def make_production_mesh(*, multi_pod: bool = False,
+                         device_type: str = "cuda") -> DeviceMesh:
+    """16 × 16 = 256 GPUs per pod; 2 pods = 512 GPUs multi-pod
+    (``device_type="cpu"`` for the dry run's meta tensors)."""
     if multi_pod:
-        return _mesh("cuda", (2, 16, 16), ("pod", "data", "model"))
-    return _mesh("cuda", (16, 16), ("data", "model"))
+        return _mesh(device_type, (2, 16, 16), ("pod", "data", "model"))
+    return _mesh(device_type, (16, 16), ("data", "model"))
 
 
 def make_host_mesh(data: int = 1, model: int = 1, *,

@@ -9,6 +9,7 @@ counterpart of ``jax.checkpoint``.
 from __future__ import annotations
 
 import math
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -102,6 +103,59 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     gold = logits.gather(-1, labels[..., None])[..., 0]
     nll = (logz - gold) * mask
     return nll.sum() / mask.sum().clamp(min=1)
+
+
+# ------------------------------------------------------------ cache writes ----
+class DropIndex(NamedTuple):
+    """Where a write of fixed length lands (:func:`drop_index`): each
+    index with the dropped entries sent to the sink cell, the kept
+    entries (R,), the first kept entry (1,) (0 when none is), whether
+    any is kept, and the sink cell ((1,) each)."""
+    index: tuple
+    keep: torch.Tensor
+    first: torch.Tensor | None
+    any_kept: torch.Tensor | None
+    sink: tuple
+
+
+def drop_index(index: tuple, keep: torch.Tensor) -> DropIndex:
+    """The cells of a write of fixed length, computed once for every pool
+    written at the same places.
+
+    index: a tuple of (R,) integer tensors into the leading dims of a
+    pool (a dropped entry's may hold anything: a hole, padding, a row
+    past the pool); keep: (R,) bool.  Every dropped entry is sent to the
+    first kept entry's cell, or to cell 0 when none is kept."""
+    if keep.numel() == 0:
+        return DropIndex(tuple(i.long() for i in index), keep, None, None, ())
+    any_kept = keep.any()
+    first = keep.to(torch.uint8).argmax().reshape(1)   # 0 when none is
+    sink = tuple(torch.where(any_kept, i.index_select(0, first).long(), 0)
+                 for i in index)                       # (1,) each
+    return DropIndex(tuple(torch.where(keep, i.long(), s)
+                           for i, s in zip(index, sink)),
+                     keep, first, any_kept, sink)
+
+
+def drop_write(pool: torch.Tensor, where: DropIndex,
+               values: torch.Tensor) -> torch.Tensor:
+    """``pool[index] = values`` for the kept entries of ``where``
+    (:func:`drop_index`), in place: the reference's
+    ``.at[index].set(values, mode="drop")`` with shapes that do not
+    depend on the data (no ``nonzero``, no host sync).  values: (R, ...).
+
+    A dropped entry writes the first kept entry's value to that entry's
+    cell, or, when none is kept, ``pool[0, ...]`` back to itself: each
+    duplicate index carries the value already bound for its cell, so
+    the result is that of the kept writes alone, whatever order the
+    device applies them in."""
+    if where.keep.numel() == 0:
+        return pool
+    values = values.to(pool.dtype)
+    fill = torch.where(where.any_kept, values.index_select(0, where.first),
+                       pool[where.sink])
+    mask = where.keep.reshape((-1,) + (1,) * (values.dim() - 1))
+    return pool.index_put_(where.index, torch.where(mask, values, fill))
 
 
 # ------------------------------------------------------------------ remat ----

@@ -80,7 +80,11 @@ def _route(router: torch.Tensor, x: torch.Tensor, top_k: int):
     # Switch-style load-balance aux: E · Σ_e f_e · P_e
     E = router.shape[1]
     me = probs.mean(dim=0)
-    ce = torch.bincount(eidx.reshape(-1), minlength=E).float() / eidx.numel()
+    # fraction of routed slots per expert: 1/n added per slot, as the
+    # reference adds it (a count of fixed length E)
+    flat = eidx.reshape(-1)
+    ce = probs.new_zeros(E).scatter_add_(
+        0, flat, probs.new_full(flat.shape, 1.0 / flat.numel()))
     return gates, eidx, E * torch.sum(me * ce)
 
 
@@ -94,7 +98,8 @@ def _dispatch_compute(x: torch.Tensor, gates: torch.Tensor,
     eflat = eidx.reshape(-1)                           # (T·k,)
     order = torch.argsort(eflat, stable=True)
     sorted_e = eflat[order]
-    counts = torch.bincount(eflat, minlength=E)
+    counts = torch.zeros(E, dtype=torch.long, device=x.device).scatter_add_(
+        0, eflat, torch.ones_like(eflat))
     seg_start = torch.cumsum(counts, 0) - counts
     pos_in_e = torch.arange(T * k, device=x.device) - seg_start[sorted_e]
     keep = pos_in_e < capacity

@@ -24,8 +24,9 @@ Python loop over layers, and the pools and states are updated **in
 place** (the reference returns new arrays) — a full-size pool is too
 large to copy per layer, and a caller's batch-1 view of the per-slot
 states receives its slot's update.  Writes the reference drops with ``mode="drop"`` (holes,
-padding rows, columns past the table) are masked out explicitly: torch
-indexing has no drop mode and wraps negative indices.
+padding rows, columns past the table) go through ``layers.drop_write``:
+torch indexing has no drop mode and wraps negative indices, and a write
+of fixed length keeps every shape independent of the data.
 
 ``page_impl`` picks the decode/ragged attention: ``"kernel"`` (the CUDA
 kernels in ``kernels/paged_attention`` and ``kernels/mla_attention``;
@@ -91,9 +92,9 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.models.frontends import (audio_frames_to_embeddings,
                                           init_frontend,
                                           vision_patches_to_embeddings)
-from repro_torch.models.layers import (dense_ffn, embed, init_dense,
-                                       init_embed, init_swiglu, rms_norm,
-                                       unembed)
+from repro_torch.models.layers import (dense_ffn, drop_index, drop_write,
+                                       embed, init_dense, init_embed,
+                                       init_swiglu, rms_norm, unembed)
 from repro_torch.models.layers import remat as checkpointed
 
 BLOCK_SIZE = 128   # tokens per physical KV block
@@ -327,21 +328,16 @@ def init_decode_state(cfg: ModelConfig, batch: int, max_len: int,
 def _token_targets(tables: torch.Tensor, slots: torch.Tensor,
                    pos: torch.Tensor, bs: int,
                    keep: torch.Tensor | None = None):
-    """Where one token per entry lands in a (N, bs, …) pool: the indices
-    of the entries whose write lands, and their (block, offset).  Entries
-    mapped to a hole (< 0) — or excluded by ``keep`` — are dropped."""
+    """Where one token per entry lands in a (N, bs, …) pool: each entry's
+    (block, offset) as a ``layers.drop_index``, computed once for every
+    layer's pool.  Entries mapped to a hole (< 0) — or excluded by
+    ``keep`` — are dropped."""
     M = tables.shape[-1]
     blk = pos.long() // bs
     phys = attn_mod.lookup_slot_blocks(tables, slots.long(),
                                        blk.clamp(max=M - 1))
     land = phys >= 0 if keep is None else keep & (phys >= 0)
-    rows = land.nonzero()[:, 0]
-    return rows, phys[rows].long(), (pos.long() % bs)[rows]
-
-
-def _scatter_rows(pool: torch.Tensor, targets, new: torch.Tensor) -> None:
-    rows, phys, off = targets
-    pool[phys, off] = new[rows].to(pool.dtype)
+    return drop_index((phys, pos.long() % bs), land)
 
 
 def _write_token_kv(pool, tables, lengths, new, bs):
@@ -350,7 +346,7 @@ def _write_token_kv(pool, tables, lengths, new, bs):
     ``lengths``.  Non-resident (<0) table entries drop the write."""
     B = new.shape[0]
     slots = torch.arange(B, device=new.device)
-    _scatter_rows(pool, _token_targets(tables, slots, lengths, bs), new)
+    drop_write(pool, _token_targets(tables, slots, lengths, bs), new)
     return pool
 
 
@@ -365,8 +361,7 @@ def _scatter_blocks(pool: torch.Tensor, tab: torch.Tensor,
                     seq: torch.Tensor) -> None:
     """seq: (R, bs, ...) whole blocks → pool rows ``tab`` (R,); <0
     entries drop.  In place."""
-    keep = (tab >= 0).nonzero()[:, 0]
-    pool[tab[keep].long()] = seq[keep].to(pool.dtype)
+    drop_write(pool, drop_index((tab,), tab >= 0), seq)
 
 
 # ================================================================ decode step
@@ -498,9 +493,10 @@ def decode_step(params, cfg: ModelConfig, state: dict, tokens: torch.Tensor,
         x = x + params["dec_pos"][pos.long().clamp(max=DEC_POS - 1)]
     positions = pos[:, None]
     tables = st["tables"]
-    if mesh is not None:            # only this rank's pool rows are written
+    pool = st.get("kv", st.get("mla_c"))
+    if mesh is not None and pool is not None:   # only this rank's pool
         from repro_torch.distributed.collectives import local_tables
-        Nl = st["kv" if "kv" in st else "mla_c"].shape[1]
+        Nl = pool.shape[1]                      # rows are written
         tables = local_tables(
             attn_mod.assemble_shard_tables(tables)[:B], mesh,
             tuple(batch_axes), tuple(seq_axes), Nl)
@@ -525,8 +521,8 @@ def decode_step(params, cfg: ModelConfig, state: dict, tokens: torch.Tensor,
         elif mix == "mla":
             h = rms_norm(x[:, None], lp["mix"]["norm"], cfg.norm_eps)
             c_kv, k_rope = mla_mod.latent_kv(lp["mix"], h, cfg, positions)
-            _scatter_rows(st["mla_c"][i], targets, c_kv[:, 0])
-            _scatter_rows(st["mla_rope"][i], targets, k_rope[:, 0, 0])
+            drop_write(st["mla_c"][i], targets, c_kv[:, 0])
+            drop_write(st["mla_rope"][i], targets, k_rope[:, 0, 0])
             x = _mla_paged_decode(lp["mix"], x, pos, st, i, cfg,
                                   page_impl=page_impl, mesh=mesh,
                                   batch_axes=batch_axes, seq_axes=seq_axes)
@@ -534,8 +530,8 @@ def decode_step(params, cfg: ModelConfig, state: dict, tokens: torch.Tensor,
             a = attn_ids.index(i)
             h = rms_norm(x[:, None], lp["mix"]["norm"], cfg.norm_eps)
             q, k, v = attn_mod.qkv_proj(lp["mix"], h, cfg, positions)
-            _scatter_rows(st["kv"][a], targets,
-                          attn_mod.fuse_kv(k[:, 0], v[:, 0]))
+            drop_write(st["kv"][a], targets,
+                       attn_mod.fuse_kv(k[:, 0], v[:, 0]))
             o = _paged_attn(q[:, 0], st["kv"][a], st["tables"], pos + 1,
                             page_impl=page_impl, window=cfg.attn.window,
                             mesh=mesh, batch_axes=batch_axes,
@@ -746,7 +742,7 @@ def ragged_step(params, cfg: ModelConfig, state: dict, tokens: torch.Tensor,
         h = rms_norm(x[None], lp["mix"]["norm"], cfg.norm_eps)
         q, k, v = attn_mod.qkv_proj(lp["mix"], h, cfg, positions)
         kvp = st["kv"][attn_ids.index(i)]
-        _scatter_rows(kvp, targets, attn_mod.fuse_kv(k[0], v[0]))
+        drop_write(kvp, targets, attn_mod.fuse_kv(k[0], v[0]))
         o = ragged_attn(q[0], kvp)                       # (T, H, hd)
         x = x + o.reshape(T, -1) @ lp["mix"]["wo"]
         x = _ffn(lp, x[None], cfg, i)[0]

@@ -237,18 +237,18 @@ def shard_state(params, opt_state, tc: TrainConfig, mesh):
         return (tree if isinstance(leaves(tree)[0], DTensor)
                 else shard_rules.shard_params(tree, mesh))
     params = sharded(params)
+    dev = shard_rules.local_blocks(leaves(params)[0]).device
     zeros = lambda dt: shard_rules.map_shards(
         lambda t: torch.zeros(t.shape, dtype=dt, device=t.device), params)
     if opt_state is None:
         mdt = getattr(torch, tc.adamw.moments_dtype)
         opt_state = {"mu": zeros(mdt), "nu": zeros(mdt),
-                     "step": torch.zeros((), dtype=torch.int32, device=(
-                         shard_rules.local_blocks(leaves(params)[0]).device))}
+                     "step": torch.zeros((), dtype=torch.int32, device=dev)}
     else:
         opt_state = dict(opt_state, mu=sharded(opt_state["mu"]),
                          nu=sharded(opt_state["nu"]))
     err_state = (zeros(torch.float32) if tc.compress_grads
-                 else torch.zeros((), dtype=torch.float32))
+                 else torch.zeros((), dtype=torch.float32, device=dev))
     return params, opt_state, err_state
 
 

@@ -69,12 +69,17 @@ def test_importing_the_port_loads_no_jax():
     assert {f"repro_torch.distributed.{m}"
             for m in ("sharding", "collectives", "elastic")} | {
         "repro_torch.launch.mesh"} <= set(mods)
+    # the dry run
+    assert {"repro_torch.launch.dryrun",
+            "repro_torch.launch.op_analysis"} <= set(mods)
     code = ("import sys, importlib\n"
             "import repro_torch, repro_torch.serving.engine\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro'))\n"
             "assert not bad, bad\n"
+            "import torch.distributed as dist\n"
+            "assert not dist.is_initialized(), 'an import started a group'\n"
             "print('ok', len(sys.modules))\n")
     env = dict(os.environ, PYTHONPATH=str(SRC))
     out = subprocess.run([sys.executable, "-c", code], env=env,

@@ -1,12 +1,15 @@
 """The port's sharding rules against the reference's, entry by entry: every
 leaf of every smoke config's params, the decode layout and state specs,
 the batch and token specs, on stand-in meshes (data 4, model 2) and
-(pod 2, data 4, model 2).  The rules read only dim names and sizes, so a
-stand-in needs ``axis_names`` and ``shape`` on the JAX side and
-``mesh_dim_names`` and ``shape`` on the port's; no process starts."""
+(pod 2, data 4, model 2), and the training collectives' block layout
+against a block-by-block loop.  The rules read only dim names
+and sizes, so a stand-in needs ``axis_names`` and ``shape`` on the JAX
+side and ``mesh_dim_names`` and ``shape`` on the port's; no process
+starts."""
 
 from __future__ import annotations
 
+import math
 from types import SimpleNamespace
 
 import jax
@@ -148,3 +151,47 @@ def test_decode_step_pairs_sp_with_a_mesh(page_impl, mesh):
         ttfm.decode_step(params, cfg, st, torch.zeros(2, dtype=torch.int32),
                          page_impl=page_impl,
                          mesh=None if mesh is None else object())
+
+
+@pytest.mark.parametrize("shape,spec,axes", [
+    ((8, 6), ("data", "model"), ("data", "model")),
+    ((16, 3), (("data", "model"), None), ("data", "model")),
+    ((4, 8, 6), ("model", ("pod", "data"), None), ("pod", "data", "model")),
+    ((8, 6), ("data", "model"), ("data",)),
+    ((61, 8), ("model", "data"), ("data", "model")),     # a short last block
+    ((10, 3), (("pod", "data"), None), ("pod", "data")),  # short inner blocks
+    ((3, 5), ("data", "model"), ("model", "data")),       # an empty block
+])
+def test_block_layout_matches_the_block_loop(shape, spec, axes):
+    """The buffer layout the training collectives move
+    (``collectives._block_layout``: padded, permuted, then the padding
+    dropped) puts each member's block where a block-by-block loop over
+    ``block_of`` puts it, padded to the first block, both ways."""
+    from repro_torch.distributed import collectives as coll
+    _, tmesh = meshes("pod2_data4_model2")
+    spec = tsh.P(*spec)
+    whole = torch.arange(1, math.prod(shape) + 1).reshape(shape)
+    n = coll.axis_size(tmesh, axes)
+    chunk = coll._chunk_shape(shape, spec, tmesh, axes)
+    loop = torch.zeros((n,) + chunk, dtype=whole.dtype)
+    for p in range(n):
+        blk = tsh.block_of(shape, spec, tmesh,
+                           coll._coordinates(tmesh, axes, p), axes)
+        loop[p][tuple(slice(0, s.stop - s.start) for s in blk)] = whole[blk]
+    unfolded, perm, padded, real = coll._block_layout(shape, spec, tmesh,
+                                                      axes)
+    grown = whole
+    for d, idx in real.items():
+        size = list(grown.shape)
+        size[d] = padded[d]
+        grown = grown.new_zeros(size).index_copy_(d, torch.tensor(idx),
+                                                  grown)
+    stacked = grown.reshape(unfolded).permute(perm).reshape(loop.shape)
+    assert torch.equal(stacked, loop)
+    back = stacked.reshape([unfolded[i] for i in perm]).permute(
+        [perm.index(i) for i in range(len(perm))]).reshape(padded)
+    for d, idx in real.items():
+        back = back.index_select(d, torch.tensor(idx))
+    assert torch.equal(back, whole)
+    assert (set(real) == set()) == (math.prod(chunk) * n
+                                    == math.prod(shape))
