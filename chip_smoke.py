@@ -99,8 +99,15 @@ of which fails the script:
    at its published widths cut to 8 layers, ``prefill(mesh=)`` of 2 x
    1000 tokens and 16 greedy ``decode_step(page_impl="sp")`` steps, whose
    tokens must equal the single-process ``page_impl="ref"`` oracle run
-   here first (but at near-ties) on both ranks, launching no kernel.  A
-   failing rank fails the script;
+   here first (but at near-ties) on both ranks, launching no kernel; (c)
+   DeepSeek-MoE-16B at its published widths cut to 4 layers (layer 0
+   dense, 1-3 MoE: 64 routed experts of 1408, top-6, 2 shared; 2.3 B
+   params, 9.1 GB f32) the same way, its MoE layers expert-parallel:
+   each rank keeps its 32 experts a layer and its shared-expert blocks
+   (``sharding.expert_shards``, the whole stacks dropped), and prints the
+   expert bytes it holds and its resident memory beside the whole
+   model's and its ms per decode step; tokens against the oracle, run
+   and freed first.  A failing rank fails the script;
 11. train on a device mesh: two processes on the one GPU over gloo, as in
    phase 10 (``--train-rank R``, files under ``build/train_mesh_phase/``).
    Each first probes gloo's collectives on CUDA tensors
@@ -114,23 +121,27 @@ of which fails the script:
    relative of (a)'s, and on the FSDP mesh each rank's resident state
    before the first step at most 0.55 of (a)'s; it prints seconds per
    step, tokens/s, resident and peak memory, and the collectives' calls,
-   bytes and seconds per step.  Then ``pipeline_apply`` over the two ranks
-   (one granite-3-8b layer a stage, 4 microbatches of (1, 1024, 4096))
-   within 1e-5 of the layers applied in sequence here.  No kernel
-   launches (the kernels are forward only).  A failing rank fails the
-   script;
+   bytes and seconds per step; then phase 10 (c)'s model trained the
+   same way on (data 1, model 2) with its MoE layers expert-parallel,
+   held to 1e-5 of the same step in one process (run and freed here
+   first: its params, gradients and moments are about 36 GB).  Then
+   ``pipeline_apply`` over the two ranks (one granite-3-8b layer a
+   stage, 4 microbatches of (1, 1024, 4096)) within 1e-5 of the layers
+   applied in sequence here.  No kernel launches (the kernels are
+   forward only).  A failing rank fails the script;
 12. the dry run (``repro_torch.launch.dryrun``), after every timed
    phase, in two subprocesses run side by side (``--dryrun-phase``,
    files under ``build/dryrun_phase/``) on fake tensors and fake process
-   groups, so no group meets phase 11's gloo ranks: (a) phase 11's step
-   on both of its meshes as rank 0 of 2 fake ranks on fake CUDA
-   tensors, whose collective calls and bytes must equal phase 11's at
-   every step, its resident state be within 2% of phase 11's
-   ``memory_allocated`` before the first step, its MemTracker peak
-   within 15% of ``max_memory_allocated`` and its FLOPs on both ranks
-   equal phase 9's count of what eager runs (``train_flops``); (b)
-   granite-3-8b x train_4k on the 256-rank fake production mesh (meta
-   tensors), its record line printed.
+   groups, so no group meets phase 11's gloo ranks: (a) phase 11's
+   steps (granite on both meshes, DeepSeek-MoE expert-parallel) as rank
+   0 of 2 fake ranks on fake CUDA tensors, whose collective calls and
+   bytes must equal phase 11's at every step, its resident state be
+   within 2% of phase 11's ``memory_allocated`` before the first step,
+   its MemTracker peak within 15% of ``max_memory_allocated`` and, for
+   granite, its FLOPs on both ranks equal phase 9's count of what eager
+   runs (``train_flops``); (b)
+   granite-3-8b cut to 10 of 40 layers x train_4k on the 256-rank fake
+   production mesh (meta tensors), its record line printed.
 
 Prints the card's name and power limit, tokens/s per run, the script's
 wall time, one
@@ -1820,24 +1831,63 @@ def mesh_prompts(torch, cfg, seed: int):
                            dtype=torch.int32, device=DEVICE)
 
 
+# phase 10 (c) and 11 (c): DeepSeek-MoE-16B at its published widths cut
+# to 4 of 28 layers (layer 0 dense, 1-3 MoE: 64 routed experts of 1408,
+# top-6, 2 shared; 2.3 B params, 9.1 GB f32), expert-parallel over the
+# mesh's model dim
+MOE_LAYERS = 4
+
+
+def moe_mesh_config():
+    from repro_torch.configs import get_config
+    full = get_config("deepseek-moe-16b")
+    L = MOE_LAYERS
+    return full.with_(n_layers=L, mixers=full.mixers[:L], ffns=full.ffns[:L])
+
+
+def moe_mesh_params(torch, cfg, seed: int):
+    """The same weights in every process: one seeded CUDA generator."""
+    from repro_torch.models import transformer as tfm
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    return tfm.init_params(cfg, generator=gen, device=DEVICE,
+                           dtype=torch.float32)
+
+
+def expert_bytes(cfg, params) -> int:
+    """Bytes of the MoE layers' expert leaves (routed and shared) in
+    ``params``."""
+    from repro_torch.distributed.sharding import EXPERT_DIMS
+    from repro_torch.models import transformer as tfm
+    return sum(t.numel() * t.element_size() for i in range(cfg.n_layers)
+               if cfg.ffns[i] == "moe"
+               for k, t in tfm.layer_params(params, cfg, i)["ffn"].items()
+               if k in EXPERT_DIMS)
+
+
 def mesh_phase(torch, seed: int) -> None:
-    """The single-process ``page_impl="ref"`` oracle, then MESH_RANKS
-    processes of :func:`mesh_rank` on the GPU; fails unless both exit 0,
-    their kernel checks hold and their tokens equal the oracle's."""
+    """The single-process ``page_impl="ref"`` oracles of (b) and (c),
+    then MESH_RANKS processes of :func:`mesh_rank` on the GPU; fails
+    unless both exit 0, their kernel checks hold and their tokens equal
+    the oracles'."""
     import shutil
     from repro_torch.kernels.paged_attention import autotune
-    cfg = mesh_config()
-    t0 = time.perf_counter()
-    params = mesh_params(torch, cfg, seed)
-    made_line(torch, cfg, params, t0,
-              f"{MESH_LAYERS} of 40 layers (the mesh phase's oracle)")
-    with torch.no_grad():
-        want, margins, _, ref_secs = greedy(
-            torch, cfg, params, mesh_prompts(torch, cfg, seed),
-            impl="chunked", page_impl="ref")
-    del params
-    gc.collect()
-    torch.cuda.empty_cache()
+    wants = {}
+    for what, cfg, make, layers in (
+            ("tokens", mesh_config(), lambda c: mesh_params(torch, c, seed),
+             f"{MESH_LAYERS} of 40 layers (the mesh phase's oracle)"),
+            ("moe_tokens", moe_mesh_config(),
+             lambda c: moe_mesh_params(torch, c, seed + 23),
+             f"{MOE_LAYERS} of 28 layers (the expert-parallel oracle)")):
+        t0 = time.perf_counter()
+        params = make(cfg)
+        made_line(torch, cfg, params, t0, layers)
+        with torch.no_grad():
+            wants[what] = greedy(torch, cfg, params,
+                                 mesh_prompts(torch, cfg, seed),
+                                 impl="chunked", page_impl="ref")
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
     shutil.rmtree(MESH_DIR, ignore_errors=True)
     MESH_DIR.mkdir(parents=True)
     depth = autotune.get_tuning(KV, HD, BS).buffer_depth
@@ -1851,18 +1901,23 @@ def mesh_phase(torch, seed: int) -> None:
     for r, res in enumerate(out):
         for line in res["lines"]:
             print(f"mesh rank {r}: {line}")
-        got = {int(b): v for b, v in res["tokens"].items()}
-        if got != {int(b): v for b, v in out[0]["tokens"].items()}:
-            fail(f"mesh rank {r}'s tokens differ from rank 0's")
-        check_tokens(got, want, margins, f"mesh rank {r}")
+        for what, (want, margins, _, _) in wants.items():
+            got = {int(b): v for b, v in res[what].items()}
+            if got != {int(b): v for b, v in out[0][what].items()}:
+                fail(f"mesh rank {r}'s {what} differ from rank 0's")
+            check_tokens(got, want, margins, f"mesh rank {r} {what}")
     n = MESH_PROMPT[0] * HYBRID_NEW
+    oracle = "; ".join(
+        f"{name} over the mesh: {MESH_PROMPT[0] * (HYBRID_NEW + 1)} tokens "
+        f"equal the single-process oracle (prefill {secs_[0]:.3f} s, decode "
+        f"{secs_[1]:.3f} s, {n / secs_[1]:.2f} tokens/s)"
+        for name, (_, _, _, secs_) in zip(
+            (f"granite-3-8b {MESH_LAYERS} layers",
+             f"deepseek-moe-16b {MOE_LAYERS} layers expert-parallel"),
+            wants.values()))
     print(f"mesh phase: {MESH_RANKS} gloo ranks on one GPU, "
           f"{secs:.1f} s from spawn to exit (each rank: start, weights, "
-          f"checks); granite-3-8b {MESH_LAYERS} layers over the mesh: "
-          f"{MESH_PROMPT[0] * (HYBRID_NEW + 1)} tokens equal the "
-          f"single-process oracle (prefill {ref_secs[0]:.3f} s, decode "
-          f"{ref_secs[1]:.3f} s, {n / ref_secs[1]:.2f} tokens/s); card "
-          f"{card_line()}")
+          f"checks); {oracle}; card {card_line()}")
 
 
 def run_ranks(flag: str, directory, timeout: float, what: str) -> None:
@@ -1989,10 +2044,76 @@ def mesh_kernel_checks(torch, mesh, seq_axes, depth: int, seed: int) -> list:
     return lines
 
 
+def moe_mesh_run(torch, mesh, ba, sa, seed: int):
+    """(c): DeepSeek-MoE cut to MOE_LAYERS served over the mesh with its
+    MoE layers expert-parallel: the rank keeps only its experts
+    (``sharding.expert_shards``) and drops the whole stacks, then
+    ``prefill(mesh=)`` and HYBRID_NEW greedy ``decode_step(page_impl=
+    "sp")`` steps; returns a printable line and the tokens by row."""
+    from repro_torch.distributed import collectives as coll
+    from repro_torch.distributed.sharding import expert_shards
+    from repro_torch.models import transformer as tfm
+    cfg = moe_mesh_config()
+    whole = moe_mesh_params(torch, cfg, seed + 23)
+    whole_bytes = tfm.param_count(whole) * 4
+    whole_experts = expert_bytes(cfg, whole)
+    params = expert_shards(whole, cfg, mesh)
+    del whole
+    gc.collect()
+    torch.cuda.empty_cache()
+    n = coll.axis_size(mesh, ("model",))
+    held = expert_bytes(cfg, params)
+    if held * n != whole_experts:
+        fail(f"expert-parallel rank holds {held} B of experts, expected "
+             f"{whole_experts} / {n}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
+    prompts = mesh_prompts(torch, cfg, seed)
+    B, S = MESH_PROMPT
+    st = tfm.init_decode_state(
+        cfg, B, S + HYBRID_NEW + 1, dtype=torch.float32,
+        batch_shards=coll.axis_size(mesh, ba),
+        seq_shards=coll.axis_size(mesh, sa), device=DEVICE)
+    st = coll.local_state(st, cfg, mesh, batch_axes=ba, seq_axes=sa)
+    kw = dict(mesh=mesh, batch_axes=ba, seq_axes=sa)
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lg, st = tfm.prefill(params, cfg, prompts, st, **kw)
+    toks = [lg.argmax(-1)]
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    step_ms = []
+    for _ in range(HYBRID_NEW):
+        t0 = time.perf_counter()
+        lg, st = tfm.decode_step(params, cfg, st, toks[-1].to(torch.int32),
+                                 page_impl="sp", **kw)
+        toks.append(lg.argmax(-1))
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    expect_launches(launch_counts(), {}, "the expert-parallel mesh run")
+    peak = torch.cuda.max_memory_allocated()
+    mo = cfg.moe
+    line = (f"{cfg.name} {MOE_LAYERS} layers expert-parallel on mesh "
+            f"{dict(zip(mesh.mesh_dim_names, mesh.shape))}: this rank holds "
+            f"{mo.num_experts // n} of {mo.num_experts} experts a MoE layer, "
+            f"{held / 1e9:.3f} GB of experts of the whole model's "
+            f"{whole_experts / 1e9:.3f} GB (params "
+            f"{tfm.param_count(params) * 4 / 1e9:.3f} of "
+            f"{whole_bytes / 1e9:.3f} GB); resident {resident / 1e9:.3f} GB"
+            f", peak {peak / 1e9:.3f} GB; prefill {B}x{S} {prefill_s:.3f} s,"
+            f" decode {statistics.median(step_ms):.2f} ms a step (median of "
+            f"{HYBRID_NEW}; {B * HYBRID_NEW / sum(step_ms) * 1e3:.2f} "
+            f"tokens/s), no kernel launched; card {card_line()}")
+    return line, torch.stack(toks, 1).tolist()
+
+
 def mesh_rank(rank: int) -> int:
-    """One rank of phase 10 (``--mesh-rank``): (a) the kernel checks, then
-    (b) granite-3-8b cut to MESH_LAYERS over the mesh; writes its lines
-    and tokens to ``MESH_DIR/rank_<rank>.json``."""
+    """One rank of phase 10 (``--mesh-rank``): (a) the kernel checks, (b)
+    granite-3-8b cut to MESH_LAYERS over the mesh, then (c) DeepSeek-MoE
+    cut to MOE_LAYERS expert-parallel; writes its lines and tokens to
+    ``MESH_DIR/rank_<rank>.json``."""
     from datetime import timedelta
 
     import torch
@@ -2046,8 +2167,15 @@ def mesh_rank(rank: int) -> int:
             f"{t1 - t0:.3f} s, {HYBRID_NEW} decode steps {t2 - t1:.3f} s "
             f"({B * HYBRID_NEW / (t2 - t1):.2f} tokens/s), no kernel "
             f"launched; card {card_line()}")
+        del params, st
+        gc.collect()
+        torch.cuda.empty_cache()
+        with torch.no_grad():
+            line, moe_rows = moe_mesh_run(torch, mesh, ba, sa, seed)
+        lines.append(line)
         (MESH_DIR / f"rank_{rank}.json").write_text(json.dumps(
-            {"lines": lines, "tokens": dict(enumerate(rows))}))
+            {"lines": lines, "tokens": dict(enumerate(rows)),
+             "moe_tokens": dict(enumerate(moe_rows))}))
     finally:
         dist.destroy_process_group()
     return 0
@@ -2065,6 +2193,8 @@ TRAIN_MESH_RESIDENT = 0.55
 PIPE_MICRO = (4, 1, 1024)
 PIPE_TOL = 1e-5
 TRAIN_MESH_TIMEOUT = 600    # seconds for both ranks, the probe included
+#: the runs of phase 9's model, held against phase 9 (a)
+TRAIN_MESH_NAMES = tuple(f"{d}x{m}" for d, m in TRAIN_MESHES)
 TRAIN_MESH_DIR = ROOT / "build" / "train_mesh_phase"
 
 
@@ -2100,12 +2230,82 @@ def pipe_case(torch, seed: int):
     return layers, x, stage
 
 
+#: (c): the expert-parallel step's mesh, trained from its own oracle
+MOE_TRAIN_MESH = (1, 2)
+
+
+def moe_train_oracle(torch, seed: int) -> dict:
+    """(c)'s single-process oracle: DeepSeek-MoE cut to MOE_LAYERS trained
+    TRAIN_MESH_STEPS steps of TRAIN_BATCH ``SyntheticLM`` batches from
+    seeded f32 params (``make_train_step(cfg, TrainConfig())``), run and
+    freed before the ranks start (params, gradients and AdamW moments
+    are about 36 GB); the record :func:`train_on_mesh` gives."""
+    from repro_torch.models import transformer as tfm
+    from repro_torch.training import optimizer as topt
+    from repro_torch.training import train_loop as ttl
+    cfg = moe_mesh_config()
+    t0 = time.perf_counter()
+    params = moe_mesh_params(torch, cfg, seed + 29)
+    made_line(torch, cfg, params, t0,
+              f"{MOE_LAYERS} of 28 layers (the expert-parallel training "
+              f"oracle)")
+    step = ttl.make_train_step(cfg, ttl.TrainConfig())
+    opt = topt.init_opt_state(params)
+    err = torch.zeros((), device=DEVICE)
+    batches = train_batches(torch, cfg)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
+    reset_launches()
+    steps = []
+    for b in batches:
+        t1 = time.perf_counter()
+        params, opt, err, m = step(params, opt, err, b)
+        loss, gnorm = m["loss"].item(), m["grad_norm"].item()
+        torch.cuda.synchronize()
+        steps.append({"loss": loss, "grad_norm": gnorm,
+                      "secs": time.perf_counter() - t1})
+    peak = torch.cuda.max_memory_allocated()
+    expect_launches(launch_counts(), {}, "the expert-parallel oracle step")
+    out = {"loss": [h["loss"] for h in steps],
+           "grad_norm": [h["grad_norm"] for h in steps],
+           "sumsq": leaf_sumsq(torch, params), "resident": resident}
+    B, S = TRAIN_BATCH
+    print(f"{cfg.name} training oracle ({MOE_LAYERS} layers, one process): "
+          f"losses {out['loss']}, grad norms {out['grad_norm']}; seconds "
+          f"per step {[round(h['secs'], 4) for h in steps]} "
+          f"({B * S / steps[-1]['secs']:.1f} tokens/s at the last); "
+          f"resident {resident / 1e9:.2f} GB, peak {peak / 1e9:.2f} GB")
+    del params, opt, err, batches, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_batches(torch, cfg) -> list:
+    """TRAIN_MESH_STEPS ``SyntheticLM`` batches of TRAIN_BATCH on the
+    card, the same in every process."""
+    from repro_torch.training.data import DataConfig, SyntheticLM
+    B, S = TRAIN_BATCH
+    data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=S,
+                                  global_batch=B))
+    return [{k: torch.as_tensor(v, device=DEVICE)
+             for k, v in data.batch(s).items()}
+            for s in range(TRAIN_MESH_STEPS)]
+
+
 def train_mesh_phase(torch, seed: int, oracle: dict) -> dict:
-    """The sequential pipeline oracle, then MESH_RANKS processes of
-    :func:`train_mesh_rank`; fails unless both exit 0 and their numbers
-    hold against phase 9 (a)'s (``oracle``) and the oracle.  Returns
-    rank 0's runs (for phase 12)."""
+    """The sequential pipeline oracle and (c)'s single-process step, then
+    MESH_RANKS processes of :func:`train_mesh_rank`; fails unless both
+    exit 0 and their numbers hold against phase 9 (a)'s (``oracle``),
+    (c)'s oracle and the pipeline's.  Returns rank 0's runs (for phase
+    12)."""
     import shutil
+    oracles = {f"{d}x{m}": oracle for d, m in TRAIN_MESHES}
+    oracles["moe-{}x{}".format(*MOE_TRAIN_MESH)] = moe_train_oracle(torch,
+                                                                   seed)
     layers, x, stage = pipe_case(torch, seed)
     with torch.no_grad():
         want = x
@@ -2131,19 +2331,21 @@ def train_mesh_phase(torch, seed: int, oracle: dict) -> dict:
         return abs(x - y) / abs(y)
     B, S = TRAIN_BATCH
     for name in out[0]["runs"]:
+        oracle = oracles[name]
+        what = "phase 9 (a)" if name in TRAIN_MESH_NAMES else "its oracle"
         for r, res in enumerate(out):
             run = res["runs"][name]
             for s, h in enumerate(run["steps"]):
                 for k in ("loss", "grad_norm"):
                     if not rel(h[k], oracle[k][s]) <= TRAIN_MESH_RTOL:
                         fail(f"training mesh {name} rank {r} step {s} {k} "
-                             f"{h[k]} vs phase 9 (a) {oracle[k][s]}")
+                             f"{h[k]} vs {what} {oracle[k][s]}")
             worst = max(rel(v, oracle["sumsq"][k])
                         for k, v in run["sumsq"].items())
             if set(run["sumsq"]) != set(oracle["sumsq"]) or not (
                     worst <= TRAIN_MESH_RTOL):
                 fail(f"training mesh {name} rank {r}: leaf sums of squares "
-                     f"off phase 9 (a)'s by {worst:.3g} relative")
+                     f"off {what}'s by {worst:.3g} relative")
             if name == "2x1" and run["resident"] > (
                     TRAIN_MESH_RESIDENT * oracle["resident"]):
                 fail(f"training mesh {name} rank {r}: {run['resident']} B "
@@ -2156,7 +2358,7 @@ def train_mesh_phase(torch, seed: int, oracle: dict) -> dict:
                 f"training mesh {name} (data, model) rank {r}: losses "
                 f"{[h['loss'] for h in steps]}, grad norms "
                 f"{[h['grad_norm'] for h in steps]} (worst relative to "
-                f"phase 9 (a): loss {off['loss']:.3g}, grad norm "
+                f"{what}: loss {off['loss']:.3g}, grad norm "
                 f"{off['grad_norm']:.3g}, leaf sums of squares "
                 f"{worst:.3g}); seconds per step "
                 f"{[round(h['secs'], 4) for h in steps]} ("
@@ -2165,7 +2367,7 @@ def train_mesh_phase(torch, seed: int, oracle: dict) -> dict:
                 f"{[round(h['bytes'] / 1e9, 3) for h in steps]} GB, "
                 f"{[round(h['coll_secs'], 3) for h in steps]} s; resident "
                 f"before the first step {run['resident'] / 1e9:.2f} GB "
-                f"({run['resident'] / oracle['resident']:.3f} of phase 9's "
+                f"({run['resident'] / oracle['resident']:.3f} of {what}'s "
                 f"{oracle['resident'] / 1e9:.2f} GB), peak "
                 f"{run['peak'] / 1e9:.2f} GB")
     for r, res in enumerate(out):
@@ -2183,12 +2385,13 @@ def train_mesh_phase(torch, seed: int, oracle: dict) -> dict:
     return out[0]["runs"]
 
 
-def train_on_mesh(torch, shape, seed: int) -> dict:
-    """Phase 9's model and batches trained TRAIN_MESH_STEPS steps on a
-    (data, model) mesh of ``shape``: per step loss, grad norm, seconds
-    and collectives; the memory resident before the first step and the
-    peak; each leaf's sum of squares after the last step (its blocks'
-    summed over the ranks, each block counted once)."""
+def train_on_mesh(torch, shape, cfg, seed: int) -> dict:
+    """``cfg`` (seeded f32 params from ``seed``) trained TRAIN_MESH_STEPS
+    steps of :func:`train_batches` on a (data, model) mesh of ``shape``:
+    per step loss, grad norm, seconds and collectives; the memory
+    resident before the first step and the peak; each leaf's sum of
+    squares after the last step (its blocks' summed over the ranks, each
+    block counted once)."""
     import torch.distributed as dist
     from repro_torch.bridge import map_leaves
     from repro_torch.distributed import collectives as coll
@@ -2196,21 +2399,14 @@ def train_on_mesh(torch, shape, seed: int) -> dict:
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.models import transformer as tfm
     from repro_torch.training import train_loop as ttl
-    from repro_torch.training.data import DataConfig, SyntheticLM
     mesh = make_host_mesh(*shape, device_type=DEVICE)
-    cfg = train_config_of()
-    gen = torch.Generator(device=DEVICE).manual_seed(seed + 11)
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
     whole = tfm.init_params(cfg, generator=gen, device=DEVICE,
                             dtype=torch.float32)
     tc = ttl.TrainConfig()
     params, opt, err = ttl.shard_state(whole, None, tc, mesh)
     del whole
-    B, S = TRAIN_BATCH
-    data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=S,
-                                  global_batch=B))
-    batches = [{k: torch.as_tensor(v, device=DEVICE)
-                for k, v in data.batch(s).items()}
-               for s in range(TRAIN_MESH_STEPS)]
+    batches = train_batches(torch, cfg)
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.synchronize()
@@ -2294,8 +2490,11 @@ def train_mesh_rank(rank: int) -> int:
         world_size=MESH_RANKS, timeout=timedelta(seconds=300))
     try:
         lines = probe.describe(probe.probe())
-        runs = {f"{d}x{m}": train_on_mesh(torch, (d, m), seed)
+        runs = {f"{d}x{m}": train_on_mesh(torch, (d, m), train_config_of(),
+                                          seed + 11)
                 for d, m in TRAIN_MESHES}
+        runs["moe-{}x{}".format(*MOE_TRAIN_MESH)] = train_on_mesh(
+            torch, MOE_TRAIN_MESH, moe_mesh_config(), seed + 29)
         pipe = pipeline_on_ranks(torch, seed)
         (TRAIN_MESH_DIR / f"rank_{rank}.json").write_text(json.dumps(
             {"probe": lines, "runs": runs, "pipeline": pipe}))
@@ -2312,8 +2511,11 @@ DRYRUN_PEAK_RTOL = 0.15         # MemTracker's peak against the allocator's
 DRYRUN_FLOPS_RTOL = 1e-9        # FLOPs on both ranks against train_flops
 DRYRUN_TIMEOUT = 300            # seconds for (a)'s two meshes
 #: (b): one production cell on the 256-rank fake mesh, started beside (a)
-#: once every timed phase has ended
+#: once every timed phase has ended, its depth cut to DRYRUN_CELL_LAYERS
+#: (every op of every microbatch runs on the host: all 40 layers took
+#: 271-375 s)
 DRYRUN_CELL = ("granite-3-8b", "train_4k")
+DRYRUN_CELL_LAYERS = 10
 DRYRUN_CELL_TIMEOUT = 800       # seconds from the phase's start
 
 
@@ -2363,21 +2565,30 @@ def dryrun_subprocess(what: str) -> int:
     DRYRUN_DIR.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
     if what == "production":
+        from repro_torch.configs import get_config
         arch, shape = DRYRUN_CELL
+        full, L = get_config(arch), DRYRUN_CELL_LAYERS
         rec = dryrun.run_cell(arch, shape, out_dir=str(DRYRUN_DIR),
-                              verbose=True, device="meta")
+                              verbose=True, device="meta",
+                              cfg=full.with_(n_layers=L,
+                                             mixers=full.mixers[:L],
+                                             ffns=full.ffns[:L]))
         rec["wall_s"] = time.perf_counter() - t0
         (DRYRUN_DIR / "production.json").write_text(json.dumps(rec))
         return 0
     dryrun.fake_world(MESH_RANKS)
     B, S = TRAIN_BATCH
     out = {}
-    for d, m in TRAIN_MESHES:
+    for name, arch, cfg, (d, m) in (
+            [(f"{d}x{m}", "granite-3-8b", train_config_of(), (d, m))
+             for d, m in TRAIN_MESHES]
+            + [("moe-{}x{}".format(*MOE_TRAIN_MESH), "deepseek-moe-16b",
+                moe_mesh_config(), MOE_TRAIN_MESH)]):
         mesh = make_host_mesh(d, m, device_type=DEVICE)
         make_groups(mesh)
-        out[f"{d}x{m}"] = dryrun.run_cell(
-            "granite-3-8b", "phase11", mesh=mesh, verbose=False,
-            cfg=train_config_of(), shape=ShapeSpec("phase11", S, B, "train"),
+        out[name] = dryrun.run_cell(
+            arch, "phase11", mesh=mesh, verbose=False, cfg=cfg,
+            shape=ShapeSpec("phase11", S, B, "train"),
             param_dtype=torch.float32, microbatches=1, moe_groups=1)
     out["wall_s"] = time.perf_counter() - t0
     (DRYRUN_DIR / "predict.json").write_text(json.dumps(out))
@@ -2418,9 +2629,14 @@ def dryrun_phase(measured: dict) -> None:
                  f"({peak:+.3%})")
         rl = p["roofline"]
         both = rl["flops_per_chip"] * MESH_RANKS
-        if abs(both / (flops + recompute) - 1) > DRYRUN_FLOPS_RTOL:
-            fail(f"dry run {name}: {both} FLOP on both ranks vs "
-                 f"train_flops' {flops + recompute}")
+        counted = ""
+        if name in TRAIN_MESH_NAMES:        # train_flops counts granite's
+            if abs(both / (flops + recompute) - 1) > DRYRUN_FLOPS_RTOL:
+                fail(f"dry run {name}: {both} FLOP on both ranks vs "
+                     f"train_flops' {flops + recompute}")
+            counted = (f", equal to train_flops' "
+                       f"{(flops + recompute) / 1e12:.4f} (forward + "
+                       f"backward + recompute)")
         print(f"dry run of phase 11's {name} (data, model) step, rank 0 of "
               f"{MESH_RANKS} fake ranks: {calls} collectives of "
               f"{nbytes / 1e9:.3f} GB {p['collectives']['payload_by_kind']}"
@@ -2430,9 +2646,8 @@ def dryrun_phase(measured: dict) -> None:
               f"{p['memory']['peak_bytes'] / 1e9:.3f} GB vs measured "
               f"{run['peak'] / 1e9:.3f} GB ({peak:+.3%}); "
               f"{rl['flops_per_chip'] / 1e12:.4f} TFLOP on rank 0, "
-              f"{both / 1e12:.4f} on both, equal to train_flops' "
-              f"{(flops + recompute) / 1e12:.4f} (forward + backward + "
-              f"recompute); roofline {rl['step_s']:.4f} s "
+              f"{both / 1e12:.4f} on both{counted}; roofline "
+              f"{rl['step_s']:.4f} s "
               f"({rl['bottleneck']}) at {rl['constants']['peak_flops']:.3g} "
               f"FLOP/s")
     wait_dryrun("production", runs["production"],
@@ -2440,7 +2655,8 @@ def dryrun_phase(measured: dict) -> None:
     rec = json.loads((DRYRUN_DIR / "production.json").read_text())
     rl, mem = rec["roofline"], rec["memory"]
     import torch
-    print(f"dry run {rec['arch']} x {rec['shape']} on the "
+    print(f"dry run {rec['arch']} ({DRYRUN_CELL_LAYERS} of 40 layers) x "
+          f"{rec['shape']} on the "
           f"{rec['chips']}-rank fake mesh {rec['mesh']} (torch "
           f"{torch.__version__}, {rec['wall_s']:.1f} s beside (a)): rank 0 {rl['flops_per_chip'] / 1e12:.1f} TFLOP, "
           f"{rl['hbm_bytes_per_chip'] / 1e9:.1f} GB HBM, collectives "

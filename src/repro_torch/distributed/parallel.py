@@ -23,11 +23,20 @@ and :class:`Layout` puts in what GSPMD would:
   blocks are head-major, so query head h keeps KV head h // G), and the
   replicated biases ``bq``/``bk``/``bv`` are cut to those heads.  Where
   ``H`` or ``KV`` does not split over ``model`` the attention leaves are
-  gathered whole instead.  Every other leaf the rules put on ``model``
-  (MoE experts, the Mamba, RWKV-6 and MLA projections, the frontends) is
-  gathered whole just in time: those layers run whole on every rank.
-  The vocabulary stays split: the lookup and the loss are vocab-parallel
-  (``collectives.vocab_parallel_embed``, ``vocab_parallel_nll``).
+  gathered whole instead.  The vocabulary stays split: the lookup and the
+  loss are vocab-parallel (``collectives.vocab_parallel_embed``,
+  ``vocab_parallel_nll``).
+* **Expert parallel over ``model``.**  An MoE layer keeps the rank's
+  ``E/|model|`` experts of ``w_gate``, ``w_up`` and ``w_down`` and its
+  column and row blocks of the shared experts (``sharding.EXPERT_DIMS``),
+  gathered over the data dims only, and computes only those
+  (``models/moe.py``: every rank routes the whole group, the partial
+  outputs are summed over ``model``); the router is gathered whole.
+  Where ``E`` or the shared width does not split over ``model``
+  (``sharding.expert_parallel``) the experts are gathered whole and run
+  whole on every rank.  Every other leaf the rules put on ``model`` (the
+  Mamba, RWKV-6 and MLA projections, the frontends) is gathered whole
+  just in time: those layers run whole on every rank.
 * **Data parallel.**  The rank runs its rows; the loss is normalised by
   the label count of the *global* microbatch, and MoE layers route the
   reference's groups of the global token stream (``models/moe.py``), so
@@ -45,19 +54,25 @@ import torch
 
 from repro_torch.bridge import map_leaves, tree_map
 from repro_torch.distributed import collectives as coll
-from repro_torch.distributed.sharding import P, dp_axes, spec_axes
+from repro_torch.distributed.sharding import (EXPERT_DIMS, P, dp_axes,
+                                              expert_parallel, spec_axes)
 from repro_torch.launch.mesh import axis_sizes
 
 #: attention leaves kept tensor-parallel (columns, then ``wo``'s rows)
 TP_ATTN = ("wq", "wk", "wv", "wo")
 #: dense-FFN leaves kept tensor-parallel
 TP_FFN = ("w_gate", "w_up", "w_down")
+#: MoE leaves kept expert-parallel (the rank's experts, the shared
+#: experts' columns and rows)
+EP_FFN = tuple(EXPERT_DIMS)
 #: replicated attention biases, cut to the rank's heads
 HEAD_BIASES = ("bq", "bk", "bv")
 
 
 class TensorParallel:
-    """Megatron's two maps over the ``model`` dim of ``mesh``."""
+    """Megatron's two maps over the ``model`` dim of ``mesh``, and this
+    rank's ``index`` among its ``size`` members (which also fixes an MoE
+    layer's expert range: ``models/moe.py``'s ``ep``)."""
 
     def __init__(self, mesh, axis: str = "model"):
         self.mesh, self.axis = mesh, axis
@@ -156,14 +171,18 @@ class Layout:
     def layer(self, lp: dict, where: tuple, i: int):
         """Layer ``i``'s compute params from its local blocks ``lp`` (at
         ``where`` in the params tree) → (params, tp of the mixer, tp of
-        the FFN), a tp None where that part runs whole."""
+        the FFN), a tp None where that part runs whole; an MoE layer's
+        FFN tp is its expert-parallel map (``moe_mix``'s ``ep``)."""
         mix, ffn = self.cfg.layer_sig(i)
         tp_mix = self.tp if (mix == "attn" and self.attn_tp()) else None
-        tp_ffn = self.tp if ffn == "dense" else None
+        tp_ffn = self.tp if (ffn == "dense" or (
+            self.tp is not None and expert_parallel(self.cfg, self.tp.size))
+        ) else None
         out = {}
         for part, sub in lp.items():
             tp = {"mix": tp_mix, "ffn": tp_ffn}.get(part)
-            keep = {"mix": TP_ATTN, "ffn": TP_FFN}.get(part, ())
+            keep = {"mix": TP_ATTN,
+                    "ffn": TP_FFN if ffn == "dense" else EP_FFN}.get(part, ())
             out[part] = {}
             for name, t in sub.items():
                 at = where + (part, name)

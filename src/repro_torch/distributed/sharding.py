@@ -25,9 +25,11 @@ dim.  Rules go by leaf *path*: the port's params tree is walked with
 those of the reference's stacked leaves; a body block's own tensor takes
 ``spec[1:]``.
 
-Serving places only its state by these rules (the KV pools over N, the
-embedding's V rows inside ``vocab_parallel_embed``) and keeps every
-weight whole on every rank.  Training holds its parameters, AdamW
+Serving places its state by these rules (the KV pools over N, the
+embedding's V rows inside ``vocab_parallel_embed``) and its MoE experts
+(each rank computes its ``model`` block of them: :func:`expert_shards`
+cuts the blocks once, or compute views them in whole stacks); every
+other weight stays whole on every rank.  Training holds its parameters, AdamW
 moments and error state sharded: :func:`shard_params` makes each tensor a
 DTensor of this rank's block under :func:`param_specs` (split as DTensor
 splits, uneven dims with a short last block: :func:`block_of`), and
@@ -181,6 +183,81 @@ def param_placements(params, mesh) -> dict:
         lambda key, block, _x, spec: to_placements(
             spec if block is None else spec[1:], mesh),
         params, param_specs(params, mesh))
+
+
+# ------------------------------------------------------ expert parallelism
+#: the MoE leaves the ``model`` dim splits (expert parallelism), each by
+#: the dim its rule splits: the expert stacks (E, d_in, d_out) on E, the
+#: shared experts' gate and up on their columns, their down on its rows
+EXPERT_DIMS = {"w_gate": 0, "w_up": 0, "w_down": 0, "s_gate": 1, "s_up": 1,
+               "s_down": 0}
+
+
+def expert_parallel(cfg, n: int) -> bool:
+    """Whether MoE layers run expert-parallel over ``n`` ``model`` ranks:
+    the config has MoE layers, ``n > 1``, and both the routed experts and
+    the shared experts' width split evenly over the ranks (otherwise the
+    experts run whole on every rank)."""
+    mo = cfg.moe
+    if n <= 1 or mo is None or "moe" not in cfg.ffns:
+        return False
+    shared = (mo.d_expert or cfg.d_ff) * mo.num_shared
+    return mo.num_experts % n == 0 and shared % n == 0
+
+
+def expert_block(t: torch.Tensor, name: str, cfg, n: int, i: int):
+    """Block ``i`` of ``n`` of the MoE leaf ``name`` under its ``model``
+    split (:data:`EXPERT_DIMS`): a view of a whole leaf, or ``t`` itself
+    where it is that block already (the split dim 1/n of the whole).  Any
+    other size raises."""
+    d = EXPERT_DIMS[name]
+    mo = cfg.moe
+    whole = (mo.num_experts if name.startswith("w_")
+             else (mo.d_expert or cfg.d_ff) * mo.num_shared)
+    if t.shape[d] == whole:
+        return t.narrow(d, i * (whole // n), whole // n)
+    if t.shape[d] == whole // n:
+        return t
+    raise ValueError(f"MoE leaf {name} of shape {tuple(t.shape)}: dim {d} "
+                     f"is neither the whole {whole} nor one of {n} blocks "
+                     f"({whole // n})")
+
+
+def expert_blocks(ffn: dict, cfg, n: int, i: int) -> dict:
+    """An MoE layer's params with each expert leaf as block ``i`` of ``n``
+    (:func:`expert_block`); the router and the norm as they are."""
+    return {k: expert_block(v, k, cfg, n, i) if k in EXPERT_DIMS else v
+            for k, v in ffn.items()}
+
+
+def expert_shards(params, cfg, mesh, axis: str = "model") -> dict:
+    """A serving rank's params with every MoE layer's experts cut to this
+    rank's blocks under the reference's ``model`` split (``param_specs``:
+    the expert stacks ``P("model", fsdp, None)`` and ``P("model", None,
+    fsdp)``, the shared experts' columns and rows), as contiguous copies:
+    the caller can drop the whole stacks.  Every other tensor is the
+    caller's own.  Params of a config whose experts do not split over
+    ``axis`` (:func:`expert_parallel`) come back as they are."""
+    n = axis_sizes(mesh).get(axis, 1)
+    if not expert_parallel(cfg, n):
+        return params
+    i = mesh.get_local_rank(axis)
+    prefix, period = cfg.segmentation()
+
+    def cut(lp: dict, layer: int) -> dict:
+        if cfg.ffns[layer] != "moe":
+            return lp
+        blocks = expert_blocks(lp["ffn"], cfg, n, i)
+        return dict(lp, ffn={
+            k: v.clone(memory_format=torch.contiguous_format)
+            if k in EXPERT_DIMS else v for k, v in blocks.items()})
+
+    out = dict(params)
+    out["prefix"] = [cut(lp, k) for k, lp in enumerate(params["prefix"])]
+    out["body"] = [[cut(lp, prefix + b * period + j)
+                    for b, lp in enumerate(blocks)]
+                   for j, blocks in enumerate(params["body"])]
+    return out
 
 
 # ------------------------------------------------------------ batch specs

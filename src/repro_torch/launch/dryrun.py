@@ -18,11 +18,14 @@ peak (zero allocation).  The step is the port's own entry point:
              moments and accumulator for ``TRAIN_LOWMEM``)
     prefill  ``transformer.prefill(mesh=...)`` over bf16 caches whose
              pools are the rank's rows (``cache_spec(..., round_to=
-             shards)``); weights whole on every rank, as serving keeps
-             them (``models/transformer.py``)
+             shards)``); the MoE experts the rank's ``model`` blocks
+             (``sharding.expert_shards``), every other weight whole on
+             every rank, as serving keeps them (``models/transformer.py``);
+             MoE layers route ``n_dp`` groups, as the reference's
     decode   ``transformer.decode_step(page_impl="sp"|"sp_opt",
-             mesh=...)`` over the same caches, SWA models over the ring
-             pool of their window
+             mesh=...)`` over the same caches and weights, SWA models
+             over the ring pool of their window; MoE layers route one
+             group
 
 One JSON a cell goes to ``build/dryrun/`` (``--out``), with the
 reference's keys (``fits_hbm_80g`` for the H100's 80 GB in place of
@@ -32,10 +35,7 @@ error and the frame of the port that raised it, and the sweep exits 1.
 
 ``page_impl`` takes ``"sp"`` or ``"sp_opt"`` only: the reference's
 ``"ref"`` and ``"pallas"`` run unsharded, and ``decode_step`` refuses
-them on a mesh.  ``moe_groups`` applies to train cells only: the port's
-``prefill`` routes its MoE layers in one group, where the reference's
-routes ``n_dp`` groups (``repro/launch/dryrun.py:205``), so a serving
-cell refuses the option rather than record a layout it did not run.
+them on a mesh.  ``moe_groups`` overrides every cell's routing groups.
 
 Two kinds of stand-in tensor, picked by ``device`` (default
 :data:`DEVICE`): fake CUDA tensors under ``FakeTensorMode`` where torch
@@ -189,15 +189,19 @@ def cell_meta(arch: str, shape: ShapeSpec, cfg: ModelConfig, mesh, *,
               param_dtype=torch.bfloat16) -> dict:
     """The record's fields that the cell's config, shape and mesh fix,
     with no tensor made (``mesh``: anything with ``mesh_dim_names`` and
-    ``shape``): the reference's microbatches and MoE groups of a train
-    cell, the decode layout and pool bytes a rank of a serving cell,
-    tokens a step and the parameter counts."""
+    ``shape``): the reference's microbatches of a train cell and MoE
+    groups of every cell (``n_dp`` for train and prefill, 1 for decode,
+    unless ``moe_groups`` is given), the decode layout and pool bytes a
+    rank of a serving cell, tokens a step and the parameter counts."""
     if page_impl not in tfm.SP_IMPLS:
         raise ValueError(f"page_impl must be one of {tfm.SP_IMPLS} on a "
                          f"mesh (decode_step refuses the others), got "
                          f"{page_impl!r}")
     sizes = axis_sizes(mesh)
     B, S = shape.global_batch, shape.seq_len
+    n_dp = _size(mesh, shard_rules.dp_axes(mesh))
+    groups = moe_groups if moe_groups is not None else (
+        1 if shape.kind == "decode" else n_dp)
     meta = {"arch": arch, "shape": shape.name, "kind": shape.kind,
             "mesh": list(sizes.values()), "mesh_axes": list(sizes),
             "chips": math.prod(sizes.values()), "multi_pod": multi_pod,
@@ -205,22 +209,15 @@ def cell_meta(arch: str, shape: ShapeSpec, cfg: ModelConfig, mesh, *,
             "active_params": cfg.active_param_count(),
             "dtype": str(param_dtype).removeprefix("torch.")}
     if shape.kind == "train":
-        n_dp = _size(mesh, shard_rules.dp_axes(mesh))
         mb = microbatches or TRAIN_MICROBATCHES.get(arch, max(1, B // 32))
         meta.update(microbatches=min(mb, max(1, B // n_dp)),  # rows ≥ dp
-                    moe_groups=moe_groups if moe_groups is not None
-                    else n_dp, tokens_per_step=B * S)
+                    moe_groups=groups, tokens_per_step=B * S)
         return meta
-    if moe_groups is not None:
-        raise ValueError(
-            f"moe_groups={moe_groups} on a {shape.kind} cell: the port's "
-            f"prefill and decode_step route one MoE group (the reference's "
-            f"prefill routes n_dp groups)")
     ba, sa, st_specs = _serving_layout(cfg, shape, mesh, page_impl)
     pool_global = sum(math.prod(st_specs[k][0]) * st_specs[k][1].itemsize
                       for k in coll.POOL_KEYS if k in st_specs)
     meta.update(pool_bytes_per_chip=pool_global // _size(mesh, ba + sa),
-                batch_axes=list(ba), seq_axes=list(sa), moe_groups=1,
+                batch_axes=list(ba), seq_axes=list(sa), moe_groups=groups,
                 tokens_per_step=B * S if shape.kind == "prefill" else B)
     return meta
 
@@ -275,6 +272,7 @@ def build_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
         return make_train_step(cfg, tc, mesh), (params, opt, err,
                                                 batch), meta
 
+    params = shard_rules.expert_shards(params, cfg, mesh)
     ba, sa, st_specs = _serving_layout(cfg, shape, mesh, page_impl)
     state = _zeros({k: v for k, v in st_specs.items() if k != "tables"},
                    device)
@@ -283,7 +281,8 @@ def build_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
     if shape.kind == "decode":
         state["lengths"].fill_(shape.seq_len)
     state = coll.local_state(state, cfg, mesh, batch_axes=ba, seq_axes=sa)
-    kw = dict(mesh=mesh, batch_axes=ba, seq_axes=sa)
+    kw = dict(mesh=mesh, batch_axes=ba, seq_axes=sa,
+              moe_groups=meta["moe_groups"])
 
     if shape.kind == "prefill":
         inp = _zeros(input_specs(arch, shape.name, cfg=cfg, shape=shape),

@@ -2,10 +2,8 @@
 
 PyTorch counterpart of ``repro.models.moe``, routing groups included;
 on a mesh the groups are those of the global token stream (``dp`` in
-:func:`moe_mix`).  The reference's expert-parallel constraint
-(``_ep_constrain``) pins the expert dim of GSPMD's buffers and has no
-eager meaning: each rank runs the experts whole.  Dispatch is the same
-sort-based, capacity-bounded scheme, per group:
+:func:`moe_mix`).  Dispatch is the same sort-based, capacity-bounded
+scheme, per group:
 
   1. top-k routing per token in f32, gates renormalised over the chosen k,
   2. flatten (token, k) slots and sort them stably by expert id,
@@ -14,6 +12,16 @@ sort-based, capacity-bounded scheme, per group:
   5. batched expert SwiGLU as ``torch.bmm`` over the expert dim,
   6. gather back through the inverse permutation, weight by gates, sum
      over k.
+
+Expert parallelism (``ep`` in :func:`moe_mix`) is the eager counterpart
+of the reference's ``_ep_constrain``, which pins the expert dim of
+GSPMD's dispatch buffers to ``model``: a rank holds the ``E/|model|``
+experts ``[i·E_l, (i+1)·E_l)`` of its ``model`` index ``i`` (and the
+shared experts' column and row blocks), routes the whole group as every
+rank does, fills and runs only its own ``(E_l, C, D)`` buffer, and the
+ranks' partial outputs are summed over ``model``.  The ranks hold the
+same activations, so no token moves between them: the one collective is
+that SUM, as a tensor-parallel dense FFN issues it.
 
 Capacity drops make every token's output depend on the whole group, so
 callers route exactly the token stream the reference routes, padding
@@ -90,11 +98,17 @@ def _route(router: torch.Tensor, x: torch.Tensor, top_k: int):
 
 def _dispatch_compute(x: torch.Tensor, gates: torch.Tensor,
                       eidx: torch.Tensor, w_gate, w_up, w_down,
-                      capacity: int) -> torch.Tensor:
-    """x: (T, D); gates/eidx: (T, k) → (T, D) routed-expert output."""
+                      capacity: int, num_experts: int,
+                      first: int = 0) -> torch.Tensor:
+    """x: (T, D); gates/eidx: (T, k) → (T, D) f32 output of the experts
+    ``[first, first + E_l)`` (``E_l = w_gate.shape[0]``, all
+    ``num_experts`` of them unless expert-parallel).  A slot routed to
+    another expert, or dropped, adds a zero row at row 0 and contributes
+    0: each kept destination gets one row plus zeros, so the sum is
+    exact."""
     T, D = x.shape
     k = eidx.shape[1]
-    E = w_gate.shape[0]
+    E, El = num_experts, w_gate.shape[0]
     eflat = eidx.reshape(-1)                           # (T·k,)
     order = torch.argsort(eflat, stable=True)
     sorted_e = eflat[order]
@@ -102,25 +116,24 @@ def _dispatch_compute(x: torch.Tensor, gates: torch.Tensor,
         0, eflat, torch.ones_like(eflat))
     seg_start = torch.cumsum(counts, 0) - counts
     pos_in_e = torch.arange(T * k, device=x.device) - seg_start[sorted_e]
-    keep = pos_in_e < capacity
-    dest = sorted_e * capacity + torch.where(keep, pos_in_e, 0)
+    local_e = sorted_e - first
+    mine = (pos_in_e < capacity) & (local_e >= 0) & (local_e < El)
+    dest = torch.where(mine, local_e * capacity + pos_in_e, 0)
     token_of = order // k                              # source token per slot
-    contrib = torch.where(keep[:, None], x[token_of], 0)
-    # each destination gets one kept row plus zeros: the sum is exact
-    buf = torch.zeros(E * capacity, D, device=x.device, dtype=x.dtype)
-    buf = buf.index_add_(0, dest, contrib).reshape(E, capacity, D)
+    contrib = torch.where(mine[:, None], x[token_of], 0)
+    buf = torch.zeros(El * capacity, D, device=x.device, dtype=x.dtype)
+    buf = buf.index_add_(0, dest, contrib).reshape(El, capacity, D)
     h = F.silu(torch.bmm(buf, w_gate)) * torch.bmm(buf, w_up)
-    out = torch.bmm(h, w_down).reshape(E * capacity, D)
-    slot_out = torch.where(keep[:, None], out[dest], 0)   # (T·k, D)
+    out = torch.bmm(h, w_down).reshape(El * capacity, D)
+    slot_out = torch.where(mine[:, None], out[dest], 0)   # (T·k, D)
     inv = torch.empty_like(order)
     inv[order] = torch.arange(T * k, device=x.device)
     slot_out = slot_out[inv].reshape(T, k, D)
-    return torch.einsum("tkd,tk->td", slot_out.float(),
-                        gates).to(x.dtype)
+    return torch.einsum("tkd,tk->td", slot_out.float(), gates)
 
 
 def moe_mix(params: dict, x: torch.Tensor, cfg, *, num_groups: int = 1,
-            capacity_factor: float = 1.25, dp=None):
+            capacity_factor: float = 1.25, dp=None, ep=None):
     """MoE FFN body on pre-normed x: (B, S, D) → (out, aux_loss).
 
     The B·S tokens are split into ``num_groups`` routing groups (reduced
@@ -133,7 +146,18 @@ def moe_mix(params: dict, x: torch.Tensor, cfg, *, num_groups: int = 1,
     order).  Where G splits over the ranks a rank's rows are whole
     groups and it routes them; otherwise it gathers every rank's tokens,
     routes all G groups and keeps its rows.  ``aux`` is then this rank's
-    share: the SUM over the ranks is the mean over all G groups."""
+    share: the SUM over the ranks is the mean over all G groups.
+
+    With ``ep`` (``distributed.parallel.TensorParallel`` over ``model``:
+    ``size`` ranks, this one ``index``) the expert stacks in ``params``
+    are this rank's ``E / size`` experts and the shared experts' gate and
+    up columns and down rows its blocks.  Every rank routes every group
+    (the router, ``keep`` and the aux loss are the same on each), runs
+    its own experts' slots, and the partial outputs, shared ones
+    included, are summed over ``model`` in f32 and rounded once.  Only
+    the partial path's inputs (the tokens it dispatches, the gates it
+    combines with) pass ``ep.copy_in``, so the router's and the aux
+    loss's gradients are not summed over ``model``."""
     mo = cfg.moe
     B, S, D = x.shape
     n = dp.size if dp is not None else 1
@@ -142,31 +166,50 @@ def moe_mix(params: dict, x: torch.Tensor, cfg, *, num_groups: int = 1,
     G = num_groups
     while T % G:
         G -= 1
-    cap = capacity_for(T // G, mo.top_k, mo.num_experts, capacity_factor)
+    E = mo.num_experts
+    cap = capacity_for(T // G, mo.top_k, E, capacity_factor)
     gathered = n > 1 and G % n != 0
     xs = dp.gather_rows(xf) if gathered else xf
-    outs, auxs = [], []
-    for xt in xs.reshape(-1, T // G, D):
-        gates, eidx, aux = _route(params["router"], xt, mo.top_k)
-        outs.append(_dispatch_compute(xt, gates, eidx, params["w_gate"],
-                                      params["w_up"], params["w_down"], cap))
-        auxs.append(aux)
-    out = torch.cat(outs)
-    if gathered:
-        out = out[dp.index * B * S:(dp.index + 1) * B * S]
-    out = out.reshape(B, S, D)
+    first = 0
+    if ep is not None:
+        if params["w_gate"].shape[0] * ep.size != E:
+            raise ValueError(
+                f"expert-parallel over {ep.size} ranks needs {E // ep.size} "
+                f"experts a rank, got {params['w_gate'].shape[0]}")
+        first = ep.index * params["w_gate"].shape[0]
+    routed = [_route(params["router"], xt, mo.top_k)
+              for xt in xs.reshape(-1, T // G, D)]
+    gates = torch.stack([g for g, _, _ in routed])
+    xd = xs
+    if ep is not None:                    # the partial path's inputs
+        xd, gates = ep.copy_in(xs), ep.copy_in(gates)
+    # rounded a group at a time, as the reference rounds; expert-parallel
+    # partials stay f32 until their SUM
+    dt = x.dtype if ep is None else torch.float32
+    out = torch.cat([
+        _dispatch_compute(xt, g, e, params["w_gate"], params["w_up"],
+                          params["w_down"], cap, E, first).to(dt)
+        for xt, g, (_, e, _) in zip(xd.reshape(-1, T // G, D), gates,
+                                    routed)])
+    rows = slice(dp.index * B * S, (dp.index + 1) * B * S) if gathered \
+        else slice(None)
+    out = out[rows]
     if mo.num_shared:
-        sh = (F.silu(xf @ params["s_gate"]) * (xf @ params["s_up"])
+        xsh = xd[rows]
+        sh = (F.silu(xsh @ params["s_gate"]) * (xsh @ params["s_up"])
               ) @ params["s_down"]
-        out = out + sh.reshape(B, S, D)
-    aux = (torch.stack(auxs).mean() if n == 1 else
-           torch.stack(auxs).sum() / (G * (n if gathered else 1)))
-    return out, aux * mo.router_aux_coef
+        out = out + sh.to(dt)
+    if ep is not None:
+        out = ep.reduce_out(out).to(x.dtype)
+    auxs = torch.stack([a for _, _, a in routed])
+    aux = (auxs.mean() if n == 1 else
+           auxs.sum() / (G * (n if gathered else 1)))
+    return out.reshape(B, S, D), aux * mo.router_aux_coef
 
 
 def moe_ffn(params: dict, x: torch.Tensor, cfg, *, num_groups: int = 1,
-            dp=None):
+            dp=None, ep=None):
     """Pre-norm residual MoE block: (B, S, D) → (x + out, aux)."""
     h = rms_norm(x, params["norm"], cfg.norm_eps)
-    out, aux = moe_mix(params, h, cfg, num_groups=num_groups, dp=dp)
+    out, aux = moe_mix(params, h, cfg, num_groups=num_groups, dp=dp, ep=ep)
     return x + out, aux

@@ -61,20 +61,32 @@ batch rows and pool shard and gathers the batch back; the token writes
 and ``prefill``'s cache writes (``scatter_seq_sp``) land only in the
 rank's own pool rows; the embedding lookup is the vocab-parallel one
 over the rank's V rows of ``params["embed"]`` (a view: the table stays
-whole, as a tied unembedding needs it).  Serving keeps every other
-weight whole on every rank.
+whole, as a tied unembedding needs it).  MoE layers run expert-parallel
+over ``model`` where their experts split evenly over it
+(``sharding.expert_parallel``): each rank computes its ``E/|model|``
+experts and its blocks of the shared experts, and the partial outputs
+are summed over ``model`` (``models/moe.py``).  ``params`` may hold the
+whole expert stacks (compute takes a view of the rank's block) or only
+the rank's blocks (``sharding.expert_shards``); the size of the split
+dim tells which.  Every other weight stays whole on every rank.
+
+``moe_groups`` (:func:`prefill`, :func:`decode_step`,
+:func:`prefill_chunk`, :func:`ragged_step`, as in the reference) routes
+an MoE layer's tokens in that many groups of the whole token stream
+(reduced until it divides the token count).
 
 **Training on a mesh** passes a ``layout`` (``distributed.parallel.
 Layout``) to :func:`loss_fn` and :func:`forward_hidden`: ``params`` are
 then the rank's blocks under ``param_specs`` and the batch its rows.
 Each layer gathers its data-sharded leaves just in time, attention and
-the dense FFN run tensor-parallel over ``model``, every other leaf runs
-whole, the loss is vocab-parallel and normalised by the global label
-count, and MoE layers route the reference's groups of the global token
-stream; the result is the rank's share of the reference's loss.  The
-reference's ``_constrain`` (a sharding constraint on the activations)
-has no eager meaning, so it has none here; its ``act_spec`` picks which
-batch rows a rank embeds, and here a rank embeds the rows it is given.
+the dense FFN run tensor-parallel over ``model`` and MoE layers
+expert-parallel, every other leaf runs whole, the loss is vocab-parallel
+and normalised by the global label count, and MoE layers route the
+reference's groups of the global token stream; the result is the rank's
+share of the reference's loss. The reference's ``_constrain`` (a
+sharding constraint on the activations) has no eager meaning, so it has
+none here; its ``act_spec`` picks which batch rows a rank embeds, and
+here a rank embeds the rows it is given.
 """
 
 from __future__ import annotations
@@ -216,15 +228,36 @@ def _ffn_aux(lp: dict, x: torch.Tensor, cfg: ModelConfig, i: int,
     """Layer ``i``'s FFN on (B, S, D) → (x, aux loss).  An MoE layer
     routes the B·S tokens, padding included, in ``moe_groups`` groups
     exactly as the reference does (on a mesh, ``dp``: the groups of the
-    global stream); a dense layer's aux is 0 (``tp``: tensor-parallel)."""
+    global stream), expert-parallel under ``tp`` (its experts, whole or
+    the rank's blocks, viewed as the rank's blocks); a dense layer's aux
+    is 0 (``tp``: tensor-parallel)."""
     if cfg.ffns[i] == "moe":
-        return moe_mod.moe_ffn(lp["ffn"], x, cfg, num_groups=moe_groups,
-                               dp=dp)
+        ffn = lp["ffn"]
+        if tp is not None:
+            from repro_torch.distributed.sharding import expert_blocks
+            ffn = expert_blocks(ffn, cfg, tp.size, tp.index)
+        return moe_mod.moe_ffn(ffn, x, cfg, num_groups=moe_groups, dp=dp,
+                               ep=tp)
     return dense_ffn(lp["ffn"], x, cfg.norm_eps, tp), 0.0
 
 
-def _ffn(lp: dict, x: torch.Tensor, cfg: ModelConfig, i: int) -> torch.Tensor:
-    return _ffn_aux(lp, x, cfg, i)[0]
+def _ffn(lp: dict, x: torch.Tensor, cfg: ModelConfig, i: int,
+         moe_groups: int = 1, ep=None) -> torch.Tensor:
+    """Layer ``i``'s FFN for serving (no aux loss); ``ep`` runs an MoE
+    layer expert-parallel (a dense layer runs whole)."""
+    return _ffn_aux(lp, x, cfg, i, moe_groups,
+                    ep if cfg.ffns[i] == "moe" else None)[0]
+
+
+def _serving_ep(cfg: ModelConfig, mesh):
+    """The expert-parallel map of serving on ``mesh``: ``model``'s, where
+    the config's experts split evenly over it, else None."""
+    if mesh is None or "model" not in mesh.mesh_dim_names:
+        return None
+    from repro_torch.distributed.parallel import TensorParallel
+    from repro_torch.distributed.sharding import expert_parallel
+    ep = TensorParallel(mesh)
+    return ep if expert_parallel(cfg, ep.size) else None
 
 
 def _check_attn_only(cfg: ModelConfig, what: str) -> None:
@@ -469,7 +502,7 @@ def _embed_tokens(params, tokens, mesh, layout=None):
 
 def decode_step(params, cfg: ModelConfig, state: dict, tokens: torch.Tensor,
                 *, page_impl: str = "ref", mesh=None, batch_axes=(),
-                seq_axes=()):
+                seq_axes=(), moe_groups: int = 1):
     """One decode step: tokens (B,) → (logits (B, V) f32, state).
 
     ``state['lengths']`` counts tokens already in the cache; the incoming
@@ -477,8 +510,9 @@ def decode_step(params, cfg: ModelConfig, state: dict, tokens: torch.Tensor,
     tokens (itself included).  Mamba and RWKV-6 layers step their states
     sequentially.  The pools and states are updated in place.  On a
     ``mesh`` (the module doc), ``page_impl`` is ``"sp"`` or ``"sp_opt"``,
-    the pools are the rank's shards under ``batch_axes + seq_axes`` and
-    every rank returns the whole logits.
+    the pools are the rank's shards under ``batch_axes + seq_axes``, MoE
+    layers run expert-parallel and every rank returns the whole logits.
+    MoE layers route the B tokens in ``moe_groups`` groups.
     """
     check_supported(cfg)
     if (page_impl in SP_IMPLS) != (mesh is not None):
@@ -504,6 +538,7 @@ def decode_step(params, cfg: ModelConfig, state: dict, tokens: torch.Tensor,
                              pos, BLOCK_SIZE)
     attn_ids = attn_layer_ids(cfg)
     mamba_ids = mamba_layer_ids(cfg)
+    ep = _serving_ep(cfg, mesh)
     for i in range(cfg.n_layers):
         lp = layer_params(params, cfg, i)
         mix = cfg.mixers[i]
@@ -541,7 +576,7 @@ def decode_step(params, cfg: ModelConfig, state: dict, tokens: torch.Tensor,
             x = attn_mod.cross_attn_layer(
                 lp["cross"], x[:, None],
                 (st["cross_k"][i], st["cross_v"][i]), cfg)[:, 0]
-        x = _ffn(lp, x[:, None], cfg, i)[:, 0]
+        x = _ffn(lp, x[:, None], cfg, i, moe_groups, ep)[:, 0]
     h = rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = unembed(h[:, None], _unembed_table(params, cfg))[:, 0]
     st["lengths"] = pos + 1
@@ -551,8 +586,8 @@ def decode_step(params, cfg: ModelConfig, state: dict, tokens: torch.Tensor,
 # ================================================================== prefill
 def prefill(params, cfg: ModelConfig, tokens: torch.Tensor, state: dict, *,
             impl: str = "chunked", enc_frames: torch.Tensor | None = None,
-            patches: torch.Tensor | None = None, mesh=None, batch_axes=(),
-            seq_axes=("model",)):
+            patches: torch.Tensor | None = None, moe_groups: int = 1,
+            mesh=None, batch_axes=(), seq_axes=("model",)):
     """Process a full prompt, write every cache and recurrent state (in
     place), return (last_logits, state).  tokens: (B, S); a vision model's
     ``patches`` (B, P, D) go before the text, so the sequence is S_tot =
@@ -564,8 +599,9 @@ def prefill(params, cfg: ModelConfig, tokens: torch.Tensor, state: dict, *,
     ``chunked_attention``, as in the reference.  On a ``mesh`` the pools
     are the rank's shards under ``batch_axes + seq_axes`` and each rank
     writes only its own rows (``scatter_seq_sp``, whatever the mesh's
-    dims: the pools are always local here); the rest runs whole on every
-    rank."""
+    dims: the pools are always local here), MoE layers run
+    expert-parallel, and the rest runs whole on every rank.  MoE layers
+    route the B·S_tot tokens in ``moe_groups`` groups."""
     check_supported(cfg)
     _check_impl(impl)
     B = tokens.shape[0]
@@ -596,6 +632,7 @@ def prefill(params, cfg: ModelConfig, tokens: torch.Tensor, state: dict, *,
 
     attn_ids = attn_layer_ids(cfg)
     mamba_ids = mamba_layer_ids(cfg)
+    ep = _serving_ep(cfg, mesh)
     for i in range(cfg.n_layers):
         lp = layer_params(params, cfg, i)
         mix = cfg.mixers[i]
@@ -628,7 +665,7 @@ def prefill(params, cfg: ModelConfig, tokens: torch.Tensor, state: dict, *,
             x = attn_mod.cross_attn_layer(lp["cross"], x, (kc, vc), cfg)
             st["cross_k"][i] = kc
             st["cross_v"][i] = vc
-        x = _ffn(lp, x, cfg, i)
+        x = _ffn(lp, x, cfg, i, moe_groups, ep)
     h = rms_norm(x[:, -1], params["final_norm"], cfg.norm_eps)
     logits = unembed(h[:, None], _unembed_table(params, cfg))[:, 0]
     st["lengths"] = torch.full((B,), S, dtype=torch.int32,
@@ -637,7 +674,7 @@ def prefill(params, cfg: ModelConfig, tokens: torch.Tensor, state: dict, *,
 
 
 def prefill_chunk(params, cfg: ModelConfig, tokens: torch.Tensor,
-                  state: dict, start: int) -> dict:
+                  state: dict, start: int, *, moe_groups: int = 1) -> dict:
     """One fixed-shape prefill chunk: tokens (B, C) at positions
     ``start .. start+C-1`` (C a BLOCK_SIZE multiple, ``start``
     block-aligned).
@@ -648,7 +685,8 @@ def prefill_chunk(params, cfg: ModelConfig, tokens: torch.Tensor,
     rows that the mask turns into exact zeros (``exp(NEG_INF - m)``
     underflows to 0.0), so every real query row matches :func:`prefill`.
     Returns the state; logits are not computed (the first decode step
-    rewrites position S−1 and produces them).  Attention mixers only.
+    rewrites position S−1 and produces them).  Attention mixers only;
+    MoE layers route the B·C tokens in ``moe_groups`` groups.
     """
     check_supported(cfg)
     _check_attn_only(cfg, "prefill_chunk")
@@ -687,7 +725,7 @@ def prefill_chunk(params, cfg: ModelConfig, tokens: torch.Tensor,
                                            window=cfg.attn.window,
                                            q_offset=start)
         x = x + o.reshape(B, C, -1) @ lp["mix"]["wo"]
-        x = _ffn(lp, x, cfg, i)
+        x = _ffn(lp, x, cfg, i, moe_groups)
     return st
 
 
@@ -695,7 +733,7 @@ def ragged_step(params, cfg: ModelConfig, state: dict, tokens: torch.Tensor,
                 token_row: torch.Tensor, token_pos: torch.Tensor,
                 tile_row: torch.Tensor, tile_pos: torch.Tensor,
                 kv_lens: torch.Tensor, last_index: torch.Tensor, *,
-                page_impl: str = "ref"):
+                page_impl: str = "ref", moe_groups: int = 1):
     """One ragged engine step: every chunked-prefill and decode row of the
     batch packed into one fixed-shape token stream and one attention call
     per layer.
@@ -710,7 +748,7 @@ def ragged_step(params, cfg: ModelConfig, state: dict, tokens: torch.Tensor,
     layer scatters the incoming K/V rows before attending, so a chunk
     attends its own tokens, matching :func:`prefill_chunk`.  Attention
     mixers only; an MoE layer routes the whole fixed-capacity stream,
-    padding included, as one group.
+    padding included, in ``moe_groups`` groups.
     """
     check_supported(cfg)
     _check_attn_only(cfg, "ragged_step")
@@ -745,7 +783,7 @@ def ragged_step(params, cfg: ModelConfig, state: dict, tokens: torch.Tensor,
         drop_write(kvp, targets, attn_mod.fuse_kv(k[0], v[0]))
         o = ragged_attn(q[0], kvp)                       # (T, H, hd)
         x = x + o.reshape(T, -1) @ lp["mix"]["wo"]
-        x = _ffn(lp, x[None], cfg, i)[0]
+        x = _ffn(lp, x[None], cfg, i, moe_groups)[0]
     h = rms_norm(x, params["final_norm"], cfg.norm_eps)  # (T, D)
     h_last = h[last_index.clamp(min=0).long()]           # (slots, D)
     logits = unembed(h_last[:, None], _unembed_table(params, cfg))[:, 0]
@@ -792,8 +830,9 @@ def embed_inputs(params, cfg: ModelConfig, tokens: torch.Tensor,
 
 def _apply_layer(lp, x, positions, cfg: ModelConfig, i: int, *, impl,
                  enc_out=None, moe_groups=1, tp=(None, None), dp=None):
-    """Layer ``i`` on (B, S, D) → (x, aux loss); ``tp`` (mixer, FFN) and
-    ``dp`` as :meth:`distributed.parallel.Layout.layer` gives them."""
+    """Layer ``i`` on (B, S, D) → (x, aux loss); ``tp`` (mixer, FFN: an
+    MoE layer's expert-parallel map) and ``dp`` as
+    :meth:`distributed.parallel.Layout.layer` gives them."""
     mix = cfg.mixers[i]
     if mix == "attn":
         x = attn_mod.attn_layer(
@@ -827,8 +866,8 @@ def forward_hidden(params, cfg: ModelConfig, x: torch.Tensor, *,
     With a ``layout`` (``distributed.parallel.Layout``) ``params`` are
     this rank's blocks and x its rows: each layer gathers its leaves
     just in time (inside the checkpointed block, so the recompute gathers
-    again), attention and the dense FFN run tensor-parallel, and the aux
-    loss is this rank's share."""
+    again), attention and the dense FFN run tensor-parallel and MoE
+    layers expert-parallel, and the aux loss is this rank's share."""
     check_supported(cfg)
     _check_impl(impl)
     B, S, _ = x.shape

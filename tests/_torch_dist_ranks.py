@@ -32,13 +32,15 @@ import torch.distributed as dist
 from torch.distributed.tensor import DTensor, distribute_tensor
 
 from repro_torch.bridge import params_from_jax
+from repro_torch.configs import deepseek_moe_16b as tdsm
 from repro_torch.configs import deepseek_v2_236b as tdsv2
 from repro_torch.distributed.collectives import (
     axis_size, gather_batch, local_shard, local_state, mla_decode_sp,
     paged_decode_attention_sp, scatter_seq_sp, vocab_parallel_embed,
     vocab_shard)
 from repro_torch.distributed.elastic import shard_index
-from repro_torch.distributed.sharding import P, decode_axes, to_placements
+from repro_torch.distributed.sharding import (P, decode_axes, expert_shards,
+                                              to_placements)
 from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import transformer as tfm
@@ -148,32 +150,67 @@ def scatter(case):
     return check
 
 
+SMOKES = {"deepseek-v2-smoke": tdsv2.smoke, "deepseek-moe-smoke": tdsm.smoke}
+
+
+def serve(c, cfg, params, mesh) -> torch.Tensor:
+    """``prefill(mesh=)`` of the case's prompt (in its ``moe_groups``)
+    then greedy ``decode_step(page_impl=c["impl"])`` steps: the stacked
+    logits."""
+    prompt = t(c["prompt"])
+    B = prompt.shape[0]
+    ba, sa = decode_axes(mesh, batch=B)
+    st = tfm.init_decode_state(
+        cfg, B, c["max_len"], batch_shards=axis_size(mesh, ba),
+        seq_shards=axis_size(mesh, sa), device="cpu")
+    st = local_state(st, cfg, mesh, batch_axes=ba, seq_axes=sa)
+    kw = dict(mesh=mesh, batch_axes=ba, seq_axes=sa)
+    logits, st = tfm.prefill(params, cfg, prompt, st,
+                             moe_groups=c.get("moe_groups", 1), **kw)
+    got = [logits]
+    for _ in range(len(c["logits"]) - 1):
+        tok = logits.argmax(-1).to(torch.int32)
+        logits, st = tfm.decode_step(params, cfg, st, tok,
+                                     page_impl=c["impl"], **kw)
+        got.append(logits)
+    return torch.stack(got)
+
+
+def case_config(c) -> ModelConfig:
+    return (SMOKES[c["cfg"]]() if isinstance(c["cfg"], str)
+            else ModelConfig(**c["cfg"]))
+
+
 def decode(case):
     def check(mesh, inp, work):
         c = inp["decode"][case]
-        cfg = (tdsv2.smoke() if c["cfg"] == "deepseek-v2-smoke"
-               else ModelConfig(**c["cfg"]))
-        params = params_from_jax(c["params"], device="cpu")
-        prompt = t(c["prompt"])
-        B = prompt.shape[0]
-        ba, sa = decode_axes(mesh, batch=B)
-        st = tfm.init_decode_state(
-            cfg, B, c["max_len"], batch_shards=axis_size(mesh, ba),
-            seq_shards=axis_size(mesh, sa), device="cpu")
-        st = local_state(st, cfg, mesh, batch_axes=ba, seq_axes=sa)
-        kw = dict(mesh=mesh, batch_axes=ba, seq_axes=sa)
-        logits, st = tfm.prefill(params, cfg, prompt, st, **kw)
-        got = [logits]
-        for _ in range(len(c["logits"]) - 1):
-            tok = logits.argmax(-1).to(torch.int32)
-            logits, st = tfm.decode_step(params, cfg, st, tok,
-                                         page_impl=c["impl"], **kw)
-            got.append(logits)
-        got = torch.stack(got)
+        cfg = case_config(c)
+        got = serve(c, cfg, params_from_jax(c["params"], device="cpu"), mesh)
         toks = got.argmax(-1).numpy()
         np.testing.assert_array_equal(toks, c["logits"].argmax(-1))
         close(got, c["logits"], rtol=1e-5, atol=1e-5)
         return hashlib.sha256(got.numpy().tobytes()).hexdigest()
+    return check
+
+
+def expert_blocks(case):
+    """The case served from this rank's expert blocks
+    (``sharding.expert_shards``, the whole stacks dropped) gives the
+    logits of the whole stacks, bit for bit."""
+    def check(mesh, inp, work):
+        c = inp["decode"][case]
+        cfg = case_config(c)
+        whole = serve(c, cfg, params_from_jax(c["params"], device="cpu"),
+                      mesh)
+        params = expert_shards(params_from_jax(c["params"], device="cpu"),
+                               cfg, mesh)
+        E, n = cfg.moe.num_experts, axis_size(mesh, ("model",))
+        for i in range(cfg.n_layers):
+            ffn = tfm.layer_params(params, cfg, i)["ffn"]
+            if cfg.ffns[i] == "moe":
+                assert ffn["w_gate"].shape[0] == E // n, ffn["w_gate"].shape
+                assert ffn["w_gate"].is_contiguous()
+        assert torch.equal(serve(c, cfg, params, mesh), whole)
     return check
 
 
@@ -232,6 +269,8 @@ def checks(inp) -> list:
     out += [(f"mla_sp/{c}", mla_sp(c)) for c in inp["mla"] if c != "params"]
     out += [(f"scatter/{c}", scatter(c)) for c in inp["scatter"]]
     out += [(f"decode/{c}", decode(c)) for c in inp["decode"]]
+    out += [(f"expert_blocks/{c}", expert_blocks(c))
+            for c in inp["expert_blocks"]]
     return out
 
 

@@ -19,7 +19,8 @@ runs every case:
   checkpoints' leaves;
 * ``psum``: ``compressed_psum`` of this rank's gradients over "data";
 * ``pipeline``: ``pipeline_apply`` on a ("pipe",) mesh of the four ranks;
-* ``layout``: the shapes a rank holds of one layer and computes with.
+* ``layout``: the shapes a rank holds of one layer and computes with,
+  and the bytes its FFN's gathers move.
 
 Each rank writes ``result_<rank>.pkl``: per case its values (``psum``
 per rank, the rest from rank 0) or the traceback.  A case that raises on
@@ -144,8 +145,10 @@ def pipeline_case(c, mesh, work):
 
 def layout_case(c, mesh, work):
     """The shapes a rank holds of layer ``c["layer"]`` and the shapes it
-    computes with (``Layout.layer``), and whether the mixer and the FFN
-    run tensor-parallel."""
+    computes with (``Layout.layer``), whether the mixer and the FFN run
+    tensor- (or expert-) parallel, and the bytes the FFN's gathers move
+    by kind."""
+    from repro_torch.distributed import collectives as coll
     from repro_torch.distributed import parallel, sharding
     from repro_torch.models import transformer as tfm
     cfg = config(c["cfg"])
@@ -160,10 +163,14 @@ def layout_case(c, mesh, work):
              else ("body", (i - prefix) % period, (i - prefix) // period))
     lp = tfm.layer_params(local, cfg, i)
     used, tp_mix, tp_ffn = lay.layer(lp, where, i)
+    coll.TRAFFIC.reset()
+    lay.layer({"ffn": lp["ffn"]}, where, i)
+    moved = {k: v["bytes"] for k, v in coll.TRAFFIC.by_kind().items()}
     shapes = lambda tree: {p: {k: list(v.shape) for k, v in d.items()}
                            for p, d in tree.items()}
     return {"held": shapes(lp), "compute": shapes(used),
-            "tp": [tp_mix is not None, tp_ffn is not None]}
+            "tp": [tp_mix is not None, tp_ffn is not None],
+            "ffn_bytes": moved}
 
 
 RUNNERS = {"step": step_case, "train": train_case, "psum": psum_case,

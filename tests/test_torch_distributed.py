@@ -32,6 +32,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro.configs import deepseek_moe_16b as jdsm  # noqa: E402
 from repro.configs import deepseek_v2_236b as jdsv2  # noqa: E402
 from repro.models import attention as jattn  # noqa: E402
 from repro.models import mla as jmla  # noqa: E402
@@ -149,14 +150,16 @@ def _scatter_cases() -> dict:
                                  ("seq", (), ("data", "model")))}
 
 
-_jprefill = jax.jit(jtfm.prefill, static_argnums=1)
+_jprefill = jax.jit(jtfm.prefill, static_argnums=1,
+                    static_argnames=("moe_groups",))
 _jdecode = jax.jit(jtfm.decode_step, static_argnums=1)
 
 
-def _reference_run(cfg, B: int) -> dict:
-    """prefill + NEW_TOKENS greedy ``decode_step(page_impl="ref")`` of
-    the reference over the (batch × seq)-sharded block layout that
-    ``sharding.decode_axes`` picks on (2, 2) for batch ``B``."""
+def _reference_run(cfg, B: int, moe_groups: int = 1) -> dict:
+    """prefill (its MoE layers in ``moe_groups`` groups) + NEW_TOKENS
+    greedy ``decode_step(page_impl="ref")`` of the reference over the
+    (batch × seq)-sharded block layout that ``sharding.decode_axes``
+    picks on (2, 2) for batch ``B``."""
     params = jtfm.init_params(jax.random.PRNGKey(5), cfg, jnp.float32)
     prompt = np.random.RandomState(6).randint(
         1, cfg.vocab, (B, 300)).astype(np.int32)
@@ -165,27 +168,33 @@ def _reference_run(cfg, B: int) -> dict:
     st = jtfm.init_decode_state(cfg, B, max_len, dtype=jnp.float32,
                                 batch_shards=shards[0],
                                 seq_shards=shards[1])
-    logits, st = _jprefill(params, cfg, jnp.asarray(prompt), st)
+    logits, st = _jprefill(params, cfg, jnp.asarray(prompt), st,
+                           moe_groups=moe_groups)
     out = [np.asarray(logits)]
     for _ in range(NEW_TOKENS):
         tok = jnp.argmax(logits, -1).astype(jnp.int32)
         logits, st = _jdecode(params, cfg, st, tok)
         out.append(np.asarray(logits))
     return dict(params=_np(params), prompt=prompt, max_len=max_len,
-                logits=np.stack(out))
+                logits=np.stack(out), moe_groups=moe_groups)
 
 
 def _decode_cases() -> dict:
+    """The MoE configs' cases run their MoE layers expert-parallel over
+    the mesh's model dim (2 ranks: 4 of the 8 experts each)."""
     runs = {("tiny", 2): _reference_run(JCfg(**TINY), 2),
             ("tiny", 1): _reference_run(JCfg(**TINY), 1),
-            ("deepseek-v2-smoke", 2): _reference_run(jdsv2.smoke(), 2)}
+            ("deepseek-v2-smoke", 2): _reference_run(jdsv2.smoke(), 2),
+            ("deepseek-moe-smoke", 2): _reference_run(jdsm.smoke(), 2,
+                                                      moe_groups=2)}
     cases = {}
     for name, cfg, B, impl in (
             ("tiny_sp", "tiny", 2, "sp"),
             ("tiny_sp_opt", "tiny", 2, "sp_opt"),
             ("tiny_batch1_sp_opt", "tiny", 1, "sp_opt"),
             ("deepseek_v2_sp", "deepseek-v2-smoke", 2, "sp"),
-            ("deepseek_v2_sp_opt", "deepseek-v2-smoke", 2, "sp_opt")):
+            ("deepseek_v2_sp_opt", "deepseek-v2-smoke", 2, "sp_opt"),
+            ("deepseek_moe_groups2_sp", "deepseek-moe-smoke", 2, "sp")):
         cases[name] = dict(runs[cfg, B], impl=impl,
                            cfg=TINY if cfg == "tiny" else cfg)
     return cases
@@ -233,6 +242,7 @@ def ranks(tmp_path_factory):
     assert ref.returncode == 0, ref.stderr
     inp = dict(sp=_sp_cases(), mla=_mla_cases(), vocab=_vocab_case(),
                scatter=_scatter_cases(), decode=_decode_cases(),
+               expert_blocks=("deepseek_v2_sp", "deepseek_moe_groups2_sp"),
                loss=_loss_case(),
                elastic_ref={"w": np.arange(64, dtype=np.float32).reshape(
                    8, 8) * 0.5, "b": np.arange(8, dtype=np.float32) - 3})
@@ -279,12 +289,24 @@ def test_scatter_seq_sp_equals_single_device_write(ranks, case):
 
 @pytest.mark.parametrize("case", ["tiny_sp", "tiny_sp_opt",
                                   "tiny_batch1_sp_opt", "deepseek_v2_sp",
-                                  "deepseek_v2_sp_opt"])
+                                  "deepseek_v2_sp_opt",
+                                  "deepseek_moe_groups2_sp"])
 def test_decode_step_on_a_mesh_matches_reference(ranks, case):
     """prefill(mesh=) writes the pools the SP decode then reads: greedy
-    tokens equal, logits within 1e-5, and every rank the same logits."""
+    tokens equal, logits within 1e-5, and every rank the same logits.
+    The MoE layers run expert-parallel; DeepSeek-MoE's prefill routes 2
+    groups, as the reference's ``prefill(..., moe_groups=2)``."""
     digests = _passed(ranks[2], f"decode/{case}")
     assert len(set(digests)) == 1, digests
+
+
+@pytest.mark.parametrize("case", ["deepseek_v2_sp",
+                                  "deepseek_moe_groups2_sp"])
+def test_serving_from_expert_blocks_equals_whole_stacks(ranks, case):
+    """Each rank serving from its expert blocks alone
+    (``sharding.expert_shards``: E/2 experts a layer, contiguous copies)
+    gives the logits of the whole stacks bit for bit."""
+    _passed(ranks[2], f"expert_blocks/{case}")
 
 
 def test_loss_fn_on_a_mesh_matches_reference(ranks):

@@ -112,7 +112,8 @@ def test_fake_cell_equals_the_real_step_on_gloo(runs, name):
 
 def test_cells_use_the_meshes_collectives(runs):
     """Train gathers and reduce-scatters (FSDP), serving reduces the SP
-    partials; the MoE train cell routes in n_dp groups."""
+    partials; the MoE train and prefill cells route in n_dp groups, the
+    decode cell in one."""
     kinds = {n: set(_record(runs, "fake", n)["collectives"]
                     ["payload_by_kind"]) for n in CELLS}
     assert {"all-gather", "reduce-scatter", "all-reduce"} <= kinds[
@@ -120,6 +121,10 @@ def test_cells_use_the_meshes_collectives(runs):
     assert kinds["granite-3-8b-decode"] == {"all-reduce"}
     moe = _record(runs, "fake", "deepseek-moe-16b-train")
     assert moe["moe_groups"] == 2 and moe["microbatches"] == 2
+    assert _record(runs, "fake", "deepseek-moe-16b-prefill")[
+        "moe_groups"] == 2
+    assert _record(runs, "fake", "deepseek-moe-16b-decode")[
+        "moe_groups"] == 1
 
 
 @pytest.mark.parametrize("kind", ["all-reduce", "all-gather",
@@ -163,10 +168,11 @@ def _ref_specs(specs: dict) -> dict:
     (a, s, mp) for mp in (False, True) for a, s in dryrun.iter_cells(mp)])
 def test_cell_matches_the_reference(arch, shape_name, multi_pod):
     """Every production cell's inputs, state specs and the record's
-    fields that the cell fixes (microbatches, MoE groups, decode axes,
-    pool bytes a rank, tokens a step, parameter counts) against the
-    reference's ``input_specs``, ``state_specs``, constants, sharding
-    rules and configs, on stand-in meshes (no process group)."""
+    fields that the cell fixes (microbatches, MoE groups of train and
+    serving cells, decode axes, pool bytes a rank, tokens a step,
+    parameter counts) against the reference's ``input_specs``,
+    ``state_specs``, constants, sharding rules and configs, on stand-in
+    meshes (no process group)."""
     ref = _reference_dryrun()
     from repro.configs import SHAPES as JSHAPES
     from repro.configs import get_config as jget_config
@@ -183,11 +189,13 @@ def test_cell_matches_the_reference(arch, shape_name, multi_pod):
     assert (meta["params"], meta["active_params"]) == (
         jcfg.param_count(), jcfg.active_param_count())
     assert (meta["mesh"], meta["chips"]) == (list(sizes), math.prod(sizes))
+    n_dp = math.prod(jmesh.shape[a] for a in jsh.dp_axes(jmesh))
+    # the reference's groups (repro/launch/dryrun.py: n_dp for train and
+    # prefill, 1 for decode)
+    assert meta["moe_groups"] == (1 if shape.kind == "decode" else n_dp)
     if shape.kind == "train":
-        n_dp = math.prod(jmesh.shape[a] for a in jsh.dp_axes(jmesh))
         mb = ref.TRAIN_MICROBATCHES.get(arch, max(1, B // 32))
         assert meta["microbatches"] == min(mb, max(1, B // n_dp))
-        assert meta["moe_groups"] == n_dp
         assert meta["tokens_per_step"] == B * S
         return
     ba, sa = jsh.decode_axes(jmesh, batch=B)
@@ -203,17 +211,19 @@ def test_cell_matches_the_reference(arch, shape_name, multi_pod):
                                        else B)
 
 
-def test_serving_cells_refuse_moe_groups():
-    """The port's serving routes one MoE group, so a serving cell refuses
-    the option rather than record a layout it did not run."""
+@pytest.mark.parametrize("shape_name,groups", [
+    ("prefill_32k", 16), ("decode_32k", 1), ("train_4k", 16)])
+def test_cells_record_the_references_moe_groups(shape_name, groups):
+    """A cell records the reference's MoE groups (n_dp = 16 on the pod
+    for train and prefill, one for decode) and takes an override."""
     names, sizes = PRODUCTION[False]
     mesh = SimpleNamespace(mesh_dim_names=names, shape=sizes)
     cfg = get_config("deepseek-moe-16b")
-    with pytest.raises(ValueError, match="moe_groups"):
-        dryrun.cell_meta("deepseek-moe-16b", PRODUCTION_SHAPES["prefill_32k"],
-                         cfg, mesh, moe_groups=16)
-    assert dryrun.cell_meta("deepseek-moe-16b", PRODUCTION_SHAPES["train_4k"],
-                            cfg, mesh, moe_groups=4)["moe_groups"] == 4
+    shape = PRODUCTION_SHAPES[shape_name]
+    assert dryrun.cell_meta("deepseek-moe-16b", shape, cfg,
+                            mesh)["moe_groups"] == groups
+    assert dryrun.cell_meta("deepseek-moe-16b", shape, cfg, mesh,
+                            moe_groups=4)["moe_groups"] == 4
 
 
 def test_traffic_sums_stay_bounded():

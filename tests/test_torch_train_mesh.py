@@ -252,8 +252,9 @@ def test_pipeline_apply_matches_reference(ranks):
 def test_mesh_holds_shards_and_computes_tensor_parallel(ranks, name, layer):
     """On (data 2, model 2) a rank holds its block of each leaf under
     ``param_specs``; attention and the dense FFN compute on the rank's
-    H/2 heads' columns and F/2 rows (gathered over data only), the MoE
-    experts whole."""
+    H/2 heads' columns and F/2 rows (gathered over data only), an MoE
+    layer on its E/2 experts and the shared experts' column and row
+    blocks (expert parallel)."""
     got = value(ranks[0], f"layout-{name}")
     cfg = jcfg(CONFIGS[name])
     D, H, KV, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
@@ -263,12 +264,32 @@ def test_mesh_holds_shards_and_computes_tensor_parallel(ranks, name, layer):
     assert used["mix"]["wq"] == [D, H // 2 * hd]
     assert used["mix"]["wk"] == [D, KV // 2 * hd]
     assert used["mix"]["wo"] == [H // 2 * hd, D]
-    assert got["tp"] == [True, cfg.ffns[layer] == "dense"]
+    assert got["tp"] == [True, True]
     if cfg.ffns[layer] == "dense":
         F = cfg.dense_d_ff or cfg.d_ff
         assert used["ffn"]["w_gate"] == [D, F // 2]
         assert used["ffn"]["w_down"] == [F // 2, D]
     else:
         E, de = cfg.moe.num_experts, cfg.moe.d_expert
+        ds = de * cfg.moe.num_shared
         assert held["ffn"]["w_gate"] == [E // 2, D // 2, de]
-        assert used["ffn"]["w_gate"] == [E, D, de]
+        for k in ("w_gate", "w_up"):
+            assert used["ffn"][k] == [E // 2, D, de]
+        assert used["ffn"]["w_down"] == [E // 2, de, D]
+        for k in ("s_gate", "s_up"):
+            assert used["ffn"][k] == [D, ds // 2]
+        assert used["ffn"]["s_down"] == [ds // 2, D]
+        assert used["ffn"]["router"] == [D, E]
+
+
+def test_moe_layer_gathers_only_the_ranks_experts(ranks):
+    """On (data 2, model 2) the MoE layer's FFN gathers, over data only,
+    the rank's E/2 experts, its shared-expert blocks and the router: its
+    all-gather payload is those tensors' bytes, half the experts' whole
+    bytes plus the router's, and nothing else moves."""
+    got = value(ranks[0], "layout-deepseek-moe-16b")
+    cfg = jcfg(CONFIGS["deepseek-moe-16b"])
+    D, E, de = cfg.d_model, cfg.moe.num_experts, cfg.moe.d_expert
+    ds = de * cfg.moe.num_shared
+    experts = 3 * E * D * de + 3 * D * ds
+    assert got["ffn_bytes"] == {"all-gather": 4 * (experts // 2 + D * E)}
