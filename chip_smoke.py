@@ -124,7 +124,13 @@ of which fails the script:
    bytes and seconds per step; then phase 10 (c)'s model trained the
    same way on (data 1, model 2) with its MoE layers expert-parallel,
    held to 1e-5 of the same step in one process (run and freed here
-   first: its params, gradients and moments are about 36 GB).  Then
+   first: its params, gradients and moments are about 36 GB); (d) the
+   tensor-parallel mixers on (data 1, model 2), each rank computing half
+   of the heads or channels: RWKV-6-7B cut to 2 layers (1.06 B params),
+   DeepSeek-V2 cut to layer 0 (MLA and the dense FFN of 12288; 1.39 B)
+   and Jamba cut to layer 0 (Mamba and a dense FFN; 0.82 B) at their
+   published widths, 2 steps of (2, 1024) each, held to 1e-5 of the same
+   step in one process (each run and freed first).  Then
    ``pipeline_apply`` over the two ranks (one granite-3-8b layer a
    stage, 4 microbatches of (1, 1024, 4096)) within 1e-5 of the layers
    applied in sequence here.  No kernel launches (the kernels are
@@ -133,7 +139,8 @@ of which fails the script:
    phase, in two subprocesses run side by side (``--dryrun-phase``,
    files under ``build/dryrun_phase/``) on fake tensors and fake process
    groups, so no group meets phase 11's gloo ranks: (a) phase 11's
-   steps (granite on both meshes, DeepSeek-MoE expert-parallel) as rank
+   steps (granite on both meshes, DeepSeek-MoE expert-parallel, (d)'s
+   three tensor-parallel mixers) as rank
    0 of 2 fake ranks on fake CUDA tensors, whose collective calls and
    bytes must equal phase 11's at every step, its resident state be
    within 2% of phase 11's ``memory_allocated`` before the first step,
@@ -141,7 +148,9 @@ of which fails the script:
    granite, its FLOPs on both ranks equal phase 9's count of what eager
    runs (``train_flops``); (b)
    granite-3-8b cut to 10 of 40 layers x train_4k on the 256-rank fake
-   production mesh (meta tensors), its record line printed.
+   production mesh (meta tensors; its attention tensor-parallel with
+   the 8 KV heads whole on every rank), its record line and useful-FLOP
+   share printed.
 
 Prints the card's name and power limit, tokens/s per run, the script's
 wall time, one
@@ -198,6 +207,14 @@ def card_line() -> str:
         return out.stdout.strip().splitlines()[0]
     except (OSError, IndexError, subprocess.TimeoutExpired) as e:
         return f"nvidia-smi unavailable ({e})"
+
+
+def cut_config(arch: str, layers: int):
+    """``arch``'s published config cut to its first ``layers`` layers."""
+    from repro_torch.configs import get_config
+    full = get_config(arch)
+    return full.with_(n_layers=layers, mixers=full.mixers[:layers],
+                      ffns=full.ffns[:layers])
 
 
 def time_ms(torch, fn, reps: int = 20, warmup: int = 3) -> float:
@@ -1272,10 +1289,7 @@ ATTN_TOL = 1e-4      # attn_layer adds o @ wo: a 4096-long f32 sum per output
 
 
 def hybrid_config(name: str):
-    from repro_torch.configs import get_config
-    cfg = get_config(name)
-    L = HYBRID_LAYERS[name]
-    return cfg.with_(n_layers=L, mixers=cfg.mixers[:L], ffns=cfg.ffns[:L])
+    return cut_config(name, HYBRID_LAYERS[name])
 
 
 def greedy(torch, cfg, params, prompts, *, impl: str, page_impl: str,
@@ -1579,7 +1593,7 @@ def vision_phase(torch, seed: int) -> dict:
     from repro_torch.models import transformer as tfm
     full = get_config("internvl2-26b")
     L = VL_LAYERS
-    cfg = full.with_(n_layers=L, mixers=full.mixers[:L], ffns=full.ffns[:L])
+    cfg = cut_config("internvl2-26b", L)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     gen = torch.Generator(device=DEVICE).manual_seed(seed + 9)
@@ -1810,10 +1824,7 @@ MESH_DIR = ROOT / "build" / "mesh_phase"
 
 
 def mesh_config():
-    from repro_torch.configs import get_config
-    full = get_config("granite-3-8b")
-    L = MESH_LAYERS
-    return full.with_(n_layers=L, mixers=full.mixers[:L], ffns=full.ffns[:L])
+    return cut_config("granite-3-8b", MESH_LAYERS)
 
 
 def mesh_params(torch, cfg, seed: int):
@@ -1839,10 +1850,7 @@ MOE_LAYERS = 4
 
 
 def moe_mesh_config():
-    from repro_torch.configs import get_config
-    full = get_config("deepseek-moe-16b")
-    L = MOE_LAYERS
-    return full.with_(n_layers=L, mixers=full.mixers[:L], ffns=full.ffns[:L])
+    return cut_config("deepseek-moe-16b", MOE_LAYERS)
 
 
 def moe_mesh_params(torch, cfg, seed: int):
@@ -2192,7 +2200,7 @@ TRAIN_MESH_RESIDENT = 0.55
 #: pipeline_apply: microbatches of (1, 1024, d_model), one layer a stage
 PIPE_MICRO = (4, 1, 1024)
 PIPE_TOL = 1e-5
-TRAIN_MESH_TIMEOUT = 600    # seconds for both ranks, the probe included
+TRAIN_MESH_TIMEOUT = 900    # seconds for both ranks, the probe included
 #: the runs of phase 9's model, held against phase 9 (a)
 TRAIN_MESH_NAMES = tuple(f"{d}x{m}" for d, m in TRAIN_MESHES)
 TRAIN_MESH_DIR = ROOT / "build" / "train_mesh_phase"
@@ -2200,21 +2208,16 @@ TRAIN_MESH_DIR = ROOT / "build" / "train_mesh_phase"
 
 def train_config_of():
     """Phase 9's model: granite-3-8b cut to TRAIN_LAYERS."""
-    from repro_torch.configs import get_config
-    full = get_config("granite-3-8b")
-    L = TRAIN_LAYERS
-    return full.with_(n_layers=L, mixers=full.mixers[:L], ffns=full.ffns[:L])
+    return cut_config("granite-3-8b", TRAIN_LAYERS)
 
 
 def pipe_case(torch, seed: int):
     """granite-3-8b's first two layers (one a stage) and PIPE_MICRO
     microbatches, the same in every process; the stage function."""
-    from repro_torch.configs import get_config
     from repro_torch.models import transformer as tfm
     from repro_torch.models.attention import attn_layer
     from repro_torch.models.layers import dense_ffn
-    full = get_config("granite-3-8b")
-    cfg = full.with_(n_layers=2, mixers=full.mixers[:2], ffns=full.ffns[:2])
+    cfg = cut_config("granite-3-8b", 2)
     gen = torch.Generator(device=DEVICE).manual_seed(seed + 19)
     params = tfm.init_params(cfg, generator=gen, device=DEVICE,
                              dtype=torch.float32)
@@ -2232,23 +2235,37 @@ def pipe_case(torch, seed: int):
 
 #: (c): the expert-parallel step's mesh, trained from its own oracle
 MOE_TRAIN_MESH = (1, 2)
+#: (d): the tensor-parallel mixers' mesh, and each model's layers (its
+#: published widths; RWKV-6-7B's first 2, DeepSeek-V2's and Jamba's layer
+#: 0: MLA and Mamba, each with a dense FFN) and params seed offset
+MIXER_TRAIN_MESH = (1, 2)
+MIXER_TRAIN = {"rwkv6-7b": (2, 31), "deepseek-v2-236b": (1, 37),
+               "jamba-v0.1-52b": (1, 41)}
 
 
-def moe_train_oracle(torch, seed: int) -> dict:
-    """(c)'s single-process oracle: DeepSeek-MoE cut to MOE_LAYERS trained
+def train_runs(seed: int) -> dict:
+    """Phase 11's runs on a mesh besides phase 9's model: name → (mesh,
+    config, params seed)."""
+    runs = {"moe-{}x{}".format(*MOE_TRAIN_MESH): (
+        MOE_TRAIN_MESH, moe_mesh_config(), seed + 29)}
+    for arch, (layers, off) in MIXER_TRAIN.items():
+        runs["{}-{}x{}".format(arch, *MIXER_TRAIN_MESH)] = (
+            MIXER_TRAIN_MESH, cut_config(arch, layers), seed + off)
+    return runs
+
+
+def train_oracle(torch, cfg, seed: int, what: str) -> dict:
+    """A mesh run's single-process oracle: ``cfg`` trained
     TRAIN_MESH_STEPS steps of TRAIN_BATCH ``SyntheticLM`` batches from
     seeded f32 params (``make_train_step(cfg, TrainConfig())``), run and
-    freed before the ranks start (params, gradients and AdamW moments
-    are about 36 GB); the record :func:`train_on_mesh` gives."""
-    from repro_torch.models import transformer as tfm
+    freed before the ranks start (the MoE model's params, gradients and
+    AdamW moments are about 36 GB); the record :func:`train_on_mesh`
+    gives, and the peak."""
     from repro_torch.training import optimizer as topt
     from repro_torch.training import train_loop as ttl
-    cfg = moe_mesh_config()
     t0 = time.perf_counter()
-    params = moe_mesh_params(torch, cfg, seed + 29)
-    made_line(torch, cfg, params, t0,
-              f"{MOE_LAYERS} of 28 layers (the expert-parallel training "
-              f"oracle)")
+    params = moe_mesh_params(torch, cfg, seed)
+    made_line(torch, cfg, params, t0, f"{cfg.n_layers} layers ({what})")
     step = ttl.make_train_step(cfg, ttl.TrainConfig())
     opt = topt.init_opt_state(params)
     err = torch.zeros((), device=DEVICE)
@@ -2268,12 +2285,13 @@ def moe_train_oracle(torch, seed: int) -> dict:
         steps.append({"loss": loss, "grad_norm": gnorm,
                       "secs": time.perf_counter() - t1})
     peak = torch.cuda.max_memory_allocated()
-    expect_launches(launch_counts(), {}, "the expert-parallel oracle step")
+    expect_launches(launch_counts(), {}, f"the {what} step")
     out = {"loss": [h["loss"] for h in steps],
            "grad_norm": [h["grad_norm"] for h in steps],
-           "sumsq": leaf_sumsq(torch, params), "resident": resident}
+           "sumsq": leaf_sumsq(torch, params), "resident": resident,
+           "peak": peak}
     B, S = TRAIN_BATCH
-    print(f"{cfg.name} training oracle ({MOE_LAYERS} layers, one process): "
+    print(f"{cfg.name} {what} ({cfg.n_layers} layers, one process): "
           f"losses {out['loss']}, grad norms {out['grad_norm']}; seconds "
           f"per step {[round(h['secs'], 4) for h in steps]} "
           f"({B * S / steps[-1]['secs']:.1f} tokens/s at the last); "
@@ -2297,15 +2315,18 @@ def train_batches(torch, cfg) -> list:
 
 
 def train_mesh_phase(torch, seed: int, oracle: dict) -> dict:
-    """The sequential pipeline oracle and (c)'s single-process step, then
-    MESH_RANKS processes of :func:`train_mesh_rank`; fails unless both
-    exit 0 and their numbers hold against phase 9 (a)'s (``oracle``),
-    (c)'s oracle and the pipeline's.  Returns rank 0's runs (for phase
-    12)."""
+    """The single-process steps of (c) and (d) and the sequential
+    pipeline oracle, then MESH_RANKS processes of
+    :func:`train_mesh_rank`; fails unless both exit 0 and their numbers
+    hold against phase 9 (a)'s (``oracle``), each run's oracle and the
+    pipeline's.  Returns rank 0's runs (for phase 12)."""
     import shutil
     oracles = {f"{d}x{m}": oracle for d, m in TRAIN_MESHES}
-    oracles["moe-{}x{}".format(*MOE_TRAIN_MESH)] = moe_train_oracle(torch,
-                                                                   seed)
+    for name, (shape, cfg, cfg_seed) in train_runs(seed).items():
+        what = ("the expert-parallel training oracle"
+                if name.startswith("moe") else
+                "the tensor-parallel mixer's training oracle")
+        oracles[name] = train_oracle(torch, cfg, cfg_seed, what)
     layers, x, stage = pipe_case(torch, seed)
     with torch.no_grad():
         want = x
@@ -2369,7 +2390,9 @@ def train_mesh_phase(torch, seed: int, oracle: dict) -> dict:
                 f"before the first step {run['resident'] / 1e9:.2f} GB "
                 f"({run['resident'] / oracle['resident']:.3f} of {what}'s "
                 f"{oracle['resident'] / 1e9:.2f} GB), peak "
-                f"{run['peak'] / 1e9:.2f} GB")
+                f"{run['peak'] / 1e9:.2f} GB" + (
+                    f" ({what}'s {oracle['peak'] / 1e9:.2f} GB)"
+                    if "peak" in oracle else "") + f"; card {card_line()}")
     for r, res in enumerate(out):
         p = res["pipeline"]
         if not p["err"] <= PIPE_TOL * max(1.0, p["scale"]):
@@ -2473,7 +2496,8 @@ def pipeline_on_ranks(torch, seed: int) -> dict:
 
 def train_mesh_rank(rank: int) -> int:
     """One rank of phase 11 (``--train-rank``): the collective probe,
-    training on each of TRAIN_MESHES, then ``pipeline_apply``; writes
+    training phase 9's model on each of TRAIN_MESHES and :func:`train_runs`'
+    models on theirs, then ``pipeline_apply``; writes
     its results to ``TRAIN_MESH_DIR/rank_<rank>.json``."""
     from datetime import timedelta
 
@@ -2493,8 +2517,8 @@ def train_mesh_rank(rank: int) -> int:
         runs = {f"{d}x{m}": train_on_mesh(torch, (d, m), train_config_of(),
                                           seed + 11)
                 for d, m in TRAIN_MESHES}
-        runs["moe-{}x{}".format(*MOE_TRAIN_MESH)] = train_on_mesh(
-            torch, MOE_TRAIN_MESH, moe_mesh_config(), seed + 29)
+        for name, (shape, cfg, cfg_seed) in train_runs(seed).items():
+            runs[name] = train_on_mesh(torch, shape, cfg, cfg_seed)
         pipe = pipeline_on_ranks(torch, seed)
         (TRAIN_MESH_DIR / f"rank_{rank}.json").write_text(json.dumps(
             {"probe": lines, "runs": runs, "pipeline": pipe}))
@@ -2509,7 +2533,7 @@ DRYRUN_DIR = ROOT / "build" / "dryrun_phase"
 DRYRUN_RESIDENT_RTOL = 0.02     # resident state against memory_allocated
 DRYRUN_PEAK_RTOL = 0.15         # MemTracker's peak against the allocator's
 DRYRUN_FLOPS_RTOL = 1e-9        # FLOPs on both ranks against train_flops
-DRYRUN_TIMEOUT = 300            # seconds for (a)'s two meshes
+DRYRUN_TIMEOUT = 450            # seconds for (a)'s five runs
 #: (b): one production cell on the 256-rank fake mesh, started beside (a)
 #: once every timed phase has ended, its depth cut to DRYRUN_CELL_LAYERS
 #: (every op of every microbatch runs on the host: all 40 layers took
@@ -2565,14 +2589,10 @@ def dryrun_subprocess(what: str) -> int:
     DRYRUN_DIR.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
     if what == "production":
-        from repro_torch.configs import get_config
         arch, shape = DRYRUN_CELL
-        full, L = get_config(arch), DRYRUN_CELL_LAYERS
         rec = dryrun.run_cell(arch, shape, out_dir=str(DRYRUN_DIR),
                               verbose=True, device="meta",
-                              cfg=full.with_(n_layers=L,
-                                             mixers=full.mixers[:L],
-                                             ffns=full.ffns[:L]))
+                              cfg=cut_config(arch, DRYRUN_CELL_LAYERS))
         rec["wall_s"] = time.perf_counter() - t0
         (DRYRUN_DIR / "production.json").write_text(json.dumps(rec))
         return 0
@@ -2582,8 +2602,11 @@ def dryrun_subprocess(what: str) -> int:
     for name, arch, cfg, (d, m) in (
             [(f"{d}x{m}", "granite-3-8b", train_config_of(), (d, m))
              for d, m in TRAIN_MESHES]
-            + [("moe-{}x{}".format(*MOE_TRAIN_MESH), "deepseek-moe-16b",
-                moe_mesh_config(), MOE_TRAIN_MESH)]):
+            # a run's name as the cell's arch: the production cell's
+            # choices keyed by arch (DeepSeek-V2's bf16 AdamW moments) are
+            # not the step phase 11 runs (TrainConfig()'s f32 ones)
+            + [(name, name, cfg, shape) for name, (shape, cfg, _)
+               in train_runs(0).items()]):
         mesh = make_host_mesh(d, m, device_type=DEVICE)
         make_groups(mesh)
         out[name] = dryrun.run_cell(

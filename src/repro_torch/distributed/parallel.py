@@ -15,17 +15,27 @@ and :class:`Layout` puts in what GSPMD would:
   over the data dims.  A leaf the rules replicate over the data dims has
   its gradient summed over them after the backward
   (:meth:`Layout.reduce_replicated`, one ``all_reduce`` of them all).
-* **Tensor parallel over ``model``.**  Attention (``wq``, ``wk``, ``wv``,
-  ``wo``) and the dense FFN (``w_gate``, ``w_up``, ``w_down``) keep the
-  rank's columns or rows (Megatron): the block's input passes "copy to
-  model", its row-parallel output "reduce from model"; attention runs on
-  the rank's ``H/|model|`` query and ``KV/|model|`` KV heads (column
-  blocks are head-major, so query head h keeps KV head h // G), and the
-  replicated biases ``bq``/``bk``/``bv`` are cut to those heads.  Where
-  ``H`` or ``KV`` does not split over ``model`` the attention leaves are
-  gathered whole instead.  The vocabulary stays split: the lookup and the
-  loss are vocab-parallel (``collectives.vocab_parallel_embed``,
-  ``vocab_parallel_nll``).
+* **Tensor parallel over ``model``.**  Each mixer whose heads or
+  channels split evenly over ``model`` (:meth:`Layout.mixer_tp`:
+  attention and MLA by query heads, RWKV-6 by its 64-wide heads, Mamba
+  by ``d_inner``) and the dense FFN keep the rank's column and row
+  blocks (Megatron, :data:`TP_MIX`, :data:`TP_FFN`; column blocks are
+  head-major) and compute only the rank's heads or channels: a
+  column-parallel product's input passes "copy to model"
+  (``TensorParallel.copy_in``: identity forward, SUM backward), the
+  row-parallel output "reduce from model".  A leaf the rank uses only in
+  part but gets whole (a replicated leaf such as a bias or RWKV-6's
+  ``u``, or a ``model``-split leaf gathered whole: attention's ``wk`` and
+  ``wv`` where ``KV`` does not split, Mamba's ``in_proj``, whose
+  ``[x | z]`` columns are not the rank's block) passes ``copy_in``
+  before the mixer cuts it, so its gradient comes back summed over
+  ``model``, whole on every rank, and ``reduce_to_shard`` keeps the
+  rank's block of it.  The mixers' own code (``models/attention.py``,
+  ``rwkv6.py``, ``mla.py``, ``mamba.py``) says where each ``copy_in``
+  sits.  A mixer whose heads or channels do not split runs whole on
+  every rank (its leaves gathered whole).  The vocabulary stays split:
+  the lookup and the loss are vocab-parallel
+  (``collectives.vocab_parallel_embed``, ``vocab_parallel_nll``).
 * **Expert parallel over ``model``.**  An MoE layer keeps the rank's
   ``E/|model|`` experts of ``w_gate``, ``w_up`` and ``w_down`` and its
   column and row blocks of the shared experts (``sharding.EXPERT_DIMS``),
@@ -35,14 +45,16 @@ and :class:`Layout` puts in what GSPMD would:
   Where ``E`` or the shared width does not split over ``model``
   (``sharding.expert_parallel``) the experts are gathered whole and run
   whole on every rank.  Every other leaf the rules put on ``model`` (the
-  Mamba, RWKV-6 and MLA projections, the frontends) is gathered whole
-  just in time: those layers run whole on every rank.
+  frontends, whisper's cross attention) is gathered whole just in time
+  and runs whole on every rank.
 * **Data parallel.**  The rank runs its rows; the loss is normalised by
   the label count of the *global* microbatch, and MoE layers route the
   reference's groups of the global token stream (``models/moe.py``), so
   the SUM over the data ranks of their losses and gradients is the
-  reference's.  Across ``model`` the ranks hold the same activations and
-  the same gradients of what they share: nothing is summed over it.
+  reference's.  Across ``model`` the ranks hold the same activations
+  between the blocks and the same gradients of every leaf they share
+  (``copy_in`` summed the partial ones): after the backward nothing is
+  summed over ``model``.
 
 Every rank of a group issues the same collectives in the same order, in
 forward, in the remat recompute and in backward.
@@ -57,16 +69,22 @@ from repro_torch.distributed import collectives as coll
 from repro_torch.distributed.sharding import (EXPERT_DIMS, P, dp_axes,
                                               expert_parallel, spec_axes)
 from repro_torch.launch.mesh import axis_sizes
+from repro_torch.models.rwkv6 import HEAD_SIZE
 
-#: attention leaves kept tensor-parallel (columns, then ``wo``'s rows)
-TP_ATTN = ("wq", "wk", "wv", "wo")
+#: per mixer, the leaves a tensor-parallel rank keeps as its stored
+#: ``model`` block (its heads' or channels' columns, then the output
+#: projection's rows); the mixer cuts its other leaves itself.  Attention
+#: keeps ``wk`` and ``wv`` only where ``KV`` splits too (:meth:`Layout.
+#: layer`).
+TP_MIX = {"attn": ("wq", "wk", "wv", "wo"),
+          "rwkv6": ("wr", "wk", "wv", "wg", "wo"),
+          "mla": ("wq_b", "wkv_b", "wo"),
+          "mamba": ("dt_proj", "out_proj")}
 #: dense-FFN leaves kept tensor-parallel
 TP_FFN = ("w_gate", "w_up", "w_down")
 #: MoE leaves kept expert-parallel (the rank's experts, the shared
 #: experts' columns and rows)
 EP_FFN = tuple(EXPERT_DIMS)
-#: replicated attention biases, cut to the rank's heads
-HEAD_BIASES = ("bq", "bk", "bv")
 
 
 class TensorParallel:
@@ -84,6 +102,26 @@ class TensorParallel:
 
     def reduce_out(self, x):
         return coll.reduce_from_model(x, self.mesh, self.axis)
+
+    def reduce_product(self, a, w):
+        """``a @ w`` summed over ``model``: a row-parallel product whose
+        members each hold part of the inner dim.  f32 operands form and
+        sum their partial products in f64 and round once, so the result
+        is the exact sum rounded, not the members' rounded partials added
+        in another order than the single-device product's (the f32 runs
+        are held to the single-device step at 1e-5); narrower operands
+        sum in their own dtype, as Megatron's bf16 all-reduce does."""
+        if a.dtype != torch.float32:
+            return self.reduce_out(a @ w)
+        return self.reduce_out(a.double() @ w.double()).float()
+
+    def cut(self, x, dim: int):
+        """This rank's block of ``x`` along ``dim`` (split evenly over
+        the members) after :meth:`copy_in`: a leaf or tensor the rank has
+        whole and uses in part, whose gradient then comes back whole on
+        every rank."""
+        n = x.shape[dim] // self.size
+        return self.copy_in(x).narrow(dim, self.index * n, n)
 
 
 class DataParallel:
@@ -161,46 +199,49 @@ class Layout:
         return self.whole(tree, where)
 
     # ---------------------------------------------------------- blocks
-    def attn_tp(self) -> bool:
-        """Attention runs tensor-parallel: ``H`` and ``KV`` split evenly
-        over ``model``."""
+    def mixer_tp(self, mix: str) -> bool:
+        """Whether mixers of family ``mix`` run tensor-parallel: the
+        heads or channels they split by (attention's and MLA's query
+        heads, RWKV-6's heads, Mamba's ``d_inner``) split evenly over
+        ``model``.  Attention's ``KV`` need not: a rank then computes the
+        KV heads its query heads read (``models/attention.py``)."""
+        if self.tp is None:
+            return False
         c = self.cfg
-        return (self.tp is not None and c.n_heads % self.tp.size == 0
-                and c.n_kv_heads % self.tp.size == 0)
+        width = {"attn": c.n_heads, "mla": c.n_heads,
+                 "rwkv6": c.d_model // HEAD_SIZE, "mamba": c.d_inner}[mix]
+        return width % self.tp.size == 0
 
     def layer(self, lp: dict, where: tuple, i: int):
         """Layer ``i``'s compute params from its local blocks ``lp`` (at
         ``where`` in the params tree) → (params, tp of the mixer, tp of
         the FFN), a tp None where that part runs whole; an MoE layer's
-        FFN tp is its expert-parallel map (``moe_mix``'s ``ep``)."""
+        FFN tp is its expert-parallel map (``moe_mix``'s ``ep``).  Under a
+        tp the leaves of :data:`TP_MIX` or the FFN's are the rank's
+        ``model`` blocks gathered over the data dims, every other leaf
+        comes whole."""
         mix, ffn = self.cfg.layer_sig(i)
-        tp_mix = self.tp if (mix == "attn" and self.attn_tp()) else None
+        tp_mix = self.tp if self.mixer_tp(mix) else None
         tp_ffn = self.tp if (ffn == "dense" or (
             self.tp is not None and expert_parallel(self.cfg, self.tp.size))
         ) else None
+        keep_mix = TP_MIX[mix]
+        if mix == "attn" and tp_mix is not None and (
+                self.cfg.n_kv_heads % self.tp.size):
+            keep_mix = ("wq", "wo")             # wk, wv whole: KV replicated
         out = {}
         for part, sub in lp.items():
             tp = {"mix": tp_mix, "ffn": tp_ffn}.get(part)
-            keep = {"mix": TP_ATTN,
+            keep = {"mix": keep_mix,
                     "ffn": TP_FFN if ffn == "dense" else EP_FFN}.get(part, ())
             out[part] = {}
             for name, t in sub.items():
                 at = where + (part, name)
                 if tp is not None and name in keep:
                     out[part][name] = self.data_whole(t, at)
-                elif tp is not None and name in HEAD_BIASES:
-                    out[part][name] = self._head_slice(t, name)
                 else:
                     out[part][name] = self.whole(t, at)
         return out, tp_mix, tp_ffn
-
-    def _head_slice(self, bias, name):
-        """The rank's heads of a replicated bias; its gradient comes back
-        whole on every rank (a SUM over ``model`` of the ranks' slices)."""
-        c, tp = self.cfg, self.tp
-        heads = c.n_heads if name == "bq" else c.n_kv_heads
-        width = heads // tp.size * c.head_dim
-        return tp.copy_in(bias)[tp.index * width:(tp.index + 1) * width]
 
     def top(self, params: dict) -> dict:
         """The params outside the layer stacks for compute: ``embed`` /

@@ -38,20 +38,52 @@ def init_attn(cfg, *, generator: torch.Generator, device,
 
 
 def qkv_proj(params: dict, x: torch.Tensor, cfg,
-             positions: torch.Tensor | None):
-    """x: (B,S,D) → q (B,S,H,hd), k/v (B,S,KV,hd), rope applied.  The
-    head counts are the projections' widths over hd: a tensor-parallel
-    rank's column blocks give its own heads."""
+             positions: torch.Tensor | None, tp=None):
+    """x: (B,S,D) → q (B,S,H,hd), k/v (B,S,KV,hd), rope applied.
+
+    Under ``tp`` (``distributed.parallel.TensorParallel``; x has passed
+    ``tp.copy_in``) ``wq`` holds the columns of the rank's ``H/|model|``
+    query heads ``[q0, q0 + Hl)``, and q, k, v are those heads' and the
+    KV heads ``[k0, k1)`` they read (query head h reads KV head h // G):
+    ``wk`` and ``wv`` hold the KV heads' columns where ``KV`` splits over
+    ``model`` too, else they come whole (``KV·hd`` wide) and pass
+    ``tp.copy_in`` before this cuts the KV heads' columns, so the ranks
+    that share a KV head each return part of its gradient and the SUM
+    adds them.  The biases come whole and are cut the same way.  Where a
+    rank's query heads do not read their KV heads in groups of one size
+    (``Hl`` and ``G`` divide neither the other), k and v are repeated to
+    one KV head a query head."""
     B, S, _ = x.shape
     HD = cfg.head_dim
-    q = x @ params["wq"]
-    k = x @ params["wk"]
-    v = x @ params["wv"]
+    w = {n: params[n] for n in ("wq", "wk", "wv")}
     if cfg.attn.qkv_bias:
-        q, k, v = q + params["bq"], k + params["bk"], v + params["bv"]
+        w.update((n, params[n]) for n in ("bq", "bk", "bv"))
+    G = cfg.n_heads // cfg.n_kv_heads
+    if tp is not None:
+        Hl = cfg.n_heads // tp.size
+        q0 = tp.index * Hl
+        k0, k1 = q0 // G, (q0 + Hl - 1) // G + 1
+        kv = slice(k0 * HD, k1 * HD)
+        cut = {"bq": slice(q0 * HD, (q0 + Hl) * HD), "bk": kv, "bv": kv}
+        if params["wk"].shape[-1] == cfg.n_kv_heads * HD:     # came whole
+            cut.update(wk=kv, wv=kv)
+        for n, cols in cut.items():
+            if n in w:
+                w[n] = tp.copy_in(w[n])[..., cols]
+    q = x @ w["wq"]
+    k = x @ w["wk"]
+    v = x @ w["wv"]
+    if cfg.attn.qkv_bias:
+        q, k, v = q + w["bq"], k + w["bk"], v + w["bv"]
     q = q.reshape(B, S, -1, HD)
     k = k.reshape(B, S, -1, HD)
     v = v.reshape(B, S, -1, HD)
+    if tp is not None:
+        read = [(q0 + j) // G - k0 for j in range(Hl)]
+        KVl = k1 - k0
+        if Hl % KVl or read != [j // (Hl // KVl) for j in range(Hl)]:
+            idx = torch.tensor(read, device=k.device)
+            k, v = k.index_select(2, idx), v.index_select(2, idx)
     if cfg.attn.rope and positions is not None:
         q = apply_rope(q, positions, cfg.attn.rope_theta)
         k = apply_rope(k, positions, cfg.attn.rope_theta)
@@ -323,14 +355,15 @@ IMPLS = ("direct", "chunked", "kernel")
 def attn_layer(params: dict, x: torch.Tensor, positions: torch.Tensor, cfg,
                *, impl: str = "chunked", tp=None) -> torch.Tensor:
     """Pre-norm residual causal attention block over (B, S, D).  With
-    ``tp`` (``distributed.parallel.TensorParallel``) the projections are
-    this rank's head-major column blocks and ``wo``'s row block: the
-    normed input passes ``tp.copy_in``, the partial output
-    ``tp.reduce_out``."""
+    ``tp`` (``distributed.parallel.TensorParallel``) the rank computes
+    its ``H/|model|`` query heads and the KV heads they read
+    (:func:`qkv_proj`) and ``wo`` is its heads' row block: the normed
+    input passes ``tp.copy_in``, the partial output is summed by
+    ``tp.reduce_product``."""
     h = rms_norm(x, params["norm"], cfg.norm_eps)
     if tp is not None:
         h = tp.copy_in(h)
-    q, k, v = qkv_proj(params, h, cfg, positions)
+    q, k, v = qkv_proj(params, h, cfg, positions, tp)
     w = cfg.attn.window
     if impl == "direct":
         o = direct_attention(q, k, v, causal=True, window=w)
@@ -342,8 +375,9 @@ def attn_layer(params: dict, x: torch.Tensor, positions: torch.Tensor, cfg,
     else:
         raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
     B, S, H, hd = o.shape
-    out = o.reshape(B, S, H * hd) @ params["wo"]
-    return x + (out if tp is None else tp.reduce_out(out))
+    o = o.reshape(B, S, H * hd)
+    return x + (o @ params["wo"] if tp is None
+                else tp.reduce_product(o, params["wo"]))
 
 
 def cross_attn_layer(params: dict, x: torch.Tensor, enc_kv: tuple, cfg

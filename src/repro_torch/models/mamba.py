@@ -114,22 +114,49 @@ def _scan_chunked(dt, A, Bf, Cf, xf, h0, chunk):
 
 
 def mamba_mix(params: dict, u: torch.Tensor, cfg, *, chunk: int = 64,
-              conv_state=None, ssm_state=None, impl: str = "chunked"):
+              conv_state=None, ssm_state=None, impl: str = "chunked",
+              tp=None):
     """Core mixer on pre-normed input u: (B, S, D) → (y, (conv_state,
-    ssm_state)).  ``impl`` ∈ :data:`IMPLS`."""
+    ssm_state)).  ``impl`` ∈ :data:`IMPLS`.
+
+    Under ``tp`` (``distributed.parallel.TensorParallel``) rank i runs
+    channels ``[i·DI/n, (i+1)·DI/n)``: u passes ``tp.copy_in``;
+    ``in_proj`` comes whole (its stored ``model`` block is a contiguous
+    share of the ``[x | z]`` columns, not the rank's x and z) and passes
+    ``tp.copy_in`` before the rank's x and z columns are cut, as do
+    ``conv_w``, ``conv_b``, ``A_log``, ``D`` and ``x_proj``'s rows;
+    ``dt_proj``'s columns and ``out_proj``'s rows are the rank's blocks.
+    The rank's rows of ``x_proj`` give a partial (delta, B, C), summed
+    over ``model`` (``tp.reduce_product``), then passed through
+    ``tp.copy_in``, so their channel-partial gradients are summed too;
+    the output is summed the same way, and the states are the rank's
+    channels'."""
     if impl not in IMPLS:
         raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
     mm = cfg.mamba
     B = u.shape[0]
     DI, N = cfg.d_inner, mm.d_state
     R = dt_rank(cfg)
-    x, z = (u @ params["in_proj"]).chunk(2, dim=-1)
-    x, conv_state = _causal_conv(x, params["conv_w"], params["conv_b"],
-                                 conv_state)
+    p = params
+    if tp is None:
+        x, z = (u @ p["in_proj"]).chunk(2, dim=-1)
+    else:
+        p = dict(params, **{k: tp.cut(params[k], d) for k, d in (
+            ("conv_w", 1), ("conv_b", 0), ("A_log", 0), ("D", 0),
+            ("x_proj", 0))})
+        lo, DI = tp.index * DI // tp.size, DI // tp.size
+        w = tp.copy_in(p["in_proj"])
+        u = tp.copy_in(u)
+        x, z = (u @ w[:, c:c + DI] for c in (lo, cfg.d_inner + lo))
+    x, conv_state = _causal_conv(x, p["conv_w"], p["conv_b"], conv_state)
     x = F.silu(x)
-    delta, Bc, Cc = (x @ params["x_proj"]).split([R, N, N], dim=-1)
-    dt = F.softplus((delta @ params["dt_proj"]).float())
-    A = -torch.exp(params["A_log"])                  # (DI, N)
+    if tp is None:
+        proj = x @ p["x_proj"]
+    else:
+        proj = tp.copy_in(tp.reduce_product(x, p["x_proj"]))
+    delta, Bc, Cc = proj.split([R, N, N], dim=-1)
+    dt = F.softplus((delta @ p["dt_proj"]).float())
+    A = -torch.exp(p["A_log"])                       # (DI, N)
     xf, Bf, Cf = x.float(), Bc.float(), Cc.float()
     h0 = (torch.zeros(B, DI, N, dtype=torch.float32, device=u.device)
           if ssm_state is None else ssm_state)
@@ -142,15 +169,18 @@ def mamba_mix(params: dict, u: torch.Tensor, cfg, *, chunk: int = 64,
     else:
         y_ssm, h_last = _scan_chunked(dt, A, Bf, Cf, xf, h0, chunk)
 
-    y = y_ssm + params["D"] * xf
+    y = y_ssm + p["D"] * xf
     y = (y * F.silu(z.float())).to(u.dtype)
-    return y @ params["out_proj"], (conv_state, h_last)
+    out = (y @ p["out_proj"] if tp is None
+           else tp.reduce_product(y, p["out_proj"]))
+    return out, (conv_state, h_last)
 
 
 def mamba_layer(params: dict, x: torch.Tensor, cfg, *,
-                impl: str = "chunked") -> torch.Tensor:
+                impl: str = "chunked", tp=None) -> torch.Tensor:
+    """Pre-norm residual Mamba block; ``tp`` as :func:`mamba_mix`."""
     h = rms_norm(x, params["norm"], cfg.norm_eps)
-    y, _ = mamba_mix(params, h, cfg, impl=impl)
+    y, _ = mamba_mix(params, h, cfg, impl=impl, tp=tp)
     return x + y
 
 

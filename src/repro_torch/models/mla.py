@@ -37,12 +37,18 @@ def init_mla(cfg, *, generator: torch.Generator, device,
     }
 
 
-def _project_q(params, h, cfg, positions):
+def _project_q(params, h, cfg, positions, tp=None):
+    """Queries (B, S, H, nope) and (B, S, H, rope_hd), rope applied.
+    Under ``tp`` ``wq_b`` holds the rank's heads' columns: the normed
+    query latent (computed whole) passes ``tp.copy_in`` before it, and
+    the queries are those heads'."""
     m = cfg.mla
     B, S, _ = h.shape
     qk_hd = m.nope_head_dim + m.rope_head_dim
     q = rms_norm(h @ params["wq_a"], params["q_norm"], cfg.norm_eps)
-    q = (q @ params["wq_b"]).reshape(B, S, cfg.n_heads, qk_hd)
+    if tp is not None:
+        q = tp.copy_in(q)
+    q = (q @ params["wq_b"]).reshape(B, S, -1, qk_hd)
     q_nope, q_rope = q.split([m.nope_head_dim, m.rope_head_dim], dim=-1)
     return q_nope, apply_rope(q_rope, positions, cfg.attn.rope_theta)
 
@@ -59,15 +65,24 @@ def latent_kv(params, h, cfg, positions):
 
 
 def mla_layer(params: dict, x: torch.Tensor, positions: torch.Tensor,
-              cfg) -> torch.Tensor:
+              cfg, tp=None) -> torch.Tensor:
     """Expanded-form MLA for prefill (causal attention over up-projected
-    per-head keys and values)."""
+    per-head keys and values).
+
+    Under ``tp`` (``distributed.parallel.TensorParallel``) the rank
+    computes its ``H/|model|`` heads: ``wq_a`` and ``wkv_a`` run whole on
+    every rank, the query latent, ``c_kv`` and ``k_rope`` pass
+    ``tp.copy_in`` before the rank's head columns of ``wq_b`` and
+    ``wkv_b``, ``wo`` is those heads' row block and the partial output
+    is summed by ``tp.reduce_product``."""
     m = cfg.mla
     B, S, _ = x.shape
-    H = cfg.n_heads
     h = rms_norm(x, params["norm"], cfg.norm_eps)
-    q_nope, q_rope = _project_q(params, h, cfg, positions)
+    q_nope, q_rope = _project_q(params, h, cfg, positions, tp)
     c_kv, k_rope = latent_kv(params, h, cfg, positions)
+    if tp is not None:
+        c_kv, k_rope = tp.copy_in(c_kv), tp.copy_in(k_rope)
+    H = q_nope.shape[2]
     kv = (c_kv @ params["wkv_b"]).reshape(B, S, H,
                                           m.nope_head_dim + m.v_head_dim)
     k_nope, v = kv.split([m.nope_head_dim, m.v_head_dim], dim=-1)
@@ -79,7 +94,8 @@ def mla_layer(params: dict, x: torch.Tensor, positions: torch.Tensor,
     o = chunked_attention(q, k, F.pad(v, (0, qk_hd - m.v_head_dim)),
                           causal=True)
     o = o[..., :m.v_head_dim].reshape(B, S, H * m.v_head_dim)
-    return x + o @ params["wo"]
+    return x + (o @ params["wo"] if tp is None
+                else tp.reduce_product(o, params["wo"]))
 
 
 def absorbed_weights(params, cfg):

@@ -47,21 +47,37 @@ def init_rwkv6(cfg, *, generator: torch.Generator, device,
     }
 
 
-def _projections(params, x, x_prev, cfg):
+def _projections(params, x, x_prev, cfg, tp=None):
     """Token-shift mixing and the r/k/v/g/w projections.  x, x_prev:
-    (B, S, D)."""
-    mu = params["mu"].float()
-    xf, xp = x.float(), x_prev.float()
+    (B, S, D).
 
-    def mix(i):
-        return (xf + mu[i] * (xp - xf)).to(x.dtype)
+    Under ``tp`` (``distributed.parallel.TensorParallel``) ``wr``, ``wk``,
+    ``wv`` and ``wg`` hold the rank's heads' columns and r, k, v, g, w
+    are those heads' (``D/|model|`` wide).  The four mixes feeding those
+    products are made from x, x_prev and ``mu`` passed through
+    ``tp.copy_in`` (two activations summed in backward, not four mixes);
+    the decay LoRA's mix reads them as they came and runs its first
+    product whole on every rank, its hidden passing ``tp.copy_in``
+    before ``w_lora_b``'s columns of the rank's heads (cut after
+    ``tp.copy_in``)."""
+    def mixes(x, x_prev, mu, rows):
+        xf, xp, mu = x.float(), x_prev.float(), mu.float()
+        return [(xf + mu[i] * (xp - xf)).to(x.dtype) for i in rows]
 
-    r = mix(0) @ params["wr"]
-    k = mix(1) @ params["wk"]
-    v = mix(2) @ params["wv"]
-    g = mix(3) @ params["wg"]
+    mu, lora_b = params["mu"], params["w_lora_b"]
+    if tp is None:
+        mix = mixes(x, x_prev, mu, range(5))
+    else:
+        mix = mixes(*map(tp.copy_in, (x, x_prev, mu)), range(4)) + mixes(
+            x, x_prev, mu, (4,))
+        lora_b = tp.cut(lora_b, -1)
+    r = mix[0] @ params["wr"]
+    k = mix[1] @ params["wk"]
+    v = mix[2] @ params["wv"]
+    g = mix[3] @ params["wg"]
     # Finch: data-dependent per-channel decay via LoRA
-    w_raw = torch.tanh(mix(4) @ params["w_lora_a"]) @ params["w_lora_b"]
+    hidden = torch.tanh(mix[4] @ params["w_lora_a"])
+    w_raw = (hidden if tp is None else tp.copy_in(hidden)) @ lora_b
     w = torch.exp(-torch.exp(-0.5 + w_raw.float()))           # (0, 1)
     return r, k, v, g, w
 
@@ -129,17 +145,25 @@ def _wkv_chunked(r, k, v, w, u, S0, chunk=32):
 
 
 def rwkv6_mix(params, u_in, cfg, *, x_prev=None, wkv_state=None,
-              impl="chunked"):
+              impl="chunked", tp=None):
     """Pre-normed input u_in: (B, S, D) → (y, (last_x, wkv_state)).
-    ``impl`` ∈ :data:`IMPLS`."""
+    ``impl`` ∈ :data:`IMPLS`.  Under ``tp`` the rank computes its
+    ``nH/|model|`` heads (:func:`_projections`; ``u`` and ``ln_x`` cut
+    to them after ``tp.copy_in``), ``wo`` is their row block, the
+    partial output is summed by ``tp.reduce_product``, and the state is
+    the rank's heads'."""
     if impl not in IMPLS:
         raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
     B, S, D = u_in.shape
-    nH = D // HEAD_SIZE
     first = (u_in.new_zeros(B, 1, D) if x_prev is None
              else x_prev[:, None].to(u_in.dtype))
     x_prev_full = torch.cat([first, u_in[:, :-1]], dim=1)
-    r, k, v, g, w = _projections(params, u_in, x_prev_full, cfg)
+    r, k, v, g, w = _projections(params, u_in, x_prev_full, cfg, tp)
+    uu, ln_x = params["u"], params["ln_x"]
+    if tp is not None:
+        uu, ln_x = tp.cut(uu, 0), tp.cut(ln_x, 1)
+    Dl = r.shape[-1]
+    nH = Dl // HEAD_SIZE
     rh = _heads(r, nH).float()
     kh = _heads(k, nH).float()
     vh = _heads(v, nH).float()
@@ -148,7 +172,6 @@ def rwkv6_mix(params, u_in, cfg, *, x_prev=None, wkv_state=None,
     S0 = (torch.zeros(B, nH, HEAD_SIZE, HEAD_SIZE, dtype=torch.float32,
                       device=u_in.device)
           if wkv_state is None else wkv_state)
-    uu = params["u"]
     if impl == "kernel":
         from repro_torch.kernels.rwkv6_scan import ops as rk_ops
         y, S_last = rk_ops.rwkv6_scan(rh, kh, vh, wh, uu, S0)
@@ -157,20 +180,23 @@ def rwkv6_mix(params, u_in, cfg, *, x_prev=None, wkv_state=None,
     else:
         y, S_last = _wkv_chunked(rh, kh, vh, wh, uu, S0)
     # per-head group norm
-    scale, bias = params["ln_x"][0], params["ln_x"][1]
+    scale, bias = ln_x[0], ln_x[1]
     yh = y.reshape(B, S, nH, HEAD_SIZE)
     mean = yh.mean(dim=-1, keepdim=True)
     var = yh.var(dim=-1, unbiased=False, keepdim=True)
-    y = ((yh - mean) * torch.rsqrt(var + 1e-5)).reshape(B, S, D)
+    y = ((yh - mean) * torch.rsqrt(var + 1e-5)).reshape(B, S, Dl)
     y = y * scale + bias
     y = y * F.silu(g.float())
-    out = y.to(u_in.dtype) @ params["wo"]
+    y = y.to(u_in.dtype)
+    out = (y @ params["wo"] if tp is None
+           else tp.reduce_product(y, params["wo"]))
     return out, (u_in[:, -1], S_last)
 
 
-def rwkv6_layer(params, x, cfg, *, impl="chunked"):
+def rwkv6_layer(params, x, cfg, *, impl="chunked", tp=None):
+    """Pre-norm residual RWKV-6 time-mix; ``tp`` as :func:`rwkv6_mix`."""
     h = rms_norm(x, params["norm"], cfg.norm_eps)
-    y, _ = rwkv6_mix(params, h, cfg, impl=impl)
+    y, _ = rwkv6_mix(params, h, cfg, impl=impl, tp=tp)
     return x + y
 
 

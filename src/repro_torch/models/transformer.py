@@ -78,9 +78,10 @@ an MoE layer's tokens in that many groups of the whole token stream
 **Training on a mesh** passes a ``layout`` (``distributed.parallel.
 Layout``) to :func:`loss_fn` and :func:`forward_hidden`: ``params`` are
 then the rank's blocks under ``param_specs`` and the batch its rows.
-Each layer gathers its data-sharded leaves just in time, attention and
-the dense FFN run tensor-parallel over ``model`` and MoE layers
-expert-parallel, every other leaf runs whole, the loss is vocab-parallel
+Each layer gathers its data-sharded leaves just in time, every mixer
+whose heads or channels split over ``model`` and the dense FFN run
+tensor-parallel and MoE layers expert-parallel (``distributed/
+parallel.py``), every other leaf runs whole, the loss is vocab-parallel
 and normalised by the global label count, and MoE layers route the
 reference's groups of the global token stream; the result is the rank's
 share of the reference's loss. The reference's ``_constrain`` (a
@@ -839,11 +840,11 @@ def _apply_layer(lp, x, positions, cfg: ModelConfig, i: int, *, impl,
             lp["mix"], x, positions, cfg, tp=tp[0],
             impl="chunked" if impl == "chunked" else "direct")
     elif mix == "mla":
-        x = mla_mod.mla_layer(lp["mix"], x, positions, cfg)
+        x = mla_mod.mla_layer(lp["mix"], x, positions, cfg, tp=tp[0])
     elif mix == "mamba":
-        x = mamba_mod.mamba_layer(lp["mix"], x, cfg, impl=impl)
+        x = mamba_mod.mamba_layer(lp["mix"], x, cfg, impl=impl, tp=tp[0])
     else:
-        x = rwkv_mod.rwkv6_layer(lp["mix"], x, cfg, impl=impl)
+        x = rwkv_mod.rwkv6_layer(lp["mix"], x, cfg, impl=impl, tp=tp[0])
     if cfg.enc_dec and enc_out is not None:
         enc_kv = attn_mod.encode_cross_kv(lp["cross"], enc_out, cfg)
         x = attn_mod.cross_attn_layer(lp["cross"], x, enc_kv, cfg)
@@ -866,8 +867,9 @@ def forward_hidden(params, cfg: ModelConfig, x: torch.Tensor, *,
     With a ``layout`` (``distributed.parallel.Layout``) ``params`` are
     this rank's blocks and x its rows: each layer gathers its leaves
     just in time (inside the checkpointed block, so the recompute gathers
-    again), attention and the dense FFN run tensor-parallel and MoE
-    layers expert-parallel, and the aux loss is this rank's share."""
+    again), the mixers that split over ``model`` and the dense FFN run
+    tensor-parallel and MoE layers expert-parallel, and the aux loss is
+    this rank's share."""
     check_supported(cfg)
     _check_impl(impl)
     B, S, _ = x.shape

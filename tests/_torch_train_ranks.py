@@ -20,7 +20,7 @@ runs every case:
 * ``psum``: ``compressed_psum`` of this rank's gradients over "data";
 * ``pipeline``: ``pipeline_apply`` on a ("pipe",) mesh of the four ranks;
 * ``layout``: the shapes a rank holds of one layer and computes with,
-  and the bytes its FFN's gathers move.
+  and the bytes its mixer's and its FFN's gathers move.
 
 Each rank writes ``result_<rank>.pkl``: per case its values (``psum``
 per rank, the rest from rank 0) or the traceback.  A case that raises on
@@ -146,8 +146,8 @@ def pipeline_case(c, mesh, work):
 def layout_case(c, mesh, work):
     """The shapes a rank holds of layer ``c["layer"]`` and the shapes it
     computes with (``Layout.layer``), whether the mixer and the FFN run
-    tensor- (or expert-) parallel, and the bytes the FFN's gathers move
-    by kind."""
+    tensor- (or expert-) parallel, and the bytes the mixer's and the
+    FFN's gathers move by kind."""
     from repro_torch.distributed import collectives as coll
     from repro_torch.distributed import parallel, sharding
     from repro_torch.models import transformer as tfm
@@ -163,14 +163,43 @@ def layout_case(c, mesh, work):
              else ("body", (i - prefix) % period, (i - prefix) // period))
     lp = tfm.layer_params(local, cfg, i)
     used, tp_mix, tp_ffn = lay.layer(lp, where, i)
-    coll.TRAFFIC.reset()
-    lay.layer({"ffn": lp["ffn"]}, where, i)
-    moved = {k: v["bytes"] for k, v in coll.TRAFFIC.by_kind().items()}
+    computed = mixer_shapes(cfg, cfg.mixers[i], used["mix"], tp_mix)
+    moved = {}
+    for part in ("mix", "ffn"):
+        coll.TRAFFIC.reset()
+        lay.layer({part: lp[part]}, where, i)
+        moved[part] = {k: v["bytes"]
+                       for k, v in coll.TRAFFIC.by_kind().items()}
     shapes = lambda tree: {p: {k: list(v.shape) for k, v in d.items()}
                            for p, d in tree.items()}
     return {"held": shapes(lp), "compute": shapes(used),
             "tp": [tp_mix is not None, tp_ffn is not None],
-            "ffn_bytes": moved}
+            "mixer": computed, "mix_bytes": moved["mix"],
+            "ffn_bytes": moved["ffn"]}
+
+
+def mixer_shapes(cfg, mix, params, tp) -> dict:
+    """What the mixer computes from ``params`` (``Layout.layer``'s) on a
+    (1, 4, D) input under ``tp``: attention's and MLA's query (and KV)
+    heads, Mamba's and RWKV-6's output and recurrent state (its
+    channels or heads)."""
+    from repro_torch.models import attention, mamba, mla, rwkv6
+    x = torch.randn(1, 4, cfg.d_model,
+                    generator=torch.Generator().manual_seed(0))
+    pos = torch.arange(4)[None]
+    if mix == "attn":
+        q, k, v = attention.qkv_proj(params, x, cfg, pos, tp)
+        out = {"q": q, "k": k, "v": v}
+    elif mix == "mla":
+        out = dict(zip(("q_nope", "q_rope"),
+                       mla._project_q(params, x, cfg, pos, tp)))
+    elif mix == "mamba":
+        y, (_, h) = mamba.mamba_mix(params, x, cfg, tp=tp)
+        out = {"y": y, "state": h}
+    else:
+        y, (_, st) = rwkv6.rwkv6_mix(params, x, cfg, tp=tp)
+        out = {"y": y, "state": st}
+    return {k: list(v.shape) for k, v in out.items()}
 
 
 RUNNERS = {"step": step_case, "train": train_case, "psum": psum_case,

@@ -17,7 +17,10 @@ import jax.numpy as jnp
 import numpy as np
 
 from repro.configs import deepseek_moe_16b as jdsm
+from repro.configs import deepseek_v2_236b as jdsv2
 from repro.configs import jamba_v0_1_52b as jjamba
+from repro.configs import qwen2_5_14b as jqwen
+from repro.configs import rwkv6_7b as jrwkv
 from repro.models import transformer as jtfm
 from repro.models.config import ModelConfig as JCfg
 from repro.training import grad_compression as jgc
@@ -33,10 +36,18 @@ MESHES = ((2, 2), (4, 1))
 #: and an odd vocabulary (the vocab-parallel loss's short last shard)
 TINY = dict(name="tiny", n_layers=2, d_model=32, n_heads=4, n_kv_heads=2,
             d_ff=64, vocab=61, head_dim=16, tie_embeddings=True)
+#: attention whose query heads read their KV heads in groups a rank's
+#: heads do not align with (G 4: 6 heads a rank on 2, 3 on 4)
+GQA_ODD = dict(name="gqa-odd", n_layers=1, d_model=32, n_heads=12,
+               n_kv_heads=3, d_ff=64, vocab=61, head_dim=8)
 #: config spec (a dict of fields, or a smoke config's arch id) → the
 #: reference's config
 CONFIGS = {"tiny": TINY, "deepseek-moe-16b": "deepseek-moe-16b",
-           "jamba-v0.1-52b": "jamba-v0.1-52b"}
+           "jamba-v0.1-52b": "jamba-v0.1-52b", "rwkv6-7b": "rwkv6-7b",
+           "deepseek-v2-236b": "deepseek-v2-236b",
+           "qwen2.5-14b": "qwen2.5-14b", "gqa-odd": GQA_ODD}
+SMOKE = {"deepseek-moe-16b": jdsm, "jamba-v0.1-52b": jjamba,
+         "rwkv6-7b": jrwkv, "deepseek-v2-236b": jdsv2, "qwen2.5-14b": jqwen}
 LR = 1e-3
 B, S, STEPS = 8, 16, 3
 
@@ -44,7 +55,7 @@ B, S, STEPS = 8, 16, 3
 def jcfg(spec):
     if isinstance(spec, dict):
         return JCfg(**spec)
-    return {"deepseek-moe-16b": jdsm, "jamba-v0.1-52b": jjamba}[spec].smoke()
+    return SMOKE[spec].smoke()
 
 
 def batches(vocab: int, seed: int, n: int = STEPS) -> list:
@@ -68,10 +79,10 @@ def train_config(**kw) -> dict:
 
 
 def step_cases(name: str, spec, seed: int, *, groups=(1,),
-               compress: bool = False) -> dict:
-    """For each mesh: ``STEPS`` plain steps, one step of 2 microbatches
-    (and with ``compress`` one compressed step) of every routing group
-    count in ``groups``."""
+               compress: bool = False, meshes=MESHES) -> dict:
+    """For each of ``meshes``: ``STEPS`` plain steps, one step of 2
+    microbatches (and with ``compress`` one compressed step) of every
+    routing group count in ``groups``."""
     cfg = jcfg(spec)
     params = jax.tree.map(np.asarray, jtfm.init_params(
         jax.random.PRNGKey(seed), cfg, jnp.float32))
@@ -85,7 +96,7 @@ def step_cases(name: str, spec, seed: int, *, groups=(1,),
             runs["compressed"] = (dict(moe_groups=g, compress_grads=True),
                                   data[:1])
         for run, (tc, bs) in runs.items():
-            for mesh in MESHES:
+            for mesh in meshes:
                 key = f"{name}-g{g}-{run}-{mesh[0]}x{mesh[1]}"
                 cases[key] = dict(kind="step", cfg=spec, params=params,
                                   batches=bs, tc=train_config(**tc),
@@ -157,10 +168,12 @@ def _pairs(got, want):
             for (p, g), (_, w) in zip(fg, fw)]
 
 
-def assert_leaves_close(got, want, rel: float = 1e-5):
-    """Every leaf within ``rel`` of the leaf's max |want|."""
+def assert_leaves_close(got, want, rel=1e-5):
+    """Every leaf within ``rel`` of the leaf's max |want| (``rel`` may be
+    a function of the leaf's path)."""
     for name, g, w in _pairs(got, want):
-        bound = rel * max(np.abs(w).max(), 1e-30)
+        r = rel(name) if callable(rel) else rel
+        bound = r * max(np.abs(w).max(), 1e-30)
         err = np.abs(g - w).max()
         assert err <= bound, f"{name}: {err} > {bound}"
 
