@@ -107,7 +107,23 @@ of which fails the script:
    (``sharding.expert_shards``, the whole stacks dropped), and prints the
    expert bytes it holds and its resident memory beside the whole
    model's and its ms per decode step; tokens against the oracle, run
-   and freed first.  A failing rank fails the script;
+   and freed first; (d) serving from the rank's ``param_specs`` blocks
+   (``sharding.shard_params``, the whole params dropped) through a
+   ``Layout``, each rank its batch rows: (b)'s granite on (data 2,
+   model 1) and (data 1, model 2), tokens equal to (b)'s oracle, each
+   rank's resident memory before prefill, less the leaves
+   ``param_specs`` keeps whole on the mesh (on (2, 1) the tied
+   embedding), at most 0.55 of the leaves it splits; then RWKV-6-7B cut
+   to 2 layers, DeepSeek-V2 cut to layer 0 and Jamba cut to layer 0 on
+   (1, 2), each mixer computing its half of the heads or channels:
+   ``prefill(impl="kernel")`` of 2 x 1000 (the scan kernels on the
+   rank's shapes: RWKV-6 2 launches a rank, Jamba 1) and 16
+   ``decode_step(page_impl="sp")`` steps against a one-process
+   ``impl="chunked"``/``page_impl="ref"`` oracle run and freed first;
+   each run prints the rank's resident GB beside the whole model's,
+   prefill seconds, decode tokens/s and the collectives' calls and GB
+   of the prefill and of a decode step.  A failing rank fails the
+   script;
 11. train on a device mesh: two processes on the one GPU over gloo, as in
    phase 10 (``--train-rank R``, files under ``build/train_mesh_phase/``).
    Each first probes gloo's collectives on CUDA tensors
@@ -146,7 +162,10 @@ of which fails the script:
    within 2% of phase 11's ``memory_allocated`` before the first step,
    its MemTracker peak within 15% of ``max_memory_allocated`` and, for
    granite, its FLOPs on both ranks equal phase 9's count of what eager
-   runs (``train_flops``); (b)
+   runs (``train_flops``); phase 10 (d)'s two granite serving runs
+   replayed as a prefill and a decode cell on 2 fake ranks, whose calls
+   and bytes must equal the measured prefill's and every decode step's
+   and whose resident state must be within 2% of the measured; (b)
    granite-3-8b cut to 10 of 40 layers x train_4k on the 256-rank fake
    production mesh (meta tensors; its attention tensor-parallel with
    the 8 KV heads whole on every rank), its record line and useful-FLOP
@@ -165,6 +184,7 @@ from __future__ import annotations
 import argparse
 import atexit
 import contextlib
+import functools
 import gc
 import json
 import math
@@ -1819,7 +1839,7 @@ def training_phase(torch, seed: int) -> dict:
 MESH_RANKS = 2
 MESH_LAYERS = 8
 MESH_PROMPT = (2, 1000)
-MESH_TIMEOUT = 300          # seconds for both ranks, weights and checks
+MESH_TIMEOUT = 600          # seconds for both ranks, weights and checks
 MESH_DIR = ROOT / "build" / "mesh_phase"
 
 
@@ -1872,20 +1892,57 @@ def expert_bytes(cfg, params) -> int:
                if k in EXPERT_DIMS)
 
 
-def mesh_phase(torch, seed: int) -> None:
-    """The single-process ``page_impl="ref"`` oracles of (b) and (c),
+# phase 10 (d): serving from the rank's ``param_specs`` blocks through a
+# Layout: (b)'s granite on both meshes, then phase 11 (d)'s three
+# tensor-parallel mixers (MIXER_TRAIN's cuts and seeds) on (1, 2)
+SERVE_MESHES = ((2, 1), (1, 2))
+#: a granite rank's resident memory before prefill, less the f32 leaves
+#: param_specs keeps whole on the mesh, at most this share of the leaves
+#: it splits: on (2, 1) the tied embedding, P("model", None), is whole on
+#: both data ranks (0.113 of the 8-layer model's weights), so the whole
+#: model's share would be 0.5 + 0.113 / 2 plus the state
+SERVE_RESIDENT = 0.55
+SERVE_MIXER_MESH = (1, 2)
+#: the scan kernels each rank launches in a mixer's prefill(impl="kernel")
+#: (on its heads or channels); decode launches none
+SERVE_MIXER_LAUNCHES = {"rwkv6-7b": {"rwkv6_scan": 2},
+                        "deepseek-v2-236b": {},
+                        "jamba-v0.1-52b": {"mamba_scan": 1}}
+
+
+def serve_runs(seed: int) -> dict:
+    """(d)'s runs: name → (mesh, config, its params' maker, oracle key)."""
+    runs = {"granite-{}x{}".format(*shape): (
+        shape, mesh_config(), lambda torch, c: mesh_params(torch, c, seed),
+        "tokens") for shape in SERVE_MESHES}
+    for arch, (layers, off) in MIXER_TRAIN.items():
+        runs["{}-{}x{}".format(arch, *SERVE_MIXER_MESH)] = (
+            SERVE_MIXER_MESH, cut_config(arch, layers),
+            lambda torch, c, s=seed + off: moe_mesh_params(torch, c, s),
+            arch)
+    return runs
+
+
+def mesh_phase(torch, seed: int) -> tuple[dict, dict]:
+    """The single-process ``page_impl="ref"`` oracles of (b), (c) and (d),
     then MESH_RANKS processes of :func:`mesh_rank` on the GPU; fails
     unless both exit 0, their kernel checks hold and their tokens equal
-    the oracles'."""
+    the oracles'.  Returns (d)'s scan launches on both ranks and rank 0's
+    granite serving runs (for phase 12)."""
     import shutil
     from repro_torch.kernels.paged_attention import autotune
     wants = {}
-    for what, cfg, make, layers in (
-            ("tokens", mesh_config(), lambda c: mesh_params(torch, c, seed),
-             f"{MESH_LAYERS} of 40 layers (the mesh phase's oracle)"),
-            ("moe_tokens", moe_mesh_config(),
-             lambda c: moe_mesh_params(torch, c, seed + 23),
-             f"{MOE_LAYERS} of 28 layers (the expert-parallel oracle)")):
+    oracles = [("tokens", mesh_config(), lambda c: mesh_params(torch, c, seed),
+                f"{MESH_LAYERS} of 40 layers (the mesh phase's oracle)"),
+               ("moe_tokens", moe_mesh_config(),
+                lambda c: moe_mesh_params(torch, c, seed + 23),
+                f"{MOE_LAYERS} of 28 layers (the expert-parallel oracle)")]
+    for name, (_, cfg, make, key) in serve_runs(seed).items():
+        if key != "tokens":
+            oracles.append((key, cfg, functools.partial(make, torch),
+                            f"{cfg.n_layers} layers (the tensor-parallel "
+                            f"serving oracle)"))
+    for what, cfg, make, layers in oracles:
         t0 = time.perf_counter()
         params = make(cfg)
         made_line(torch, cfg, params, t0, layers)
@@ -1906,14 +1963,43 @@ def mesh_phase(torch, seed: int) -> None:
     secs = time.perf_counter() - t0
     out = [json.loads((MESH_DIR / f"rank_{r}.json").read_text())
            for r in range(MESH_RANKS)]
+    runs = serve_runs(seed)
+    scans: dict = {}
     for r, res in enumerate(out):
         for line in res["lines"]:
             print(f"mesh rank {r}: {line}")
-        for what, (want, margins, _, _) in wants.items():
+        for what in ("tokens", "moe_tokens"):
+            want, margins, _, _ = wants[what]
             got = {int(b): v for b, v in res[what].items()}
             if got != {int(b): v for b, v in out[0][what].items()}:
                 fail(f"mesh rank {r}'s {what} differ from rank 0's")
             check_tokens(got, want, margins, f"mesh rank {r} {what}")
+        for name, run in res["serve"].items():
+            shape, cfg, _, key = runs[name]
+            want, margins, _, _ = wants[key]
+            got = {int(b): v for b, v in run["tokens"].items()}
+            if got != {int(b): v for b, v in
+                       out[0]["serve"][name]["tokens"].items()}:
+                fail(f"mesh rank {r}'s {name} tokens differ from rank 0's")
+            check_tokens(got, want, margins, f"mesh rank {r} {name}")
+            expect_launches(run["launches"][0],
+                            SERVE_MIXER_LAUNCHES.get(key, {}),
+                            f"mesh rank {r} {name} prefill")
+            expect_launches(run["launches"][1], {},
+                            f"mesh rank {r} {name} decode")
+            for k, n in run["launches"][0].items():
+                scans[k] = scans.get(k, 0) + n
+            if key == "tokens":
+                split, whole = split_bytes(torch, cfg, shape)
+                share = (run["resident"] - whole) / split
+                if share > SERVE_RESIDENT:
+                    fail(f"mesh rank {r} {name}: resident {run['resident']} "
+                         f"B less the {whole} B of leaves kept whole is "
+                         f"{share:.4f} of the {split} B of leaves split "
+                         f"(> {SERVE_RESIDENT})")
+                print(f"mesh rank {r} {name}: resident less the leaves kept "
+                      f"whole ({whole / 1e9:.3f} GB) {share:.4f} of the "
+                      f"leaves param_specs splits ({split / 1e9:.3f} GB)")
     n = MESH_PROMPT[0] * HYBRID_NEW
     oracle = "; ".join(
         f"{name} over the mesh: {MESH_PROMPT[0] * (HYBRID_NEW + 1)} tokens "
@@ -1926,6 +2012,38 @@ def mesh_phase(torch, seed: int) -> None:
     print(f"mesh phase: {MESH_RANKS} gloo ranks on one GPU, "
           f"{secs:.1f} s from spawn to exit (each rank: start, weights, "
           f"checks); {oracle}; card {card_line()}")
+    return scans, {name: run for name, run in out[0]["serve"].items()
+                   if runs[name][3] == "tokens"}
+
+
+def split_bytes(torch, cfg, shape) -> tuple[int, int]:
+    """Bytes of ``cfg``'s f32 leaves that ``param_specs`` splits over a
+    dim of the (data, model) mesh ``shape`` with more than one member,
+    and of the leaves it keeps whole there (counted on the meta
+    device)."""
+    from types import SimpleNamespace
+    from repro_torch.bridge import map_leaves
+    from repro_torch.distributed.sharding import param_specs, spec_axes
+    from repro_torch.models import transformer as tfm
+    params = tfm.init_params(cfg, generator=None, device="meta",
+                             dtype=torch.float32)
+    sizes = dict(zip(("data", "model"), shape))
+    mesh = SimpleNamespace(mesh_dim_names=tuple(sizes), shape=tuple(shape))
+    out = [0, 0]
+
+    def add(key, block, t, spec):
+        split = any(sizes[a] > 1 for e in spec for a in spec_axes(e))
+        out[0 if split else 1] += t.numel() * 4
+    map_leaves(add, params, param_specs(params, mesh))
+    return out[0], out[1]
+
+
+def param_bytes(torch, cfg) -> int:
+    """Bytes of ``cfg``'s f32 params, counted on the meta device."""
+    from repro_torch.models import transformer as tfm
+    params = tfm.init_params(cfg, generator=None, device="meta",
+                             dtype=torch.float32)
+    return tfm.param_count(params) * 4
 
 
 def run_ranks(flag: str, directory, timeout: float, what: str) -> None:
@@ -2117,6 +2235,89 @@ def moe_mesh_run(torch, mesh, ba, sa, seed: int):
     return line, torch.stack(toks, 1).tolist()
 
 
+def serve_blocks(torch, mesh, cfg, make, prompts, *, impl: str) -> dict:
+    """(d): ``cfg`` served from this rank's ``param_specs`` blocks
+    (``sharding.shard_params``, the whole params dropped first) through a
+    ``Layout``: ``prefill(impl=...)`` of the rank's rows of ``prompts``,
+    then HYBRID_NEW greedy ``decode_step(page_impl="sp")`` steps.  The
+    tokens of the whole batch by row, the resident memory before prefill
+    and the peak, the kernels launched in prefill and in decode, the
+    collectives' calls and bytes of the prefill and of each decode step,
+    and seconds."""
+    from repro_torch.distributed import collectives as coll
+    from repro_torch.distributed import parallel, sharding
+    from repro_torch.models import transformer as tfm
+    sharded = sharding.shard_params(make(cfg), mesh)
+    gc.collect()
+    torch.cuda.empty_cache()
+    lay = parallel.Layout(cfg, mesh, sharding.param_specs(sharded, mesh),
+                          parallel.shapes_of(sharded))
+    params = sharding.local_blocks(sharded)
+    B, S = prompts.shape
+    ba, sa = sharding.decode_axes(mesh, batch=B)
+    st = tfm.init_decode_state(
+        cfg, B, S + HYBRID_NEW + 1, dtype=torch.float32,
+        batch_shards=coll.axis_size(mesh, ba),
+        seq_shards=coll.axis_size(mesh, sa), device=DEVICE)
+    st = coll.local_state(st, cfg, mesh, batch_axes=ba, seq_axes=sa,
+                          layout=lay)
+    rows = coll.local_shard(prompts, (ba,), mesh).clone()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
+    kw = dict(batch_axes=ba, seq_axes=sa, layout=lay)
+    reset_launches()
+    coll.TRAFFIC.reset()
+    t0 = time.perf_counter()
+    lg, st = tfm.prefill(params, cfg, rows, st, impl=impl, **kw)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    launches = [launch_counts()]
+    traffic = {"prefill": [coll.TRAFFIC.calls, coll.TRAFFIC.bytes],
+               "decode": []}
+    toks = [lg.argmax(-1)]
+    reset_launches()
+    step_s = []
+    for _ in range(HYBRID_NEW):
+        coll.TRAFFIC.reset()
+        t0 = time.perf_counter()
+        lg, st = tfm.decode_step(params, cfg, st, toks[-1].to(torch.int32),
+                                 page_impl="sp", **kw)
+        toks.append(lg.argmax(-1))
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        traffic["decode"].append([coll.TRAFFIC.calls, coll.TRAFFIC.bytes])
+    launches.append(launch_counts())
+    peak = torch.cuda.max_memory_allocated()
+    whole = coll.gather_batch(torch.stack(toks, 1), mesh, ba, B)
+    held = tfm.param_count(params) * 4
+    del params, sharded, st
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"tokens": dict(enumerate(whole.tolist())), "resident": resident,
+            "peak": peak, "held": held, "launches": launches,
+            "traffic": traffic, "prefill_s": prefill_s,
+            "decode_s": sum(step_s), "batch_axes": list(ba)}
+
+
+def serve_line(name: str, run: dict, whole: int, B: int) -> str:
+    """A printable line of a :func:`serve_blocks` run."""
+    calls, nbytes = run["traffic"]["decode"][0]
+    pcalls, pbytes = run["traffic"]["prefill"]
+    return (f"{name} served from its param_specs blocks (batch axes "
+            f"{run['batch_axes']}): holds {run['held'] / 1e9:.3f} GB of "
+            f"params, resident {run['resident'] / 1e9:.3f} GB before prefill "
+            f"({run['resident'] / whole:.4f} of one process's "
+            f"{whole / 1e9:.3f} GB of weights), peak {run['peak'] / 1e9:.3f}"
+            f" GB; prefill {run['prefill_s']:.3f} s ({pcalls} collectives, "
+            f"{pbytes / 1e9:.4f} GB), {HYBRID_NEW} decode steps "
+            f"{run['decode_s']:.3f} s ({B * HYBRID_NEW / run['decode_s']:.2f}"
+            f" tokens/s; a step {calls} collectives, {nbytes / 1e9:.4f} GB); "
+            f"launches {run['launches']}; card {card_line()}")
+
+
 def mesh_rank(rank: int) -> int:
     """One rank of phase 10 (``--mesh-rank``): (a) the kernel checks, (b)
     granite-3-8b cut to MESH_LAYERS over the mesh, then (c) DeepSeek-MoE
@@ -2181,9 +2382,23 @@ def mesh_rank(rank: int) -> int:
         with torch.no_grad():
             line, moe_rows = moe_mesh_run(torch, mesh, ba, sa, seed)
         lines.append(line)
+        gc.collect()
+        torch.cuda.empty_cache()
+        meshes = {(1, MESH_RANKS): mesh}
+        serve = {}
+        for name, (shape, cfg, make, key) in serve_runs(seed).items():
+            if shape not in meshes:          # every rank makes each once
+                meshes[shape] = make_host_mesh(*shape)
+            run = serve_blocks(
+                torch, meshes[shape], cfg, functools.partial(make, torch),
+                mesh_prompts(torch, cfg, seed),
+                impl="chunked" if key == "tokens" else "kernel")
+            serve[name] = run
+            lines.append(serve_line(name, run, param_bytes(torch, cfg),
+                                    MESH_PROMPT[0]))
         (MESH_DIR / f"rank_{rank}.json").write_text(json.dumps(
             {"lines": lines, "tokens": dict(enumerate(rows)),
-             "moe_tokens": dict(enumerate(moe_rows))}))
+             "moe_tokens": dict(enumerate(moe_rows)), "serve": serve}))
     finally:
         dist.destroy_process_group()
     return 0
@@ -2533,7 +2748,7 @@ DRYRUN_DIR = ROOT / "build" / "dryrun_phase"
 DRYRUN_RESIDENT_RTOL = 0.02     # resident state against memory_allocated
 DRYRUN_PEAK_RTOL = 0.15         # MemTracker's peak against the allocator's
 DRYRUN_FLOPS_RTOL = 1e-9        # FLOPs on both ranks against train_flops
-DRYRUN_TIMEOUT = 450            # seconds for (a)'s five runs
+DRYRUN_TIMEOUT = 600            # seconds for (a)'s nine runs
 #: (b): one production cell on the 256-rank fake mesh, started beside (a)
 #: once every timed phase has ended, its depth cut to DRYRUN_CELL_LAYERS
 #: (every op of every microbatch runs on the host: all 40 layers took
@@ -2613,19 +2828,33 @@ def dryrun_subprocess(what: str) -> int:
             arch, "phase11", mesh=mesh, verbose=False, cfg=cfg,
             shape=ShapeSpec("phase11", S, B, "train"),
             param_dtype=torch.float32, microbatches=1, moe_groups=1)
+    B, S = MESH_PROMPT                       # phase 10 (d)'s granite runs
+    for d, m in SERVE_MESHES:
+        mesh = make_host_mesh(d, m, device_type=DEVICE)
+        make_groups(mesh)
+        for kind in ("prefill", "decode"):
+            out[f"granite-{d}x{m}-{kind}"] = dryrun.run_cell(
+                "granite-3-8b", f"phase10_{kind}", mesh=mesh, verbose=False,
+                cfg=mesh_config(), shape=ShapeSpec(f"phase10_{kind}", S, B,
+                                                   kind),
+                param_dtype=torch.float32, moe_groups=1)
     out["wall_s"] = time.perf_counter() - t0
     (DRYRUN_DIR / "predict.json").write_text(json.dumps(out))
     return 0
 
 
-def dryrun_phase(measured: dict) -> None:
+def dryrun_phase(measured: dict, served: dict) -> None:
     """Phase 12, after every timed phase: (a) phase 11's step predicted on
     fake tensors, held against phase 11's measurement in this run:
     collective calls and bytes equal at every step, the resident state
     within DRYRUN_RESIDENT_RTOL of ``memory_allocated``, MemTracker's
     peak within DRYRUN_PEAK_RTOL of ``max_memory_allocated``, the FLOPs
-    on both ranks within DRYRUN_FLOPS_RTOL of ``train_flops``.  (b) the
-    production cell, run beside (a): its record line."""
+    on both ranks within DRYRUN_FLOPS_RTOL of ``train_flops``; and phase
+    10 (d)'s granite serving runs (``served``: rank 0's) replayed as a
+    prefill and a decode cell: calls and bytes equal the prefill's and
+    every decode step's, the resident state within
+    DRYRUN_RESIDENT_RTOL.  (b) the production cell, run beside (a): its
+    record line."""
     import shutil
     t0 = time.perf_counter()
     shutil.rmtree(DRYRUN_DIR, ignore_errors=True)
@@ -2673,6 +2902,34 @@ def dryrun_phase(measured: dict) -> None:
               f"{rl['step_s']:.4f} s "
               f"({rl['bottleneck']}) at {rl['constants']['peak_flops']:.3g} "
               f"FLOP/s")
+    for name, run in served.items():
+        line = []
+        for kind in ("prefill", "decode"):
+            p = pred[f"{name}-{kind}"]
+            want = (p["collectives"]["calls"], p["collectives"]["bytes"])
+            for s, got in enumerate([run["traffic"]["prefill"]]
+                                    if kind == "prefill"
+                                    else run["traffic"]["decode"]):
+                if tuple(got) != want:
+                    fail(f"dry run of phase 10 (d)'s {name} {kind}: step {s}"
+                         f" made {got[0]} collectives of {got[1]} B, "
+                         f"predicted {want[0]} of {want[1]} B")
+            res = p["memory"]["argument_bytes"] / run["resident"] - 1
+            if abs(res) > DRYRUN_RESIDENT_RTOL:
+                fail(f"dry run of phase 10 (d)'s {name} {kind}: resident "
+                     f"{p['memory']['argument_bytes']} B vs measured "
+                     f"{run['resident']} ({res:+.3%})")
+            line.append(f"{kind} {want[0]} collectives of "
+                        f"{want[1] / 1e9:.4f} GB "
+                        f"{p['collectives']['payload_by_kind']}, resident "
+                        f"{p['memory']['argument_bytes'] / 1e9:.3f} GB "
+                        f"({res:+.3%}), peak "
+                        f"{p['memory']['peak_bytes'] / 1e9:.3f} GB")
+        print(f"dry run of phase 10 (d)'s {name} serving, rank 0 of "
+              f"{MESH_RANKS} fake ranks (calls and bytes equal the "
+              f"measured prefill and every decode step; resident vs "
+              f"measured {run['resident'] / 1e9:.3f} GB): "
+              + "; ".join(line))
     wait_dryrun("production", runs["production"],
                 DRYRUN_CELL_TIMEOUT - (time.perf_counter() - t0))
     rec = json.loads((DRYRUN_DIR / "production.json").read_text())
@@ -2765,9 +3022,11 @@ def main() -> int:
     for k, n in vision_phase(torch, args.seed).items():
         launches[k] += n
     oracle = training_phase(torch, args.seed)
-    mesh_phase(torch, args.seed)
+    scans, served = mesh_phase(torch, args.seed)
+    for k, n in scans.items():               # phase 10 (d)'s, both ranks
+        launches[k] += n
     measured = train_mesh_phase(torch, args.seed, oracle)
-    dryrun_phase(measured)
+    dryrun_phase(measured, served)
     # the paged decode launches go to the row of the depth each model ran
     # (its key's tuned depth: row 2 at depth 1, row 3 at 2 and 4); the
     # split kernel (row 1) gets none

@@ -232,15 +232,44 @@ def local_shard(x: torch.Tensor, spec, mesh) -> torch.Tensor:
     return shard_of(x, spec, mesh)
 
 
-def local_state(state: dict, cfg, mesh, *, batch_axes, seq_axes) -> dict:
-    """This rank's decode state from a whole one: each pool's N rows
-    under ``sharding.decode_state_specs`` (copied), every other key
+#: recurrent-state keys split over ``model`` under a layout, and the mixer
+#: family whose split (``Layout.mixer_tp``) decides it
+MODEL_STATES = {"conv": "mamba", "ssm": "mamba", "rwkv_s": "rwkv6"}
+
+
+def local_state(state: dict, cfg, mesh, *, batch_axes, seq_axes,
+                layout=None) -> dict:
+    """This rank's decode state from a whole one.
+
+    Without ``layout`` (serving whole params on a mesh): each pool's N
+    rows under ``sharding.decode_state_specs`` (copied), every other key
     (tables, lengths, recurrent and cross states) whole, as the
-    activations that read them are replicated."""
+    activations that read them are replicated.
+
+    With a ``layout`` (``distributed.parallel.Layout``: serving from the
+    rank's blocks, the rank's batch rows) the state follows
+    ``decode_state_specs``: the pools as above; the tables, lengths and
+    the cross and recurrent states the rank's rows over ``batch_axes``;
+    ``conv`` and ``ssm`` the rank's ``d_inner`` block and ``rwkv_s`` the
+    rank's heads where that mixer splits over ``model``
+    (``Layout.mixer_tp``), else whole over ``model``; each key copied.
+    ``rwkv_x`` stays whole over ``model``, as the token shift reads
+    every channel: the reference places it ``P(None, b, "model")``,
+    which changes its placement, not its math."""
     specs = decode_state_specs(cfg, mesh, batch_axes=batch_axes,
                                seq_axes=seq_axes)
-    return {k: (local_shard(v, specs[k], mesh).clone() if k in POOL_KEYS
-                else v) for k, v in state.items()}
+    if layout is None:
+        return {k: (local_shard(v, specs[k], mesh).clone()
+                    if k in POOL_KEYS else v) for k, v in state.items()}
+    out = {}
+    for k, v in state.items():
+        spec = specs[k]
+        if k not in POOL_KEYS and not (k in MODEL_STATES and
+                                       layout.mixer_tp(MODEL_STATES[k])):
+            spec = tuple(None if "model" in spec_axes(e) else e
+                         for e in spec)
+        out[k] = local_shard(v, spec, mesh).clone()
+    return out
 
 
 def gather_batch(x: torch.Tensor, mesh, batch_axes, batch: int):
@@ -468,20 +497,30 @@ def mla_ctx_sp(q_lat, q_rope, c_pool, rope_pool, tables, lengths, *, scale,
 
 def mla_decode_sp(params, x, positions, c_pool, rope_pool, tables, lengths,
                   cfg, *, mesh, batch_axes=("data",), seq_axes=("model",),
-                  table_cols_sharded: bool = False):
+                  table_cols_sharded: bool = False, tp=None):
     """SP absorbed-MLA decode on this rank's shards; same contract as
     ``models.mla.mla_decode_ref`` for its batch rows: x (Bl, D),
     positions (Bl,), pools (Nl, bs, rank) / (Nl, bs, rope_hd), tables and
-    lengths as in :func:`paged_decode_attention_sp` → (Bl, D)."""
+    lengths as in :func:`paged_decode_attention_sp` → (Bl, D).
+
+    Under ``tp`` (``distributed.parallel.TensorParallel``: ``wq_b`` and
+    ``wkv_b`` hold the rank's heads' columns, ``wo`` their rows) the
+    rank's heads' absorbed queries are all-gathered over ``model``, as
+    the context takes every head; the context's rank heads then meet the
+    rank's ``W_UV`` and ``wo`` rows, summed by ``tp.reduce_product``."""
     from repro_torch.models.mla import absorbed_query, mla_out
 
     m_ = cfg.mla
-    q_lat, q_rope, w_uv = absorbed_query(params, x, positions, cfg)
+    q_lat, q_rope, w_uv = absorbed_query(params, x, positions, cfg, tp)
+    if tp is not None:
+        q_lat, q_rope = tp.gather(q_lat, 1), tp.gather(q_rope, 1)
     ctx = mla_ctx_sp(q_lat, q_rope, c_pool, rope_pool, tables, lengths,
                      scale=(m_.nope_head_dim + m_.rope_head_dim) ** -0.5,
                      mesh=mesh, batch_axes=batch_axes, seq_axes=seq_axes,
                      table_cols_sharded=table_cols_sharded)
-    return mla_out(params, x, ctx, w_uv)
+    if tp is not None:
+        ctx = tp.cut(ctx, 1)
+    return mla_out(params, x, ctx, w_uv, tp)
 
 
 # ==================================================== training collectives

@@ -1,11 +1,15 @@
-"""Eager counterpart of GSPMD for the training step on a device mesh.
+"""Eager counterpart of GSPMD for the training and serving steps on a
+device mesh.
 
 The reference trains on a mesh by jitting its single-device step under
-``param_specs`` and ``batch_specs``: GSPMD inserts the gathers and
-reductions, and the numbers stay those of the single-device step.  The
-port runs one process per mesh member, each holding its blocks of the
-parameters (``sharding.shard_params``) and its rows of each microbatch,
-and :class:`Layout` puts in what GSPMD would:
+``param_specs`` and ``batch_specs``, and serves by jitting ``prefill``
+and ``decode_step`` under ``param_specs`` with the batch rows of every
+input and output split over ``decode_axes``' batch axes: GSPMD inserts
+the gathers and reductions, and the numbers stay those of the
+single-device step.  The port runs one process per mesh member, each
+holding its blocks of the parameters (``sharding.shard_params``) and its
+rows of each microbatch or serving batch, and :class:`Layout` puts in
+what GSPMD would:
 
 * **FSDP over the data dims.**  A block (prefix layer, body layer, the
   loss's table) gathers the leaves the rules split over ``data`` just in
@@ -56,6 +60,22 @@ and :class:`Layout` puts in what GSPMD would:
   (``copy_in`` summed the partial ones): after the backward nothing is
   summed over ``model``.
 
+**Serving** (``transformer.prefill`` and ``decode_step`` with a
+``layout``) reuses :meth:`Layout.top` and :meth:`Layout.layer` under
+``torch.no_grad()``: the same FSDP gathers a layer, the same
+tensor-parallel mixers and dense FFN, the same expert-parallel MoE
+layers, no gradient.  What serving adds: the logits are the rank's
+vocabulary columns of the (tied) table gathered over ``model``
+(:meth:`Layout.logits`); the paged cache stores every KV head (the
+pools split the sequence over ``model``), so attention's K and V are
+computed whole where ``wk`` and ``wv`` come whole and gathered over
+``model`` where they split, and the SP decode takes every query head
+(``TensorParallel.gather``); and a Mamba layer's decode keeps
+``in_proj``'s stored ``model`` block and exchanges its outputs
+(:meth:`Layout.in_proj_exchange`).  Each data rank serves its batch
+rows, and MoE layers route the reference's groups of the global token
+stream as in training.
+
 Every rank of a group issues the same collectives in the same order, in
 forward, in the remat recompute and in backward.
 """
@@ -69,6 +89,7 @@ from repro_torch.distributed import collectives as coll
 from repro_torch.distributed.sharding import (EXPERT_DIMS, P, dp_axes,
                                               expert_parallel, spec_axes)
 from repro_torch.launch.mesh import axis_sizes
+from repro_torch.models.layers import unembed
 from repro_torch.models.rwkv6 import HEAD_SIZE
 
 #: per mixer, the leaves a tensor-parallel rank keeps as its stored
@@ -122,6 +143,19 @@ class TensorParallel:
         every rank."""
         n = x.shape[dim] // self.size
         return self.copy_in(x).narrow(dim, self.index * n, n)
+
+    def gather(self, x, dim: int, size: int | None = None):
+        """Every member's block of ``x`` along ``dim``, in member order:
+        one ``all_gather_into_tensor`` over ``model`` (serving only: no
+        gradient flows back).  The blocks are of one size, or, with
+        ``size``, the whole's ``size`` split as ``vocab_shard`` splits
+        it (a short last block)."""
+        dim %= x.dim()
+        shape = list(x.shape)
+        shape[dim] = size if size is not None else x.shape[dim] * self.size
+        spec = P(*(self.axis if d == dim else None for d in range(x.dim())))
+        return coll.gather_shards(x, spec, tuple(shape), self.mesh,
+                                  (self.axis,))
 
 
 class DataParallel:
@@ -212,14 +246,27 @@ class Layout:
                  "rwkv6": c.d_model // HEAD_SIZE, "mamba": c.d_inner}[mix]
         return width % self.tp.size == 0
 
-    def layer(self, lp: dict, where: tuple, i: int):
+    def in_proj_exchange(self, mix: str, step: str) -> bool:
+        """Whether a layer of family ``mix`` keeps Mamba's ``in_proj`` as
+        its stored ``model`` block (a contiguous share of the ``[x | z]``
+        columns) and exchanges the product's outputs over ``model``
+        instead of gathering the leaf whole: in ``step == "decode"``
+        only, where a step's B tokens are far fewer than ``in_proj``'s
+        D rows (``models/mamba.py``).  Training and prefill gather it
+        whole.  Decided by the entry point, never by the data, so every
+        shape stays independent of it."""
+        return step == "decode" and mix == "mamba" and self.mixer_tp(mix)
+
+    def layer(self, lp: dict, where: tuple, i: int, step: str = "train"):
         """Layer ``i``'s compute params from its local blocks ``lp`` (at
         ``where`` in the params tree) → (params, tp of the mixer, tp of
         the FFN), a tp None where that part runs whole; an MoE layer's
         FFN tp is its expert-parallel map (``moe_mix``'s ``ep``).  Under a
         tp the leaves of :data:`TP_MIX` or the FFN's are the rank's
         ``model`` blocks gathered over the data dims, every other leaf
-        comes whole."""
+        comes whole; ``step`` (``"train"``, ``"prefill"`` or
+        ``"decode"``) adds ``in_proj`` to them where
+        :meth:`in_proj_exchange` says so."""
         mix, ffn = self.cfg.layer_sig(i)
         tp_mix = self.tp if self.mixer_tp(mix) else None
         tp_ffn = self.tp if (ffn == "dense" or (
@@ -229,6 +276,8 @@ class Layout:
         if mix == "attn" and tp_mix is not None and (
                 self.cfg.n_kv_heads % self.tp.size):
             keep_mix = ("wq", "wo")             # wk, wv whole: KV replicated
+        if self.in_proj_exchange(mix, step):
+            keep_mix = keep_mix + ("in_proj",)
         out = {}
         for part, sub in lp.items():
             tp = {"mix": tp_mix, "ffn": tp_ffn}.get(part)
@@ -258,6 +307,15 @@ class Layout:
             else:
                 out[k] = self.whole_tree(v, (k,))
         return out
+
+    def logits(self, h, table):
+        """Serving's logits: ``h`` (B, D) normed hidden against ``table``,
+        this rank's vocabulary rows (:meth:`top`'s ``embed`` or
+        ``unembed``) → the rank's (B, V/|model|) f32 columns, gathered
+        over ``model`` to (B, V) on every rank."""
+        out = unembed(h[:, None], table)[:, 0]
+        return out if self.tp is None else self.tp.gather(out, 1,
+                                                          self.vocab)
 
     # ------------------------------------------------------- gradients
     def reduce_replicated(self, grads):

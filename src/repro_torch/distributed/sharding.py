@@ -25,16 +25,18 @@ dim.  Rules go by leaf *path*: the port's params tree is walked with
 those of the reference's stacked leaves; a body block's own tensor takes
 ``spec[1:]``.
 
-Serving places its state by these rules (the KV pools over N, the
-embedding's V rows inside ``vocab_parallel_embed``) and its MoE experts
-(each rank computes its ``model`` block of them: :func:`expert_shards`
-cuts the blocks once, or compute views them in whole stacks); every
-other weight stays whole on every rank.  Training holds its parameters, AdamW
-moments and error state sharded: :func:`shard_params` makes each tensor a
-DTensor of this rank's block under :func:`param_specs` (split as DTensor
-splits, uneven dims with a short last block: :func:`block_of`), and
-compute reads the local blocks (:func:`local_blocks`,
-``distributed/parallel.py``).
+Serving places its state by these rules (the KV pools over N, and
+under a ``Layout`` the batch rows and recurrent shares of
+:func:`decode_state_specs`: ``collectives.local_state``).  It serves
+either from this rank's blocks under :func:`param_specs`, as training
+holds them, or from whole weights with the MoE experts cut to the
+rank's ``model`` block (:func:`expert_shards` cuts the blocks once, or
+compute views them in whole stacks).  Training holds its parameters,
+AdamW moments and error state sharded: :func:`shard_params` makes each
+tensor a DTensor of this rank's block under :func:`param_specs` (split
+as DTensor splits, uneven dims with a short last block:
+:func:`block_of`), and compute reads the local blocks
+(:func:`local_blocks`, ``distributed/parallel.py``).
 """
 
 from __future__ import annotations

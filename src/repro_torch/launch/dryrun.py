@@ -16,14 +16,17 @@ peak (zero allocation).  The step is the port's own entry point:
              and error state sharded by ``param_specs`` (bf16 params;
              the reference's microbatches, ``moe_groups = n_dp``, bf16
              moments and accumulator for ``TRAIN_LOWMEM``)
-    prefill  ``transformer.prefill(mesh=...)`` over bf16 caches whose
-             pools are the rank's rows (``cache_spec(..., round_to=
-             shards)``); the MoE experts the rank's ``model`` blocks
-             (``sharding.expert_shards``), every other weight whole on
-             every rank, as serving keeps them (``models/transformer.py``);
-             MoE layers route ``n_dp`` groups, as the reference's
+    prefill  ``transformer.prefill(layout=...)`` from the rank's blocks
+             under ``param_specs`` (bf16, ``sharding.shard_params``), as
+             the reference serves under ``psh``: the rank's batch rows of
+             the tokens, patches and frames over ``decode_axes``' batch
+             axes, bf16 caches whose pools are the rank's rows
+             (``cache_spec(..., round_to=shards)``) and whose other keys
+             are its rows and shares (``collectives.local_state(
+             layout=)``); MoE layers route ``n_dp`` groups, as the
+             reference's
     decode   ``transformer.decode_step(page_impl="sp"|"sp_opt",
-             mesh=...)`` over the same caches and weights, SWA models
+             layout=...)`` over the same blocks and caches, SWA models
              over the ring pool of their window; MoE layers route one
              group
 
@@ -122,9 +125,10 @@ def input_specs(arch: str, shape_name: str, *, cfg: ModelConfig | None = None,
 
 
 def state_specs(cfg: ModelConfig, shape: ShapeSpec, shards: int,
-                m_round: int = 1) -> dict:
+                m_round: int = 1, dtype=torch.bfloat16) -> dict:
     """``{key: (shape, dtype)}`` of the whole decode state of this cell
-    (bf16 caches)."""
+    (caches in ``dtype``: bf16, as the reference's, in every production
+    cell)."""
     B, S = shape.global_batch, shape.seq_len
     extra = cfg.prefix_tokens if cfg.frontend == "vision" else 0
     max_len = S + extra + tfm.BLOCK_SIZE          # one block of decode slack
@@ -137,7 +141,7 @@ def state_specs(cfg: ModelConfig, shape: ShapeSpec, shards: int,
         per_seq = (cfg.attn.window + tfm.BLOCK_SIZE - 1) // tfm.BLOCK_SIZE + 2
         num_blocks = B * per_seq
     return tfm.cache_spec(cfg, B, max_len, num_blocks=num_blocks,
-                          dtype=torch.bfloat16, round_to=shards)
+                          dtype=dtype, round_to=shards)
 
 
 # ============================================================ process group
@@ -174,12 +178,14 @@ def _zeros(specs: dict, device) -> dict:
 
 # ============================================================ cell building
 def _serving_layout(cfg: ModelConfig, shape: ShapeSpec, mesh,
-                    page_impl: str):
-    """(batch axes, seq axes, whole state specs) of a serving cell."""
+                    page_impl: str, dtype):
+    """(batch axes, seq axes, whole state specs) of a serving cell, its
+    caches in ``dtype`` (the params')."""
     ba, sa = shard_rules.decode_axes(mesh, batch=shape.global_batch)
     n_seq = _size(mesh, sa)
     return ba, sa, state_specs(cfg, shape, _size(mesh, ba + sa),
-                               m_round=n_seq if page_impl == "sp_opt" else 1)
+                               m_round=n_seq if page_impl == "sp_opt" else 1,
+                               dtype=dtype)
 
 
 def cell_meta(arch: str, shape: ShapeSpec, cfg: ModelConfig, mesh, *,
@@ -213,7 +219,8 @@ def cell_meta(arch: str, shape: ShapeSpec, cfg: ModelConfig, mesh, *,
         meta.update(microbatches=min(mb, max(1, B // n_dp)),  # rows ≥ dp
                     moe_groups=groups, tokens_per_step=B * S)
         return meta
-    ba, sa, st_specs = _serving_layout(cfg, shape, mesh, page_impl)
+    ba, sa, st_specs = _serving_layout(cfg, shape, mesh, page_impl,
+                                       param_dtype)
     pool_global = sum(math.prod(st_specs[k][0]) * st_specs[k][1].itemsize
                       for k in coll.POOL_KEYS if k in st_specs)
     meta.update(pool_bytes_per_chip=pool_global // _size(mesh, ba + sa),
@@ -272,21 +279,32 @@ def build_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
         return make_train_step(cfg, tc, mesh), (params, opt, err,
                                                 batch), meta
 
-    params = shard_rules.expert_shards(params, cfg, mesh)
-    ba, sa, st_specs = _serving_layout(cfg, shape, mesh, page_impl)
+    from repro_torch.distributed.parallel import Layout, shapes_of
+    specs = shard_rules.param_specs(params, mesh)
+    blocks = shard_rules.shard_params(params, mesh, specs)
+    del params
+    layout = Layout(cfg, mesh, specs, shapes_of(blocks))
+    params = shard_rules.local_blocks(blocks)
+    ba, sa, st_specs = _serving_layout(cfg, shape, mesh, page_impl,
+                                       param_dtype)
     state = _zeros({k: v for k, v in st_specs.items() if k != "tables"},
                    device)
     state["tables"] = _tables(st_specs, B, _size(mesh, ba), _size(mesh, sa),
                               device)
     if shape.kind == "decode":
         state["lengths"].fill_(shape.seq_len)
-    state = coll.local_state(state, cfg, mesh, batch_axes=ba, seq_axes=sa)
-    kw = dict(mesh=mesh, batch_axes=ba, seq_axes=sa,
-              moe_groups=meta["moe_groups"])
+    state = coll.local_state(state, cfg, mesh, batch_axes=ba, seq_axes=sa,
+                             layout=layout)
+    kw = dict(batch_axes=ba, seq_axes=sa, moe_groups=meta["moe_groups"],
+              layout=layout)
+
+    def rows(x):                        # the rank's batch rows, a copy
+        return coll.local_shard(x, (ba,), mesh).clone()
 
     if shape.kind == "prefill":
-        inp = _zeros(input_specs(arch, shape.name, cfg=cfg, shape=shape),
-                     device)
+        inp = {k: rows(v) for k, v in _zeros(
+            input_specs(arch, shape.name, cfg=cfg, shape=shape),
+            device).items()}
 
         def prefill_step(params, tokens, state, extras):
             return tfm.prefill(params, cfg, tokens, state,
@@ -300,7 +318,7 @@ def build_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
         return tfm.decode_step(params, cfg, state, tokens,
                                page_impl=page_impl, **kw)
 
-    tokens = torch.zeros((B,), dtype=torch.int32, device=device)
+    tokens = rows(torch.zeros((B,), dtype=torch.int32, device=device))
     return serve_step, (params, state, tokens), meta
 
 

@@ -58,11 +58,8 @@ def qkv_proj(params: dict, x: torch.Tensor, cfg,
     w = {n: params[n] for n in ("wq", "wk", "wv")}
     if cfg.attn.qkv_bias:
         w.update((n, params[n]) for n in ("bq", "bk", "bv"))
-    G = cfg.n_heads // cfg.n_kv_heads
     if tp is not None:
-        Hl = cfg.n_heads // tp.size
-        q0 = tp.index * Hl
-        k0, k1 = q0 // G, (q0 + Hl - 1) // G + 1
+        q0, Hl, k0, k1, read = rank_heads(cfg, tp)
         kv = slice(k0 * HD, k1 * HD)
         cut = {"bq": slice(q0 * HD, (q0 + Hl) * HD), "bk": kv, "bv": kv}
         if params["wk"].shape[-1] == cfg.n_kv_heads * HD:     # came whole
@@ -78,16 +75,74 @@ def qkv_proj(params: dict, x: torch.Tensor, cfg,
     q = q.reshape(B, S, -1, HD)
     k = k.reshape(B, S, -1, HD)
     v = v.reshape(B, S, -1, HD)
-    if tp is not None:
-        read = [(q0 + j) // G - k0 for j in range(Hl)]
-        KVl = k1 - k0
-        if Hl % KVl or read != [j // (Hl // KVl) for j in range(Hl)]:
-            idx = torch.tensor(read, device=k.device)
-            k, v = k.index_select(2, idx), v.index_select(2, idx)
+    if tp is not None and read is not None:
+        k, v = _per_query_head(k, v, read)
     if cfg.attn.rope and positions is not None:
         q = apply_rope(q, positions, cfg.attn.rope_theta)
         k = apply_rope(k, positions, cfg.attn.rope_theta)
     return q, k, v
+
+
+def rank_heads(cfg, tp) -> tuple:
+    """A tensor-parallel rank's heads: (first query head ``q0``, query
+    heads ``Hl``, KV heads ``[k0, k1)`` they read, and for each query head
+    the index of its KV head among those, or None where the rank's query
+    heads read them in groups of one size: ``Hl`` and ``G`` divide one
+    another)."""
+    G = cfg.n_heads // cfg.n_kv_heads
+    Hl = cfg.n_heads // tp.size
+    q0 = tp.index * Hl
+    k0, k1 = q0 // G, (q0 + Hl - 1) // G + 1
+    read = [(q0 + j) // G - k0 for j in range(Hl)]
+    KVl = k1 - k0
+    if Hl % KVl == 0 and read == [j // (Hl // KVl) for j in range(Hl)]:
+        read = None
+    return q0, Hl, k0, k1, read
+
+
+def _per_query_head(k, v, read):
+    """k, v repeated to one KV head a query head (``read``)."""
+    idx = torch.tensor(read, device=k.device)
+    return k.index_select(2, idx), v.index_select(2, idx)
+
+
+def serving_qkv(params: dict, x: torch.Tensor, cfg,
+                positions: torch.Tensor | None, tp):
+    """Serving under ``tp``: x (B, S, D) → q, k, v of the rank's heads as
+    :func:`qkv_proj` gives them, and the fused K/V of *every* KV head
+    (B, S, 2·KV, hd, :func:`fuse_kv`) for the paged cache, whose pools
+    split the sequence over ``model``, never the KV heads.  Where ``wk``
+    and ``wv`` come whole (``KV`` does not split over ``model``), k and
+    v are computed whole and the rank's KV heads cut from them; where
+    they are the rank's KV heads' columns, each rank's fused rows are
+    all-gathered over ``model`` (``tp.gather``).  No gradient flows
+    through it."""
+    B, S, _ = x.shape
+    HD = cfg.head_dim
+    q0, Hl, k0, k1, read = rank_heads(cfg, tp)
+    bias = cfg.attn.qkv_bias
+
+    def proj(name, cols=slice(None), rope=True):
+        t = x @ params[name]
+        if bias:
+            t = t + params["b" + name[1]][cols]
+        t = t.reshape(B, S, -1, HD)
+        if rope and cfg.attn.rope and positions is not None:
+            t = apply_rope(t, positions, cfg.attn.rope_theta)
+        return t
+
+    q = proj("wq", slice(q0 * HD, (q0 + Hl) * HD))
+    if params["wk"].shape[-1] == cfg.n_kv_heads * HD:         # came whole
+        k, v = proj("wk"), proj("wv", rope=False)
+        kv = fuse_kv(k, v)
+        k, v = k[:, :, k0:k1], v[:, :, k0:k1]
+    else:
+        cols = slice(k0 * HD, k1 * HD)
+        k, v = proj("wk", cols), proj("wv", cols, rope=False)
+        kv = tp.gather(fuse_kv(k, v), 2)
+    if read is not None:
+        k, v = _per_query_head(k, v, read)
+    return q, k, v, kv
 
 
 # ----------------------------------------------------------------- oracle ----

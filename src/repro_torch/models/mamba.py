@@ -130,7 +130,14 @@ def mamba_mix(params: dict, u: torch.Tensor, cfg, *, chunk: int = 64,
     over ``model`` (``tp.reduce_product``), then passed through
     ``tp.copy_in``, so their channel-partial gradients are summed too;
     the output is summed the same way, and the states are the rank's
-    channels'."""
+    channels'.
+
+    Serving's decode passes ``in_proj`` as the rank's stored block
+    instead (``D × 2·DI/n``, ``Layout.in_proj_exchange``): the rank
+    multiplies u by it and all-gathers the (B, S, 2·DI/n) outputs over
+    ``model`` (``tp.gather``, no gradient), then cuts its x and z
+    columns: a step's few tokens move far fewer bytes than the leaf.
+    The leaf's width says which it got."""
     if impl not in IMPLS:
         raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
     mm = cfg.mamba
@@ -145,9 +152,13 @@ def mamba_mix(params: dict, u: torch.Tensor, cfg, *, chunk: int = 64,
             ("conv_w", 1), ("conv_b", 0), ("A_log", 0), ("D", 0),
             ("x_proj", 0))})
         lo, DI = tp.index * DI // tp.size, DI // tp.size
-        w = tp.copy_in(p["in_proj"])
         u = tp.copy_in(u)
-        x, z = (u @ w[:, c:c + DI] for c in (lo, cfg.d_inner + lo))
+        if p["in_proj"].shape[-1] == 2 * cfg.d_inner:
+            w = tp.copy_in(p["in_proj"])
+            x, z = (u @ w[:, c:c + DI] for c in (lo, cfg.d_inner + lo))
+        else:                           # the stored block: exchange outputs
+            xz = tp.gather(u @ p["in_proj"], -1)
+            x, z = (xz[..., c:c + DI] for c in (lo, cfg.d_inner + lo))
     x, conv_state = _causal_conv(x, p["conv_w"], p["conv_b"], conv_state)
     x = F.silu(x)
     if tp is None:
@@ -185,11 +196,13 @@ def mamba_layer(params: dict, x: torch.Tensor, cfg, *,
 
 
 def mamba_decode_step(params: dict, x: torch.Tensor, cfg, conv_state,
-                      ssm_state):
-    """x: (B, D) single token → (y (B, D), new states).  O(1) per step."""
+                      ssm_state, tp=None):
+    """x: (B, D) single token → (y (B, D), new states).  O(1) per step.
+    Under ``tp`` (as :func:`mamba_mix`) the states are the rank's
+    ``d_inner/|model|`` channels'."""
     h = rms_norm(x[:, None], params["norm"], cfg.norm_eps)
     y, (cs, ss) = mamba_mix(params, h, cfg, conv_state=conv_state,
-                            ssm_state=ssm_state, impl="sequential")
+                            ssm_state=ssm_state, impl="sequential", tp=tp)
     return x + y[:, 0], (cs, ss)
 
 

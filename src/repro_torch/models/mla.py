@@ -99,29 +99,35 @@ def mla_layer(params: dict, x: torch.Tensor, positions: torch.Tensor,
 
 
 def absorbed_weights(params, cfg):
-    """Split wkv_b into per-head W_UK (rank→nope) and W_UV (rank→v)."""
+    """Split wkv_b into per-head W_UK (rank→nope) and W_UV (rank→v), of
+    every head or (a tensor-parallel rank's ``wkv_b`` columns) of the
+    rank's."""
     m = cfg.mla
-    w = params["wkv_b"].reshape(m.kv_lora_rank, cfg.n_heads,
+    w = params["wkv_b"].reshape(m.kv_lora_rank, -1,
                                 m.nope_head_dim + m.v_head_dim)
     return w[..., :m.nope_head_dim], w[..., m.nope_head_dim:]
 
 
-def absorbed_query(params, x, positions, cfg):
+def absorbed_query(params, x, positions, cfg, tp=None):
     """Decode queries in latent space: x (B, D) at ``positions`` (B,) →
     q_lat (B, H, rank) f32 (q_nope folded through W_UK) and q_rope
-    (B, H, rope_hd) f32, plus W_UV for the up-projection after."""
+    (B, H, rope_hd) f32, plus W_UV for the up-projection after.  Under
+    ``tp`` the heads are the rank's (:func:`_project_q`)."""
     h = rms_norm(x[:, None, :], params["norm"], cfg.norm_eps)
-    q_nope, q_rope = _project_q(params, h, cfg, positions[:, None])
+    q_nope, q_rope = _project_q(params, h, cfg, positions[:, None], tp)
     w_uk, w_uv = absorbed_weights(params, cfg)
     q_lat = torch.einsum("bhn,rhn->bhr", q_nope[:, 0].float(), w_uk.float())
     return q_lat, q_rope[:, 0].float(), w_uv
 
 
-def mla_out(params, x, ctx, w_uv):
-    """Latent context (B, H, rank) f32 → x + W_O·(ctx·W_UV)."""
+def mla_out(params, x, ctx, w_uv, tp=None):
+    """Latent context (B, H, rank) f32 → x + W_O·(ctx·W_UV); under ``tp``
+    the rank's heads against ``wo``'s rows of them, summed over
+    ``model`` by ``tp.reduce_product``."""
     o = torch.einsum("bhr,rhv->bhv", ctx, w_uv.float())
     o = o.reshape(x.shape[0], -1).to(x.dtype)
-    return x + o @ params["wo"]
+    return x + (o @ params["wo"] if tp is None
+                else tp.reduce_product(o, params["wo"]))
 
 
 def mla_decode_ref(params: dict, x: torch.Tensor, positions: torch.Tensor,

@@ -200,11 +200,13 @@ def rwkv6_layer(params, x, cfg, *, impl="chunked", tp=None):
     return x + y
 
 
-def rwkv6_decode_step(params, x, cfg, last_x, wkv_state):
-    """x: (B, D) → (y, (last_x, wkv_state))."""
+def rwkv6_decode_step(params, x, cfg, last_x, wkv_state, tp=None):
+    """x: (B, D) → (y, (last_x, wkv_state)).  Under ``tp`` (as
+    :func:`rwkv6_mix`) the rank steps its heads' (B, nH/|model|, 64, 64)
+    state; ``last_x`` stays whole, as the token shift reads it whole."""
     h = rms_norm(x[:, None], params["norm"], cfg.norm_eps)
     y, (lx, st) = rwkv6_mix(params, h, cfg, x_prev=last_x,
-                            wkv_state=wkv_state, impl="sequential")
+                            wkv_state=wkv_state, impl="sequential", tp=tp)
     return x + y[:, 0], (lx, st)
 
 

@@ -53,22 +53,47 @@ the reference's does; the scans refuse it.
 
 **On a device mesh** (``mesh``: a ``torch.distributed`` DeviceMesh, one
 process per member, ``distributed/collectives.py``), ``decode_step``
-takes ``page_impl="sp"`` or ``"sp_opt"`` (and only those): each rank
-holds its N rows of every paged pool (``collectives.local_state``), the
-whole tables, lengths and recurrent states, and the whole batch of
-activations.  Attention runs the sequence-parallel decode on the rank's
-batch rows and pool shard and gathers the batch back; the token writes
-and ``prefill``'s cache writes (``scatter_seq_sp``) land only in the
-rank's own pool rows; the embedding lookup is the vocab-parallel one
-over the rank's V rows of ``params["embed"]`` (a view: the table stays
-whole, as a tied unembedding needs it).  MoE layers run expert-parallel
-over ``model`` where their experts split evenly over it
-(``sharding.expert_parallel``): each rank computes its ``E/|model|``
-experts and its blocks of the shared experts, and the partial outputs
-are summed over ``model`` (``models/moe.py``).  ``params`` may hold the
-whole expert stacks (compute takes a view of the rank's block) or only
-the rank's blocks (``sharding.expert_shards``); the size of the split
-dim tells which.  Every other weight stays whole on every rank.
+takes ``page_impl="sp"`` or ``"sp_opt"`` (and only those), and
+:func:`prefill` and :func:`decode_step` serve one of two ways.
+
+* **From the rank's blocks** (``layout``: a ``distributed.parallel.
+  Layout``), as the reference serves under ``param_specs``: ``params``
+  are the rank's blocks (``sharding.shard_params``, or a checkpoint
+  restored onto the mesh), and every input and output with a batch dim
+  (tokens, patches, frames, the state's tables, lengths, cross and
+  recurrent states, the logits) is the rank's rows over ``batch_axes``
+  (``collectives.local_state(layout=)``).  Each layer gathers its
+  data-split leaves just in time (``Layout.layer``, under
+  ``torch.no_grad()``); every mixer whose heads or channels split over
+  ``model`` and the dense FFN compute only the rank's heads, channels or
+  columns, MoE layers run expert-parallel, and every other leaf (the
+  frontends, whisper's encoder and cross attention, a mixer whose heads
+  do not split) is gathered whole.  The paged pools hold every KV head
+  and split the sequence: attention's K and V for the cache are whole
+  or gathered over ``model`` (``attention.serving_qkv``), the SP decode
+  takes every query head (gathered over ``model``) and its output's
+  rank heads meet ``wo``'s row block; MLA gathers its absorbed queries
+  the same way; a Mamba decode exchanges ``in_proj``'s outputs over
+  ``model`` (``Layout.in_proj_exchange``).  The embedding and the
+  logits are vocab-parallel, the logits gathered over ``model``.
+* **From whole params** (``mesh`` alone): each rank holds its N rows of
+  every paged pool (``collectives.local_state``), the whole tables,
+  lengths and recurrent states, and the whole batch of activations.
+  Attention runs the sequence-parallel decode on the rank's batch rows
+  and pool shard and gathers the batch back; the embedding lookup is
+  the vocab-parallel one over the rank's V rows of ``params["embed"]``
+  (a view: the table stays whole, as a tied unembedding needs it).  MoE
+  layers run expert-parallel over ``model`` where their experts split
+  evenly over it (``sharding.expert_parallel``): each rank computes its
+  ``E/|model|`` experts and its blocks of the shared experts, and the
+  partial outputs are summed over ``model`` (``models/moe.py``).
+  ``params`` may hold the whole expert stacks (compute takes a view of
+  the rank's block) or only the rank's blocks
+  (``sharding.expert_shards``); the size of the split dim tells which.
+  Every other weight stays whole on every rank.
+
+Either way the token writes and ``prefill``'s cache writes
+(``scatter_seq_sp``) land only in the rank's own pool rows.
 
 ``moe_groups`` (:func:`prefill`, :func:`decode_step`,
 :func:`prefill_chunk`, :func:`ragged_step`, as in the reference) routes
@@ -243,11 +268,10 @@ def _ffn_aux(lp: dict, x: torch.Tensor, cfg: ModelConfig, i: int,
 
 
 def _ffn(lp: dict, x: torch.Tensor, cfg: ModelConfig, i: int,
-         moe_groups: int = 1, ep=None) -> torch.Tensor:
-    """Layer ``i``'s FFN for serving (no aux loss); ``ep`` runs an MoE
-    layer expert-parallel (a dense layer runs whole)."""
-    return _ffn_aux(lp, x, cfg, i, moe_groups,
-                    ep if cfg.ffns[i] == "moe" else None)[0]
+         moe_groups: int = 1) -> torch.Tensor:
+    """Layer ``i``'s FFN for the single-device serving paths (no aux
+    loss)."""
+    return _ffn_aux(lp, x, cfg, i, moe_groups)[0]
 
 
 def _serving_ep(cfg: ModelConfig, mesh):
@@ -399,12 +423,15 @@ def _scatter_blocks(pool: torch.Tensor, tab: torch.Tensor,
 
 
 # ================================================================ decode step
-def _sp_shards(tables, B, page_impl, mesh, batch_axes, seq_axes, *rows):
+def _sp_shards(tables, B, page_impl, mesh, batch_axes, seq_axes, *rows,
+               rows_local=False):
     """This rank's part of the SP decode's inputs: its batch rows of the
     monolithic view of ``tables`` (and, for ``"sp_opt"``, its columns)
-    and of each of ``rows``."""
+    and of each of ``rows``; with ``rows_local`` (serving under a
+    layout) the rows are the rank's already and only the columns are
+    cut."""
     from repro_torch.distributed.collectives import local_shard
-    ba = tuple(batch_axes)
+    ba = () if rows_local else tuple(batch_axes)
     cols = tuple(seq_axes) if page_impl == "sp_opt" else None
     tab = local_shard(attn_mod.assemble_shard_tables(tables)[:B],
                       (ba, cols), mesh)
@@ -412,21 +439,26 @@ def _sp_shards(tables, B, page_impl, mesh, batch_axes, seq_axes, *rows):
 
 
 def _paged_attn(q, kv_pool, tables, lengths, *, page_impl, window,
-                mesh=None, batch_axes=(), seq_axes=()):
+                mesh=None, batch_axes=(), seq_axes=(), rows_local=False):
     """One decode-attention step over either table layout: ``kv_pool`` is
     the fused ``(N, bs, KV*2, hd)`` pool (on a mesh the rank's N rows),
-    ``tables`` the ``(B, M)`` table or the ``(W, Bs, M)`` shard stack."""
+    ``tables`` the ``(B, M)`` table or the ``(W, Bs, M)`` shard stack.
+    On a mesh the SP decode runs on the rank's batch rows and gathers
+    the batch back, unless ``rows_local``: q, tables and lengths are the
+    rank's rows, and so is the output."""
     if page_impl in SP_IMPLS:
         from repro_torch.distributed import collectives as coll
         B = q.shape[0]
         tab, (q_l, len_l) = _sp_shards(tables, B, page_impl, mesh,
-                                       batch_axes, seq_axes, q, lengths)
+                                       batch_axes, seq_axes, q, lengths,
+                                       rows_local=rows_local)
         k_pool, v_pool = attn_mod.split_fused_kv(kv_pool)
         out = coll.paged_decode_attention_sp(
             q_l, k_pool, v_pool, tab, len_l, mesh=mesh,
             batch_axes=batch_axes, seq_axes=seq_axes, window=window,
             table_cols_sharded=(page_impl == "sp_opt"))
-        return coll.gather_batch(out, mesh, tuple(batch_axes), B)
+        return out if rows_local else coll.gather_batch(
+            out, mesh, tuple(batch_axes), B)
     if page_impl == "kernel":
         from repro_torch.kernels.paged_attention import autotune
         from repro_torch.kernels.paged_attention import ops as pa_ops
@@ -455,24 +487,27 @@ def _check_page_impl(page_impl: str) -> None:
 
 
 def _mla_paged_decode(lp, x, positions, st, layer, cfg, *, page_impl,
-                      mesh=None, batch_axes=(), seq_axes=()):
+                      mesh=None, batch_axes=(), seq_axes=(),
+                      rows_local=False, tp=None):
     """Absorbed-MLA decode of layer ``layer`` over the latent pools:
     ``"kernel"`` walks the table (either layout) in the CUDA kernel;
     ``"ref"`` gathers through the monolithic view of the table; the SP
     impls run ``mla_decode_sp`` on the rank's batch rows and pool shard
-    and gather the batch back."""
+    and gather the batch back (``rows_local`` and ``tp``: as
+    :func:`_paged_attn` and ``mla_decode_sp`` take them)."""
     c_pool, rope_pool = st["mla_c"][layer], st["mla_rope"][layer]
     if page_impl in SP_IMPLS:
         from repro_torch.distributed import collectives as coll
         B = x.shape[0]
         tab, (x_l, pos_l, len_l) = _sp_shards(
             st["tables"], B, page_impl, mesh, batch_axes, seq_axes, x,
-            positions, st["lengths"] + 1)
+            positions, st["lengths"] + 1, rows_local=rows_local)
         out = coll.mla_decode_sp(
             lp, x_l, pos_l, c_pool, rope_pool, tab, len_l, cfg, mesh=mesh,
             batch_axes=batch_axes, seq_axes=seq_axes,
-            table_cols_sharded=(page_impl == "sp_opt"))
-        return coll.gather_batch(out, mesh, tuple(batch_axes), B)
+            table_cols_sharded=(page_impl == "sp_opt"), tp=tp)
+        return out if rows_local else coll.gather_batch(
+            out, mesh, tuple(batch_axes), B)
     if page_impl == "kernel":
         from repro_torch.kernels.mla_attention import ops as mla_ops
         return mla_ops.mla_paged_decode(lp, x, positions, c_pool, rope_pool,
@@ -501,9 +536,71 @@ def _embed_tokens(params, tokens, mesh, layout=None):
         vocab=params["embed"].shape[0])
 
 
+def _layer_where(cfg: ModelConfig, i: int) -> tuple:
+    """Where layer ``i``'s params sit in the params tree."""
+    prefix, period = cfg.segmentation()
+    if i < prefix:
+        return ("prefix", i)
+    return ("body", (i - prefix) % period, (i - prefix) // period)
+
+
+#: the leaves only prefill reads: the encoder, its positions and the
+#: frontends (top level), the cross attention's keys and values (a
+#: layer's, written to the state once); a decode step under a layout
+#: gathers none of them, as GSPMD gathers no leaf the step never reads
+PREFILL_ONLY = ("encoder", "enc_pos", "vision_proj", "audio_proj")
+PREFILL_ONLY_CROSS = ("wk", "wv")
+
+
+def _serving_layer(params, cfg: ModelConfig, i: int, layout, step: str,
+                   ep):
+    """Layer ``i``'s params for serving and the tps of its mixer and FFN:
+    under a ``layout`` those of ``Layout.layer`` (its blocks gathered
+    just in time, ``step`` ``"prefill"`` or ``"decode"``, which gathers
+    no :data:`PREFILL_ONLY_CROSS` leaf); else the params as held, the
+    mixer whole and an MoE layer expert-parallel under ``ep``."""
+    lp = layer_params(params, cfg, i)
+    if layout is None:
+        return lp, None, ep if cfg.ffns[i] == "moe" else None
+    if step == "decode" and "cross" in lp:
+        lp = dict(lp, cross={k: v for k, v in lp["cross"].items()
+                             if k not in PREFILL_ONLY_CROSS})
+    return layout.layer(lp, _layer_where(cfg, i), i, step)
+
+
+def _serving_dp(layout, batch_axes):
+    """MoE routing's data-parallel map under a ``layout``: its data dims
+    where the batch rows split over them, None where every rank holds
+    the whole batch (``sharding.decode_axes``)."""
+    if layout is None or not tuple(batch_axes):
+        return None
+    if tuple(batch_axes) != layout.dp.axes:
+        raise ValueError(f"batch axes {tuple(batch_axes)} are not the "
+                         f"layout's data dims {layout.dp.axes}")
+    return layout.dp
+
+
+def _logits(params, cfg: ModelConfig, h, layout):
+    """h (B, D) normed → (B, V) f32 logits (vocab-parallel, gathered over
+    ``model``, under a ``layout``)."""
+    table = _unembed_table(params, cfg)
+    if layout is not None:
+        return layout.logits(h, table)
+    return unembed(h[:, None], table)[:, 0]
+
+
+def _attn_qkv(lp, h, cfg, positions, tp):
+    """(q, k, v, fused K/V of every KV head for the cache): the rank's
+    heads under ``tp`` (``attention.serving_qkv``), else every head."""
+    if tp is not None:
+        return attn_mod.serving_qkv(lp, h, cfg, positions, tp)
+    q, k, v = attn_mod.qkv_proj(lp, h, cfg, positions)
+    return q, k, v, attn_mod.fuse_kv(k, v)
+
+
 def decode_step(params, cfg: ModelConfig, state: dict, tokens: torch.Tensor,
                 *, page_impl: str = "ref", mesh=None, batch_axes=(),
-                seq_axes=(), moe_groups: int = 1):
+                seq_axes=(), moe_groups: int = 1, layout=None):
     """One decode step: tokens (B,) → (logits (B, V) f32, state).
 
     ``state['lengths']`` counts tokens already in the cache; the incoming
@@ -514,16 +611,39 @@ def decode_step(params, cfg: ModelConfig, state: dict, tokens: torch.Tensor,
     the pools are the rank's shards under ``batch_axes + seq_axes``, MoE
     layers run expert-parallel and every rank returns the whole logits.
     MoE layers route the B tokens in ``moe_groups`` groups.
+
+    With a ``layout`` (``distributed.parallel.Layout``: serving from the
+    rank's blocks, the module doc) the mesh is ``layout.mesh``,
+    ``params`` are the rank's blocks under ``param_specs``, and
+    ``tokens``, the state (``collectives.local_state(layout=)``) and the
+    logits are the rank's batch rows over ``batch_axes``: B is the
+    rank's row count.  ``coll.gather_batch`` gives a caller the whole
+    batch.
     """
     check_supported(cfg)
+    if layout is not None:
+        mesh = layout.mesh
     if (page_impl in SP_IMPLS) != (mesh is not None):
         raise ValueError(f"page_impl {page_impl!r} "
                          f"{'needs' if mesh is None else 'does not take'} "
                          f"a mesh; on a mesh use one of {SP_IMPLS}")
+    kw = dict(page_impl=page_impl, mesh=mesh, batch_axes=batch_axes,
+              seq_axes=seq_axes, moe_groups=moe_groups)
+    if layout is None:
+        return _decode_step(params, cfg, state, tokens, **kw)
+    with torch.no_grad():
+        top = layout.top({k: v for k, v in params.items()
+                          if k not in PREFILL_ONLY})
+        return _decode_step(top, cfg, state, tokens, layout=layout, **kw)
+
+
+def _decode_step(params, cfg: ModelConfig, state: dict, tokens, *,
+                 page_impl, mesh, batch_axes, seq_axes, moe_groups,
+                 layout=None):
     B = tokens.shape[0]
     st = dict(state)
     pos = st["lengths"]
-    x = _embed_tokens(params, tokens, mesh)              # (B, D)
+    x = _embed_tokens(params, tokens, mesh, layout)      # (B, D)
     if cfg.enc_dec:
         x = x + params["dec_pos"][pos.long().clamp(max=DEC_POS - 1)]
     positions = pos[:, None]
@@ -539,19 +659,22 @@ def decode_step(params, cfg: ModelConfig, state: dict, tokens: torch.Tensor,
                              pos, BLOCK_SIZE)
     attn_ids = attn_layer_ids(cfg)
     mamba_ids = mamba_layer_ids(cfg)
-    ep = _serving_ep(cfg, mesh)
+    ep = _serving_ep(cfg, mesh) if layout is None else None
+    dp = _serving_dp(layout, batch_axes)
+    sp = dict(page_impl=page_impl, mesh=mesh, batch_axes=batch_axes,
+              seq_axes=seq_axes, rows_local=layout is not None)
     for i in range(cfg.n_layers):
-        lp = layer_params(params, cfg, i)
+        lp, tp, tp_ffn = _serving_layer(params, cfg, i, layout, "decode", ep)
         mix = cfg.mixers[i]
         if mix == "mamba":
             m = mamba_ids.index(i)
             x, (cs, ss) = mamba_mod.mamba_decode_step(
-                lp["mix"], x, cfg, st["conv"][m], st["ssm"][m])
+                lp["mix"], x, cfg, st["conv"][m], st["ssm"][m], tp)
             st["conv"][m] = cs
             st["ssm"][m] = ss
         elif mix == "rwkv6":
             x, (lx, s_new) = rwkv_mod.rwkv6_decode_step(
-                lp["mix"], x, cfg, st["rwkv_x"][i], st["rwkv_s"][i])
+                lp["mix"], x, cfg, st["rwkv_x"][i], st["rwkv_s"][i], tp)
             st["rwkv_x"][i] = lx
             st["rwkv_s"][i] = s_new
         elif mix == "mla":
@@ -559,27 +682,30 @@ def decode_step(params, cfg: ModelConfig, state: dict, tokens: torch.Tensor,
             c_kv, k_rope = mla_mod.latent_kv(lp["mix"], h, cfg, positions)
             drop_write(st["mla_c"][i], targets, c_kv[:, 0])
             drop_write(st["mla_rope"][i], targets, k_rope[:, 0, 0])
-            x = _mla_paged_decode(lp["mix"], x, pos, st, i, cfg,
-                                  page_impl=page_impl, mesh=mesh,
-                                  batch_axes=batch_axes, seq_axes=seq_axes)
+            x = _mla_paged_decode(lp["mix"], x, pos, st, i, cfg, tp=tp,
+                                  **sp)
         else:
             a = attn_ids.index(i)
             h = rms_norm(x[:, None], lp["mix"]["norm"], cfg.norm_eps)
-            q, k, v = attn_mod.qkv_proj(lp["mix"], h, cfg, positions)
-            drop_write(st["kv"][a], targets,
-                       attn_mod.fuse_kv(k[:, 0], v[:, 0]))
+            q, _, _, kv = _attn_qkv(lp["mix"], h, cfg, positions, tp)
+            drop_write(st["kv"][a], targets, kv[:, 0])
+            if tp is not None:          # the SP decode takes every head
+                q = tp.gather(q, 2)
             o = _paged_attn(q[:, 0], st["kv"][a], st["tables"], pos + 1,
-                            page_impl=page_impl, window=cfg.attn.window,
-                            mesh=mesh, batch_axes=batch_axes,
-                            seq_axes=seq_axes)
-            x = x + o.reshape(B, -1) @ lp["mix"]["wo"]
+                            window=cfg.attn.window, **sp)
+            if tp is None:
+                x = x + o.reshape(B, -1) @ lp["mix"]["wo"]
+            else:
+                x = x + tp.reduce_product(tp.cut(o, 1).reshape(B, -1),
+                                          lp["mix"]["wo"])
         if cfg.enc_dec:
             x = attn_mod.cross_attn_layer(
                 lp["cross"], x[:, None],
                 (st["cross_k"][i], st["cross_v"][i]), cfg)[:, 0]
-        x = _ffn(lp, x[:, None], cfg, i, moe_groups, ep)[:, 0]
+        x = _ffn_aux(lp, x[:, None], cfg, i, moe_groups, tp_ffn, dp)[0][:, 0]
+        lp = None                   # drop the layer before the next gathers
     h = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    logits = unembed(h[:, None], _unembed_table(params, cfg))[:, 0]
+    logits = _logits(params, cfg, h, layout)
     st["lengths"] = pos + 1
     return logits, st
 
@@ -588,7 +714,7 @@ def decode_step(params, cfg: ModelConfig, state: dict, tokens: torch.Tensor,
 def prefill(params, cfg: ModelConfig, tokens: torch.Tensor, state: dict, *,
             impl: str = "chunked", enc_frames: torch.Tensor | None = None,
             patches: torch.Tensor | None = None, moe_groups: int = 1,
-            mesh=None, batch_axes=(), seq_axes=("model",)):
+            mesh=None, batch_axes=(), seq_axes=("model",), layout=None):
     """Process a full prompt, write every cache and recurrent state (in
     place), return (last_logits, state).  tokens: (B, S); a vision model's
     ``patches`` (B, P, D) go before the text, so the sequence is S_tot =
@@ -602,14 +728,34 @@ def prefill(params, cfg: ModelConfig, tokens: torch.Tensor, state: dict, *,
     writes only its own rows (``scatter_seq_sp``, whatever the mesh's
     dims: the pools are always local here), MoE layers run
     expert-parallel, and the rest runs whole on every rank.  MoE layers
-    route the B·S_tot tokens in ``moe_groups`` groups."""
+    route the B·S_tot tokens in ``moe_groups`` groups.
+
+    With a ``layout`` (``distributed.parallel.Layout``: serving from the
+    rank's blocks, the module doc) the mesh is ``layout.mesh``,
+    ``params`` are the rank's blocks under ``param_specs``, and
+    ``tokens``, ``patches``, ``enc_frames``, the state
+    (``collectives.local_state(layout=)``) and the logits are the rank's
+    batch rows over ``batch_axes``; MoE layers route the reference's
+    ``moe_groups`` groups of the global token stream."""
     check_supported(cfg)
     _check_impl(impl)
+    kw = dict(impl=impl, enc_frames=enc_frames, patches=patches,
+              moe_groups=moe_groups, batch_axes=batch_axes,
+              seq_axes=seq_axes)
+    if layout is None:
+        return _prefill(params, cfg, tokens, state, mesh=mesh, **kw)
+    with torch.no_grad():
+        return _prefill(layout.top(params), cfg, tokens, state,
+                        mesh=layout.mesh, layout=layout, **kw)
+
+
+def _prefill(params, cfg: ModelConfig, tokens, state, *, impl, enc_frames,
+             patches, moe_groups, mesh, batch_axes, seq_axes, layout=None):
     B = tokens.shape[0]
     bs = BLOCK_SIZE
     st = dict(state)
     enc_out = encode(params, cfg, enc_frames) if cfg.enc_dec else None
-    x = embed_inputs(params, cfg, tokens, patches, mesh=mesh)
+    x = embed_inputs(params, cfg, tokens, patches, mesh=mesh, layout=layout)
     S = x.shape[1]                                       # S_tot
     positions = torch.arange(S, device=tokens.device)[None].expand(B, S)
     tables = attn_mod.assemble_shard_tables(st["tables"])[:B]
@@ -626,49 +772,58 @@ def prefill(params, cfg: ModelConfig, tokens: torch.Tensor, state: dict, *,
             _scatter_blocks(pool, tab, rows)
             return
         from repro_torch.distributed import collectives as coll
-        ba = (tuple(batch_axes),)
-        coll.scatter_seq_sp(pool, coll.local_shard(rows, ba, mesh),
-                            coll.local_shard(tab, ba, mesh), mesh=mesh,
+        t = tab
+        if layout is None:                  # cut the rank's batch rows
+            ba = (tuple(batch_axes),)
+            rows, t = (coll.local_shard(r, ba, mesh) for r in (rows, tab))
+        coll.scatter_seq_sp(pool, rows, t, mesh=mesh,
                             batch_axes=batch_axes, seq_axes=seq_axes)
 
     attn_ids = attn_layer_ids(cfg)
     mamba_ids = mamba_layer_ids(cfg)
-    ep = _serving_ep(cfg, mesh)
+    ep = _serving_ep(cfg, mesh) if layout is None else None
+    dp = _serving_dp(layout, batch_axes)
     for i in range(cfg.n_layers):
-        lp = layer_params(params, cfg, i)
+        lp, tp, tp_ffn = _serving_layer(params, cfg, i, layout, "prefill",
+                                        ep)
         mix = cfg.mixers[i]
         h = rms_norm(x, lp["mix"]["norm"], cfg.norm_eps)
         if mix == "mla":
             # the cache holds the latents of the layer's input
             c_kv, k_rope = mla_mod.latent_kv(lp["mix"], h, cfg, positions)
-            x = mla_mod.mla_layer(lp["mix"], x, positions, cfg)
+            x = mla_mod.mla_layer(lp["mix"], x, positions, cfg, tp=tp)
             scatter_seq(st["mla_c"][i], c_kv)
             scatter_seq(st["mla_rope"][i], k_rope[:, :, 0])
         elif mix == "mamba":
-            y, (cs, ss) = mamba_mod.mamba_mix(lp["mix"], h, cfg, impl=impl)
+            y, (cs, ss) = mamba_mod.mamba_mix(lp["mix"], h, cfg, impl=impl,
+                                              tp=tp)
             x = x + y
             m = mamba_ids.index(i)
             st["conv"][m] = cs
             st["ssm"][m] = ss
         elif mix == "rwkv6":
-            y, (lx, s_new) = rwkv_mod.rwkv6_mix(lp["mix"], h, cfg, impl=impl)
+            y, (lx, s_new) = rwkv_mod.rwkv6_mix(lp["mix"], h, cfg, impl=impl,
+                                                tp=tp)
             x = x + y
             st["rwkv_x"][i] = lx
             st["rwkv_s"][i] = s_new
         else:
-            q, k, v = attn_mod.qkv_proj(lp["mix"], h, cfg, positions)
+            q, k, v, kv = _attn_qkv(lp["mix"], h, cfg, positions, tp)
             o = attn_mod.chunked_attention(q, k, v, causal=True,
                                            window=cfg.attn.window)
-            x = x + o.reshape(B, S, -1) @ lp["mix"]["wo"]
-            scatter_seq(st["kv"][attn_ids.index(i)], attn_mod.fuse_kv(k, v))
+            o = o.reshape(B, S, -1)
+            x = x + (o @ lp["mix"]["wo"] if tp is None
+                     else tp.reduce_product(o, lp["mix"]["wo"]))
+            scatter_seq(st["kv"][attn_ids.index(i)], kv)
         if cfg.enc_dec:
             kc, vc = attn_mod.encode_cross_kv(lp["cross"], enc_out, cfg)
             x = attn_mod.cross_attn_layer(lp["cross"], x, (kc, vc), cfg)
             st["cross_k"][i] = kc
             st["cross_v"][i] = vc
-        x = _ffn(lp, x, cfg, i, moe_groups, ep)
+        x = _ffn_aux(lp, x, cfg, i, moe_groups, tp_ffn, dp)[0]
+        lp = None                   # drop the layer before the next gathers
     h = rms_norm(x[:, -1], params["final_norm"], cfg.norm_eps)
-    logits = unembed(h[:, None], _unembed_table(params, cfg))[:, 0]
+    logits = _logits(params, cfg, h, layout)
     st["lengths"] = torch.full((B,), S, dtype=torch.int32,
                                device=tokens.device)
     return logits, st

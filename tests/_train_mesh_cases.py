@@ -135,14 +135,14 @@ def reference_steps(cases: dict) -> dict:
     return out
 
 
-def run_ranks(work, cases: dict, reference) -> tuple:
-    """Pickle ``cases``, start the ranks, compute ``reference()`` while
-    they run; returns (rank 0's results, every rank's, the reference's
-    answers)."""
+def run_ranks(work, cases: dict, reference, script: str = RANKS) -> tuple:
+    """Pickle ``cases``, start the ranks of ``script``, compute
+    ``reference()`` while they run; returns (rank 0's results, every
+    rank's, the reference's answers)."""
     with open(os.path.join(work, "inputs.pkl"), "wb") as f:
         pickle.dump(cases, f)
     ref = {}
-    logs = spawn(work, WORLD, script=RANKS, timeout=300,
+    logs = spawn(work, WORLD, script=script, timeout=300,
                  then=lambda: ref.update(reference()))
     assert [code for code, _ in logs] == [0] * WORLD, "\n".join(
         f"rank {r} exited {code}:\n{log[-4000:]}"

@@ -111,14 +111,16 @@ def test_fake_cell_equals_the_real_step_on_gloo(runs, name):
 
 
 def test_cells_use_the_meshes_collectives(runs):
-    """Train gathers and reduce-scatters (FSDP), serving reduces the SP
-    partials; the MoE train and prefill cells route in n_dp groups, the
-    decode cell in one."""
+    """Train gathers and reduce-scatters (FSDP); serving from the rank's
+    blocks gathers them just in time (and the query heads and logits
+    over ``model``) and reduces the SP partials and the tensor-parallel
+    sums, with no gradient to reduce-scatter; the MoE train and prefill
+    cells route in n_dp groups, the decode cell in one."""
     kinds = {n: set(_record(runs, "fake", n)["collectives"]
                     ["payload_by_kind"]) for n in CELLS}
     assert {"all-gather", "reduce-scatter", "all-reduce"} <= kinds[
         "granite-3-8b-train"]
-    assert kinds["granite-3-8b-decode"] == {"all-reduce"}
+    assert kinds["granite-3-8b-decode"] == {"all-gather", "all-reduce"}
     moe = _record(runs, "fake", "deepseek-moe-16b-train")
     assert moe["moe_groups"] == 2 and moe["microbatches"] == 2
     assert _record(runs, "fake", "deepseek-moe-16b-prefill")[
