@@ -151,6 +151,23 @@ of which fails the script:
    stage, 4 microbatches of (1, 1024, 4096)) within 1e-5 of the layers
    applied in sequence here.  No kernel launches (the kernels are
    forward only).  A failing rank fails the script;
+   10 (e) / 11 (e), after phase 11: attention whose query heads do not
+   split evenly over ``model``, three processes on the one GPU (a (data
+   1, model 3) mesh over gloo, ``--heads-rank R``, files under
+   ``build/heads_phase/``), each run held to a one-process oracle run
+   and freed first: (e1) qwen2.5-14b at its published widths cut to 2 of
+   48 layers (2.1 B params, 8.4 GB f32; its 40 heads in blocks of 14, 14
+   and 12 reading KV heads 0-2, 2-5 and 5-7), (e2) whisper-small whole
+   (12 heads, 4 a rank, in the encoder, the decoder and the cross
+   attention); each served from the rank's ``param_specs`` blocks
+   (``prefill`` of 2 x 1000, whisper's 2 x 200 with frames, then 16
+   ``decode_step(page_impl="sp")`` steps: the oracle's tokens on every
+   rank but at near-ties) and trained 2 steps of (2, 1024) (loss, grad
+   norm and each leaf's sum of squares within 1e-5 relative, those that
+   start at zero, qwen2.5's QKV biases, within 1e-4); each run
+   prints the rank's heads, its resident GB beside the whole model's,
+   prefill seconds, decode tokens/s, the collectives' calls and GB and
+   seconds a step.  No kernel launches;
 12. the dry run (``repro_torch.launch.dryrun``), after every timed
    phase, in two subprocesses run side by side (``--dryrun-phase``,
    files under ``build/dryrun_phase/``) on fake tensors and fake process
@@ -165,7 +182,9 @@ of which fails the script:
    runs (``train_flops``); phase 10 (d)'s two granite serving runs
    replayed as a prefill and a decode cell on 2 fake ranks, whose calls
    and bytes must equal the measured prefill's and every decode step's
-   and whose resident state must be within 2% of the measured; (b)
+   and whose resident state must be within 2% of the measured; (e1)'s
+   training step, prefill and decode replayed the same way as rank 0 of
+   3 fake ranks; (b)
    granite-3-8b cut to 10 of 40 layers x train_4k on the 256-rank fake
    production mesh (meta tensors; its attention tensor-parallel with
    the 8 KV heads whole on every rank), its record line and useful-FLOP
@@ -2046,10 +2065,11 @@ def param_bytes(torch, cfg) -> int:
     return tfm.param_count(params) * 4
 
 
-def run_ranks(flag: str, directory, timeout: float, what: str) -> None:
-    """Start MESH_RANKS processes of this script with ``flag RANK``, logs
+def run_ranks(flag: str, directory, timeout: float, what: str,
+              ranks: int = MESH_RANKS) -> None:
+    """Start ``ranks`` processes of this script with ``flag RANK``, logs
     in ``directory``; fail unless all exit 0 within ``timeout``."""
-    logs = [open(directory / f"rank_{r}.log", "w") for r in range(MESH_RANKS)]
+    logs = [open(directory / f"rank_{r}.log", "w") for r in range(ranks)]
     procs = [subprocess.Popen(
         [sys.executable, str(Path(__file__).resolve()), flag, str(r)],
         stdout=log, stderr=subprocess.STDOUT) for r, log in enumerate(logs)]
@@ -2068,8 +2088,8 @@ def run_ranks(flag: str, directory, timeout: float, what: str) -> None:
             p.wait()
         for log in logs:
             log.close()
-    if codes != [0] * MESH_RANKS:
-        for r in range(MESH_RANKS):
+    if codes != [0] * ranks:
+        for r in range(ranks):
             tail = (directory / f"rank_{r}.log").read_text()[-3000:]
             print(f"{what} rank {r} log (end):\n{tail}", file=sys.stderr)
         fail(f"{what}: ranks exited {codes} (None: still running, stopped)")
@@ -2235,11 +2255,13 @@ def moe_mesh_run(torch, mesh, ba, sa, seed: int):
     return line, torch.stack(toks, 1).tolist()
 
 
-def serve_blocks(torch, mesh, cfg, make, prompts, *, impl: str) -> dict:
+def serve_blocks(torch, mesh, cfg, make, prompts, *, impl: str,
+                 extras=None) -> dict:
     """(d): ``cfg`` served from this rank's ``param_specs`` blocks
     (``sharding.shard_params``, the whole params dropped first) through a
-    ``Layout``: ``prefill(impl=...)`` of the rank's rows of ``prompts``,
-    then HYBRID_NEW greedy ``decode_step(page_impl="sp")`` steps.  The
+    ``Layout``: ``prefill(impl=..., **extras)`` of the rank's rows of
+    ``prompts`` (and of ``extras``: whisper's ``enc_frames``), then
+    HYBRID_NEW greedy ``decode_step(page_impl="sp")`` steps.  The
     tokens of the whole batch by row, the resident memory before prefill
     and the peak, the kernels launched in prefill and in decode, the
     collectives' calls and bytes of the prefill and of each decode step,
@@ -2262,6 +2284,8 @@ def serve_blocks(torch, mesh, cfg, make, prompts, *, impl: str) -> dict:
     st = coll.local_state(st, cfg, mesh, batch_axes=ba, seq_axes=sa,
                           layout=lay)
     rows = coll.local_shard(prompts, (ba,), mesh).clone()
+    extras = {k: coll.local_shard(v, (ba,), mesh).clone()
+              for k, v in (extras or {}).items()}
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.synchronize()
@@ -2271,7 +2295,7 @@ def serve_blocks(torch, mesh, cfg, make, prompts, *, impl: str) -> dict:
     reset_launches()
     coll.TRAFFIC.reset()
     t0 = time.perf_counter()
-    lg, st = tfm.prefill(params, cfg, rows, st, impl=impl, **kw)
+    lg, st = tfm.prefill(params, cfg, rows, st, impl=impl, **extras, **kw)
     torch.cuda.synchronize()
     prefill_s = time.perf_counter() - t0
     launches = [launch_counts()]
@@ -2293,7 +2317,7 @@ def serve_blocks(torch, mesh, cfg, make, prompts, *, impl: str) -> dict:
     peak = torch.cuda.max_memory_allocated()
     whole = coll.gather_batch(torch.stack(toks, 1), mesh, ba, B)
     held = tfm.param_count(params) * 4
-    del params, sharded, st
+    del params, sharded, st, extras
     gc.collect()
     torch.cuda.empty_cache()
     return {"tokens": dict(enumerate(whole.tolist())), "resident": resident,
@@ -2484,6 +2508,7 @@ def train_oracle(torch, cfg, seed: int, what: str) -> dict:
     step = ttl.make_train_step(cfg, ttl.TrainConfig())
     opt = topt.init_opt_state(params)
     err = torch.zeros((), device=DEVICE)
+    zero = [k for k, v in leaf_sumsq(torch, params).items() if v == 0.0]
     batches = train_batches(torch, cfg)
     gc.collect()
     torch.cuda.empty_cache()
@@ -2503,8 +2528,8 @@ def train_oracle(torch, cfg, seed: int, what: str) -> dict:
     expect_launches(launch_counts(), {}, f"the {what} step")
     out = {"loss": [h["loss"] for h in steps],
            "grad_norm": [h["grad_norm"] for h in steps],
-           "sumsq": leaf_sumsq(torch, params), "resident": resident,
-           "peak": peak}
+           "sumsq": leaf_sumsq(torch, params), "zero": zero,
+           "resident": resident, "peak": peak}
     B, S = TRAIN_BATCH
     print(f"{cfg.name} {what} ({cfg.n_layers} layers, one process): "
           f"losses {out['loss']}, grad norms {out['grad_norm']}; seconds "
@@ -2519,14 +2544,21 @@ def train_oracle(torch, cfg, seed: int, what: str) -> dict:
 
 def train_batches(torch, cfg) -> list:
     """TRAIN_MESH_STEPS ``SyntheticLM`` batches of TRAIN_BATCH on the
-    card, the same in every process."""
+    card, the same in every process; an encoder-decoder model's with
+    seeded random frames."""
     from repro_torch.training.data import DataConfig, SyntheticLM
     B, S = TRAIN_BATCH
     data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=S,
                                   global_batch=B))
-    return [{k: torch.as_tensor(v, device=DEVICE)
-             for k, v in data.batch(s).items()}
-            for s in range(TRAIN_MESH_STEPS)]
+    out = [{k: torch.as_tensor(v, device=DEVICE)
+            for k, v in data.batch(s).items()}
+           for s in range(TRAIN_MESH_STEPS)]
+    if cfg.enc_dec:
+        gen = torch.Generator(device=DEVICE).manual_seed(5)
+        for b in out:
+            b["frames"] = torch.randn(B, cfg.enc_len, cfg.d_model,
+                                      generator=gen, device=DEVICE)
+    return out
 
 
 def train_mesh_phase(torch, seed: int, oracle: dict) -> dict:
@@ -2563,51 +2595,17 @@ def train_mesh_phase(torch, seed: int, oracle: dict) -> dict:
     for line in out[0]["probe"]:
         print(f"training mesh probe (rank 0): {line}")
 
-    def rel(x, y):
-        return abs(x - y) / abs(y)
-    B, S = TRAIN_BATCH
     for name in out[0]["runs"]:
         oracle = oracles[name]
         what = "phase 9 (a)" if name in TRAIN_MESH_NAMES else "its oracle"
         for r, res in enumerate(out):
             run = res["runs"][name]
-            for s, h in enumerate(run["steps"]):
-                for k in ("loss", "grad_norm"):
-                    if not rel(h[k], oracle[k][s]) <= TRAIN_MESH_RTOL:
-                        fail(f"training mesh {name} rank {r} step {s} {k} "
-                             f"{h[k]} vs {what} {oracle[k][s]}")
-            worst = max(rel(v, oracle["sumsq"][k])
-                        for k, v in run["sumsq"].items())
-            if set(run["sumsq"]) != set(oracle["sumsq"]) or not (
-                    worst <= TRAIN_MESH_RTOL):
-                fail(f"training mesh {name} rank {r}: leaf sums of squares "
-                     f"off {what}'s by {worst:.3g} relative")
             if name == "2x1" and run["resident"] > (
                     TRAIN_MESH_RESIDENT * oracle["resident"]):
                 fail(f"training mesh {name} rank {r}: {run['resident']} B "
                      f"resident > {TRAIN_MESH_RESIDENT} x phase 9's "
                      f"{oracle['resident']}")
-            steps = run["steps"]
-            off = {k: max(rel(h[k], oracle[k][s]) for s, h in enumerate(steps))
-                   for k in ("loss", "grad_norm")}
-            print(
-                f"training mesh {name} (data, model) rank {r}: losses "
-                f"{[h['loss'] for h in steps]}, grad norms "
-                f"{[h['grad_norm'] for h in steps]} (worst relative to "
-                f"{what}: loss {off['loss']:.3g}, grad norm "
-                f"{off['grad_norm']:.3g}, leaf sums of squares "
-                f"{worst:.3g}); seconds per step "
-                f"{[round(h['secs'], 4) for h in steps]} ("
-                f"{B * S / steps[-1]['secs']:.1f} tokens/s at the last); "
-                f"collectives per step {[h['calls'] for h in steps]} calls, "
-                f"{[round(h['bytes'] / 1e9, 3) for h in steps]} GB, "
-                f"{[round(h['coll_secs'], 3) for h in steps]} s; resident "
-                f"before the first step {run['resident'] / 1e9:.2f} GB "
-                f"({run['resident'] / oracle['resident']:.3f} of {what}'s "
-                f"{oracle['resident'] / 1e9:.2f} GB), peak "
-                f"{run['peak'] / 1e9:.2f} GB" + (
-                    f" ({what}'s {oracle['peak'] / 1e9:.2f} GB)"
-                    if "peak" in oracle else "") + f"; card {card_line()}")
+            check_train_run(f"training mesh {name}", r, run, oracle, what)
     for r, res in enumerate(out):
         p = res["pipeline"]
         if not p["err"] <= PIPE_TOL * max(1.0, p["scale"]):
@@ -2621,6 +2619,59 @@ def train_mesh_phase(torch, seed: int, oracle: dict) -> dict:
           f"{secs:.1f} s from spawn to exit; no kernel launched; card "
           f"{card_line()}")
     return out[0]["runs"]
+
+
+def check_train_run(name: str, r: int, run: dict, oracle: dict,
+                    what: str, zero_rtol: float | None = None) -> None:
+    """Rank ``r``'s :func:`train_on_mesh` record against its one-process
+    ``oracle``: loss and grad norm at every step and each leaf's sum of
+    squares within TRAIN_MESH_RTOL relative (with ``zero_rtol``, a leaf
+    that starts at zero within that: the oracle's ``zero``); prints its
+    line."""
+    def rel(x, y):
+        return abs(x - y) / abs(y)
+    B, S = TRAIN_BATCH
+    for s, h in enumerate(run["steps"]):
+        for k in ("loss", "grad_norm"):
+            if not rel(h[k], oracle[k][s]) <= TRAIN_MESH_RTOL:
+                fail(f"{name} rank {r} step {s} {k} {h[k]} vs {what} "
+                     f"{oracle[k][s]}")
+    if set(run["sumsq"]) != set(oracle["sumsq"]):
+        fail(f"{name} rank {r}: leaves {sorted(run['sumsq'])} vs {what}'s "
+             f"{sorted(oracle['sumsq'])}")
+    zero = set(oracle["zero"]) if zero_rtol is not None else set()
+    off = {k: rel(v, oracle["sumsq"][k]) for k, v in run["sumsq"].items()}
+    for k, e in off.items():
+        if not e <= (zero_rtol if k in zero else TRAIN_MESH_RTOL):
+            fail(f"{name} rank {r}: leaf {k}'s sum of squares off {what}'s "
+                 f"by {e:.3g} relative")
+    worst = max(off, key=off.get)
+    zero_line = "".join(
+        f", {k} {off[k]:.3g}" for k in sorted(zero) if k != worst)
+    if zero:
+        zero_line = (f"; the leaves that start at zero: {zero_line[2:]}"
+                     if zero_line else "")
+    steps = run["steps"]
+    off_step = {k: max(rel(h[k], oracle[k][s]) for s, h in enumerate(steps))
+                for k in ("loss", "grad_norm")}
+    print(
+        f"{name} (data, model) rank {r}: losses "
+        f"{[h['loss'] for h in steps]}, grad norms "
+        f"{[h['grad_norm'] for h in steps]} (worst relative to "
+        f"{what}: loss {off_step['loss']:.3g}, grad norm "
+        f"{off_step['grad_norm']:.3g}, leaf sums of squares {off[worst]:.3g}"
+        f" ({worst}){zero_line}); seconds per step "
+        f"{[round(h['secs'], 4) for h in steps]} ("
+        f"{B * S / steps[-1]['secs']:.1f} tokens/s at the last); "
+        f"collectives per step {[h['calls'] for h in steps]} calls, "
+        f"{[round(h['bytes'] / 1e9, 3) for h in steps]} GB, "
+        f"{[round(h['coll_secs'], 3) for h in steps]} s; resident "
+        f"before the first step {run['resident'] / 1e9:.2f} GB "
+        f"({run['resident'] / oracle['resident']:.3f} of {what}'s "
+        f"{oracle['resident'] / 1e9:.2f} GB), peak "
+        f"{run['peak'] / 1e9:.2f} GB" + (
+            f" ({what}'s {oracle['peak'] / 1e9:.2f} GB)"
+            if "peak" in oracle else "") + f"; card {card_line()}")
 
 
 def train_on_mesh(torch, shape, cfg, seed: int) -> dict:
@@ -2742,6 +2793,164 @@ def train_mesh_rank(rank: int) -> int:
     return 0
 
 
+# phase 10 (e) / 11 (e): attention whose query heads do not split evenly
+# over ``model``, served and trained by three gloo ranks on the one GPU on
+# a (data 1, model 3) mesh: (e1) qwen2.5-14b at its published widths cut
+# to 2 of 48 layers (2.1 B params, 8.4 GB f32; 40 heads in blocks of 14,
+# 14 and 12 reading KV heads 0-2, 2-5 and 5-7: neither 40 nor 8 divides
+# 3), (e2) whisper-small whole (12 heads, 4 a rank, in the encoder, the
+# decoder and the cross attention)
+HEADS_RANKS = 3
+HEADS_MESH = (1, HEADS_RANKS)
+HEADS_TIMEOUT = 600         # seconds for the three ranks, weights and checks
+HEADS_DIR = ROOT / "build" / "heads_phase"
+#: (e1)'s name in phase 12 (a)'s replay
+HEADS_NAME = "qwen2.5-14b-1x3"
+#: the leaf sums of squares of (e)'s leaves that start at zero (qwen2.5's
+#: QKV biases), against the oracle's: after TRAIN_MESH_STEPS steps such a
+#: leaf is Adam's first updates lr·m/(√v + eps) alone, on gradients the
+#: clip scales down to near eps, so f32 summation order shows: the
+#: reference's and the port's one-process steps differ by 3.9e-5 on
+#: ``bk``'s (qwen2.5 smoke config, 2 steps of TrainConfig(), CPU); every
+#: other leaf is held to TRAIN_MESH_RTOL
+HEADS_ZERO_RTOL = 1e-4
+
+
+def heads_runs(seed: int) -> dict:
+    """(e)'s runs: name → (config, params and inputs seed, prompt
+    shape)."""
+    from repro_torch.configs import get_config
+    return {"qwen2.5-14b": (cut_config("qwen2.5-14b", 2), seed + 43,
+                            MESH_PROMPT),
+            "whisper-small": (get_config("whisper-small"), seed + 47,
+                              ENCDEC_PROMPT)}
+
+
+def heads_inputs(torch, cfg, seed: int, shape) -> tuple:
+    """A run's prompts and ``prefill`` inputs (whisper's frames), the
+    same in every process."""
+    import numpy as np
+    rng = np.random.RandomState(seed)
+    prompts = torch.as_tensor(rng.randint(1, cfg.vocab, shape),
+                              dtype=torch.int32, device=DEVICE)
+    extras = {}
+    if cfg.enc_dec:
+        gen = torch.Generator(device=DEVICE).manual_seed(seed)
+        extras["enc_frames"] = torch.randn(shape[0], cfg.enc_len,
+                                           cfg.d_model, generator=gen,
+                                           device=DEVICE)
+    return prompts, extras
+
+
+def heads_phase(torch, seed: int) -> dict:
+    """(e): each run's one-process oracles (``prefill`` + HYBRID_NEW
+    greedy ``decode_step(page_impl="ref")``, and TRAIN_MESH_STEPS steps
+    of ``make_train_step``), run and freed first; then HEADS_RANKS
+    processes of :func:`heads_rank`.  Fails unless all exit 0, their
+    tokens equal the oracle's on every rank (but at near-ties) and their
+    training comes within TRAIN_MESH_RTOL of the oracle's.  Returns rank
+    0's (e1) serving and training records (for phase 12)."""
+    import shutil
+    runs = heads_runs(seed)
+    served, trained = {}, {}
+    for name, (cfg, cfg_seed, shape) in runs.items():
+        t0 = time.perf_counter()
+        params = moe_mesh_params(torch, cfg, cfg_seed)
+        made_line(torch, cfg, params, t0, f"{cfg.n_layers} layers (the "
+                  f"uneven heads' serving oracle)")
+        prompts, extras = heads_inputs(torch, cfg, cfg_seed, shape)
+        with torch.no_grad():
+            served[name] = greedy(torch, cfg, params, prompts,
+                                  impl="chunked", page_impl="ref", **extras)
+        del params, prompts, extras
+        gc.collect()
+        torch.cuda.empty_cache()
+        trained[name] = train_oracle(torch, cfg, cfg_seed,
+                                     "the uneven heads' training oracle")
+    shutil.rmtree(HEADS_DIR, ignore_errors=True)
+    HEADS_DIR.mkdir(parents=True)
+    (HEADS_DIR / "args.json").write_text(json.dumps({"seed": seed}))
+    t0 = time.perf_counter()
+    run_ranks("--heads-rank", HEADS_DIR, HEADS_TIMEOUT, "uneven heads phase",
+              ranks=HEADS_RANKS)
+    secs = time.perf_counter() - t0
+    out = [json.loads((HEADS_DIR / f"rank_{r}.json").read_text())
+           for r in range(HEADS_RANKS)]
+    for name, (cfg, _, (B, S)) in runs.items():
+        want, margins, _, ref_secs = served[name]
+        for r, res in enumerate(out):
+            run = res["serve"][name]
+            got = {int(b): v for b, v in run["tokens"].items()}
+            if got != {int(b): v for b, v in
+                       out[0]["serve"][name]["tokens"].items()}:
+                fail(f"uneven heads rank {r}'s {name} tokens differ from "
+                     f"rank 0's")
+            check_tokens(got, want, margins, f"uneven heads rank {r} {name}")
+            expect_launches(run["launches"][0], {}, f"uneven heads rank {r} "
+                            f"{name} prefill")
+            expect_launches(run["launches"][1], {}, f"uneven heads rank {r} "
+                            f"{name} decode")
+            print(f"uneven heads rank {r}, {res['heads'][name]}: "
+                  + serve_line(f"{name} ({cfg.n_layers} layers) on "
+                               f"{HEADS_MESH}", run, param_bytes(torch, cfg),
+                               B))
+            check_train_run(f"uneven heads {name} on {HEADS_MESH}", r,
+                            res["train"][name], trained[name],
+                            "its oracle", HEADS_ZERO_RTOL)
+        print(f"uneven heads {name} over the mesh: {B * (HYBRID_NEW + 1)} "
+              f"tokens equal the single-process oracle (prefill "
+              f"{ref_secs[0]:.3f} s, decode {ref_secs[1]:.3f} s, "
+              f"{B * HYBRID_NEW / ref_secs[1]:.2f} tokens/s)")
+    print(f"uneven heads phase: {HEADS_RANKS} gloo ranks on one GPU, "
+          f"{secs:.1f} s from spawn to exit (each rank: start, weights, "
+          f"serving and training); no kernel launched; card {card_line()}")
+    return {"serve": out[0]["serve"]["qwen2.5-14b"],
+            "train": out[0]["train"]["qwen2.5-14b"]}
+
+
+def heads_rank(rank: int) -> int:
+    """One rank of (e) (``--heads-rank``): each of :func:`heads_runs`'
+    models served from this rank's ``param_specs`` blocks
+    (:func:`serve_blocks`) and trained (:func:`train_on_mesh`) on
+    HEADS_MESH; writes its results to ``HEADS_DIR/rank_<rank>.json``."""
+    from datetime import timedelta
+
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.distributed.parallel import TensorParallel
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.attention import rank_heads
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    seed = json.loads((HEADS_DIR / "args.json").read_text())["seed"]
+    dist.init_process_group(
+        "gloo", init_method=f"file://{HEADS_DIR / 'store'}", rank=rank,
+        world_size=HEADS_RANKS, timeout=timedelta(seconds=300))
+    try:
+        mesh = make_host_mesh(*HEADS_MESH, device_type=DEVICE)
+        tp = TensorParallel(mesh)
+        heads, serve, train = {}, {}, {}
+        for name, (cfg, cfg_seed, shape) in heads_runs(seed).items():
+            q0, n, k0, k1, _ = rank_heads(cfg, tp)
+            heads[name] = (f"query heads {q0}-{q0 + n - 1} ({n} of "
+                           f"{cfg.n_heads}), KV heads {k0}-{k1 - 1} of "
+                           f"{cfg.n_kv_heads}")
+            prompts, extras = heads_inputs(torch, cfg, cfg_seed, shape)
+            serve[name] = serve_blocks(
+                torch, mesh, cfg,
+                lambda c, s=cfg_seed: moe_mesh_params(torch, c, s),
+                prompts, impl="chunked", extras=extras)
+            del prompts, extras
+            train[name] = train_on_mesh(torch, HEADS_MESH, cfg, cfg_seed)
+        (HEADS_DIR / f"rank_{rank}.json").write_text(json.dumps(
+            {"heads": heads, "serve": serve, "train": train}))
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
 # phase 12: the dry run (launch/dryrun.py) on fake tensors, in subprocesses
 DRYRUN_DIR = ROOT / "build" / "dryrun_phase"
 #: phase 11's step on its two meshes, predicted as rank 0 of 2 fake ranks
@@ -2838,21 +3047,67 @@ def dryrun_subprocess(what: str) -> int:
                 cfg=mesh_config(), shape=ShapeSpec(f"phase10_{kind}", S, B,
                                                    kind),
                 param_dtype=torch.float32, moe_groups=1)
+    # (e1): qwen2.5-14b's training step, prefill and decode on 3 fake ranks
+    dryrun.fake_world(HEADS_RANKS)
+    mesh = make_host_mesh(*HEADS_MESH, device_type=DEVICE)
+    make_groups(mesh)
+    cfg, _, (B, S) = heads_runs(0)["qwen2.5-14b"]
+    name = HEADS_NAME
+    for kind, (b, s) in (("train", TRAIN_BATCH), ("prefill", (B, S)),
+                         ("decode", (B, S))):
+        out[f"{name}-{kind}"] = dryrun.run_cell(
+            name, f"heads_{kind}", mesh=mesh, verbose=False, cfg=cfg,
+            shape=ShapeSpec(f"heads_{kind}", s, b, kind),
+            param_dtype=torch.float32, microbatches=1, moe_groups=1)
     out["wall_s"] = time.perf_counter() - t0
     (DRYRUN_DIR / "predict.json").write_text(json.dumps(out))
     return 0
 
 
-def dryrun_phase(measured: dict, served: dict) -> None:
-    """Phase 12, after every timed phase: (a) phase 11's step predicted on
-    fake tensors, held against phase 11's measurement in this run:
-    collective calls and bytes equal at every step, the resident state
-    within DRYRUN_RESIDENT_RTOL of ``memory_allocated``, MemTracker's
-    peak within DRYRUN_PEAK_RTOL of ``max_memory_allocated``, the FLOPs
-    on both ranks within DRYRUN_FLOPS_RTOL of ``train_flops``; and phase
-    10 (d)'s granite serving runs (``served``: rank 0's) replayed as a
-    prefill and a decode cell: calls and bytes equal the prefill's and
-    every decode step's, the resident state within
+def check_served(name: str, run: dict, pred: dict, ranks: int) -> None:
+    """A served run's (:func:`serve_blocks`, rank 0) calls and bytes
+    against the dry run's prefill and decode cells (``pred[name +
+    "-prefill"]``, ``"-decode"``): equal for the prefill and every decode
+    step, the resident state within DRYRUN_RESIDENT_RTOL; prints its
+    line."""
+    line = []
+    for kind in ("prefill", "decode"):
+        p = pred[f"{name}-{kind}"]
+        want = (p["collectives"]["calls"], p["collectives"]["bytes"])
+        for s, got in enumerate([run["traffic"]["prefill"]]
+                                if kind == "prefill"
+                                else run["traffic"]["decode"]):
+            if tuple(got) != want:
+                fail(f"dry run of {name} {kind}: step {s} made {got[0]} "
+                     f"collectives of {got[1]} B, predicted {want[0]} of "
+                     f"{want[1]} B")
+        res = p["memory"]["argument_bytes"] / run["resident"] - 1
+        if abs(res) > DRYRUN_RESIDENT_RTOL:
+            fail(f"dry run of {name} {kind}: resident "
+                 f"{p['memory']['argument_bytes']} B vs measured "
+                 f"{run['resident']} ({res:+.3%})")
+        line.append(f"{kind} {want[0]} collectives of {want[1] / 1e9:.4f} GB "
+                    f"{p['collectives']['payload_by_kind']}, resident "
+                    f"{p['memory']['argument_bytes'] / 1e9:.3f} GB "
+                    f"({res:+.3%}), peak {p['memory']['peak_bytes'] / 1e9:.3f}"
+                    f" GB")
+    print(f"dry run of {name} serving, rank 0 of {ranks} fake ranks (calls "
+          f"and bytes equal the measured prefill and every decode step; "
+          f"resident vs measured {run['resident'] / 1e9:.3f} GB): "
+          + "; ".join(line))
+
+
+def dryrun_phase(measured: dict, served: dict, heads: dict) -> None:
+    """Phase 12, after every timed phase: (a) phase 11's steps and (e1)'s
+    (``heads["train"]``) predicted on fake tensors, held against their
+    measurement in this run: collective calls and bytes equal at every
+    step, the resident state within DRYRUN_RESIDENT_RTOL of
+    ``memory_allocated``, MemTracker's peak within DRYRUN_PEAK_RTOL of
+    ``max_memory_allocated``, granite's FLOPs on both ranks within
+    DRYRUN_FLOPS_RTOL of ``train_flops``; and phase 10 (d)'s granite
+    serving runs (``served``: rank 0's) and (e1)'s (``heads["serve"]``)
+    replayed as a prefill and a decode cell: calls and bytes equal the
+    prefill's and every decode step's, the resident state within
     DRYRUN_RESIDENT_RTOL.  (b) the production cell, run beside (a): its
     record line."""
     import shutil
@@ -2864,8 +3119,11 @@ def dryrun_phase(measured: dict, served: dict) -> None:
     pred = json.loads((DRYRUN_DIR / "predict.json").read_text())
     B, S = TRAIN_BATCH
     flops, recompute = train_flops(train_config_of(), B, S)
-    for name, run in measured.items():
-        p = pred[name]
+    steps = [(name, run, pred[name], MESH_RANKS)
+             for name, run in measured.items()]
+    steps.append((HEADS_NAME, heads["train"], pred[f"{HEADS_NAME}-train"],
+                  HEADS_RANKS))
+    for name, run, p, ranks in steps:
         calls, nbytes = p["collectives"]["calls"], p["collectives"]["bytes"]
         for s, h in enumerate(run["steps"]):
             if (h["calls"], h["bytes"]) != (calls, nbytes):
@@ -2880,7 +3138,7 @@ def dryrun_phase(measured: dict, served: dict) -> None:
                  f"{p['memory']['peak_bytes']} B vs {run['peak']} "
                  f"({peak:+.3%})")
         rl = p["roofline"]
-        both = rl["flops_per_chip"] * MESH_RANKS
+        both = rl["flops_per_chip"] * ranks
         counted = ""
         if name in TRAIN_MESH_NAMES:        # train_flops counts granite's
             if abs(both / (flops + recompute) - 1) > DRYRUN_FLOPS_RTOL:
@@ -2889,47 +3147,23 @@ def dryrun_phase(measured: dict, served: dict) -> None:
             counted = (f", equal to train_flops' "
                        f"{(flops + recompute) / 1e12:.4f} (forward + "
                        f"backward + recompute)")
-        print(f"dry run of phase 11's {name} (data, model) step, rank 0 of "
-              f"{MESH_RANKS} fake ranks: {calls} collectives of "
+        print(f"dry run of the {name} (data, model) step, rank 0 of "
+              f"{ranks} fake ranks: {calls} collectives of "
               f"{nbytes / 1e9:.3f} GB {p['collectives']['payload_by_kind']}"
-              f" equal phase 11's at every step; resident "
+              f" equal the measured at every step; resident "
               f"{p['memory']['argument_bytes'] / 1e9:.3f} GB vs measured "
               f"{run['resident'] / 1e9:.3f} GB ({res:+.3%}); peak "
               f"{p['memory']['peak_bytes'] / 1e9:.3f} GB vs measured "
               f"{run['peak'] / 1e9:.3f} GB ({peak:+.3%}); "
               f"{rl['flops_per_chip'] / 1e12:.4f} TFLOP on rank 0, "
-              f"{both / 1e12:.4f} on both{counted}; roofline "
+              f"{both / 1e12:.4f} on all {ranks} at rank 0's{counted}; "
+              f"roofline "
               f"{rl['step_s']:.4f} s "
               f"({rl['bottleneck']}) at {rl['constants']['peak_flops']:.3g} "
               f"FLOP/s")
-    for name, run in served.items():
-        line = []
-        for kind in ("prefill", "decode"):
-            p = pred[f"{name}-{kind}"]
-            want = (p["collectives"]["calls"], p["collectives"]["bytes"])
-            for s, got in enumerate([run["traffic"]["prefill"]]
-                                    if kind == "prefill"
-                                    else run["traffic"]["decode"]):
-                if tuple(got) != want:
-                    fail(f"dry run of phase 10 (d)'s {name} {kind}: step {s}"
-                         f" made {got[0]} collectives of {got[1]} B, "
-                         f"predicted {want[0]} of {want[1]} B")
-            res = p["memory"]["argument_bytes"] / run["resident"] - 1
-            if abs(res) > DRYRUN_RESIDENT_RTOL:
-                fail(f"dry run of phase 10 (d)'s {name} {kind}: resident "
-                     f"{p['memory']['argument_bytes']} B vs measured "
-                     f"{run['resident']} ({res:+.3%})")
-            line.append(f"{kind} {want[0]} collectives of "
-                        f"{want[1] / 1e9:.4f} GB "
-                        f"{p['collectives']['payload_by_kind']}, resident "
-                        f"{p['memory']['argument_bytes'] / 1e9:.3f} GB "
-                        f"({res:+.3%}), peak "
-                        f"{p['memory']['peak_bytes'] / 1e9:.3f} GB")
-        print(f"dry run of phase 10 (d)'s {name} serving, rank 0 of "
-              f"{MESH_RANKS} fake ranks (calls and bytes equal the "
-              f"measured prefill and every decode step; resident vs "
-              f"measured {run['resident'] / 1e9:.3f} GB): "
-              + "; ".join(line))
+    for name, run in served.items():        # phase 10 (d)'s granite runs
+        check_served(name, run, pred, MESH_RANKS)
+    check_served(HEADS_NAME, heads["serve"], pred, HEADS_RANKS)
     wait_dryrun("production", runs["production"],
                 DRYRUN_CELL_TIMEOUT - (time.perf_counter() - t0))
     rec = json.loads((DRYRUN_DIR / "production.json").read_text())
@@ -2963,11 +3197,15 @@ def main() -> int:
                     help=argparse.SUPPRESS)       # phase 10 starts these
     ap.add_argument("--train-rank", type=int, default=None,
                     help=argparse.SUPPRESS)       # phase 11 starts these
+    ap.add_argument("--heads-rank", type=int, default=None,
+                    help=argparse.SUPPRESS)       # phase 10/11 (e) starts
     ap.add_argument("--dryrun-phase", choices=("predict", "production"),
                     help=argparse.SUPPRESS)       # phase 12 starts these
     args = ap.parse_args()
     if args.mesh_rank is not None:
         return mesh_rank(args.mesh_rank)
+    if args.heads_rank is not None:
+        return heads_rank(args.heads_rank)
     if args.train_rank is not None:
         return train_mesh_rank(args.train_rank)
     if args.dryrun_phase is not None:
@@ -3026,7 +3264,8 @@ def main() -> int:
     for k, n in scans.items():               # phase 10 (d)'s, both ranks
         launches[k] += n
     measured = train_mesh_phase(torch, args.seed, oracle)
-    dryrun_phase(measured, served)
+    heads = heads_phase(torch, args.seed)
+    dryrun_phase(measured, served, heads)
     # the paged decode launches go to the row of the depth each model ran
     # (its key's tuned depth: row 2 at depth 1, row 3 at 2 and 4); the
     # split kernel (row 1) gets none

@@ -19,27 +19,34 @@ what GSPMD would:
   over the data dims.  A leaf the rules replicate over the data dims has
   its gradient summed over them after the backward
   (:meth:`Layout.reduce_replicated`, one ``all_reduce`` of them all).
-* **Tensor parallel over ``model``.**  Each mixer whose heads or
-  channels split evenly over ``model`` (:meth:`Layout.mixer_tp`:
-  attention and MLA by query heads, RWKV-6 by its 64-wide heads, Mamba
-  by ``d_inner``) and the dense FFN keep the rank's column and row
-  blocks (Megatron, :data:`TP_MIX`, :data:`TP_FFN`; column blocks are
-  head-major) and compute only the rank's heads or channels: a
-  column-parallel product's input passes "copy to model"
-  (``TensorParallel.copy_in``: identity forward, SUM backward), the
-  row-parallel output "reduce from model".  A leaf the rank uses only in
-  part but gets whole (a replicated leaf such as a bias or RWKV-6's
-  ``u``, or a ``model``-split leaf gathered whole: attention's ``wk`` and
-  ``wv`` where ``KV`` does not split, Mamba's ``in_proj``, whose
-  ``[x | z]`` columns are not the rank's block) passes ``copy_in``
-  before the mixer cuts it, so its gradient comes back summed over
-  ``model``, whole on every rank, and ``reduce_to_shard`` keeps the
-  rank's block of it.  The mixers' own code (``models/attention.py``,
-  ``rwkv6.py``, ``mla.py``, ``mamba.py``) says where each ``copy_in``
-  sits.  A mixer whose heads or channels do not split runs whole on
-  every rank (its leaves gathered whole).  The vocabulary stays split:
-  the lookup and the loss are vocab-parallel
-  (``collectives.vocab_parallel_embed``, ``vocab_parallel_nll``).
+* **Tensor parallel over ``model``.**  Attention (the decoder's, the
+  whisper encoder's and the cross attention) splits its query heads over
+  ``model`` whatever their count: the rank computes the contiguous heads
+  ``[i·Hc, min((i+1)·Hc, H))``, ``Hc = ⌈H/|model|⌉`` (:func:`block`, as
+  ``param_specs`` blocks split an uneven dim: the last blocks short, some
+  empty), and the KV heads they read.  Each other mixer whose heads or
+  channels split evenly over ``model`` (:meth:`Layout.mixer_tp`: MLA by
+  query heads, RWKV-6 by its 64-wide heads, Mamba by ``d_inner``) and the
+  dense FFN keep the rank's column and row blocks (Megatron,
+  :data:`TP_MIX`, :data:`TP_FFN`; column blocks are head-major) and
+  compute only the rank's heads or channels: a column-parallel product's
+  input passes "copy to model" (``TensorParallel.copy_in``: identity
+  forward, SUM backward), the row-parallel output "reduce from model".
+  A leaf the rank uses only in part but gets whole (a replicated leaf
+  such as a bias or RWKV-6's ``u``, or a ``model``-split leaf gathered
+  whole: attention's ``wq`` and ``wo`` where the query heads do not split
+  evenly, so the stored block is not the rank's heads, ``wk`` and ``wv``
+  where ``KV`` does not split, Mamba's ``in_proj``, whose ``[x | z]``
+  columns are not the rank's block) passes ``copy_in`` before the mixer
+  cuts it (:meth:`TensorParallel.cut`), so its gradient comes back
+  summed over ``model``, whole on every rank, and ``reduce_to_shard``
+  keeps the rank's block of it.  The mixers' own code
+  (``models/attention.py``, ``rwkv6.py``, ``mla.py``, ``mamba.py``) says
+  where each ``copy_in`` sits.  An MLA, RWKV-6 or Mamba mixer whose heads
+  or channels do not split evenly runs whole on every rank (its leaves
+  gathered whole).  The vocabulary stays split: the lookup and the loss
+  are vocab-parallel (``collectives.vocab_parallel_embed``,
+  ``vocab_parallel_nll``).
 * **Expert parallel over ``model``.**  An MoE layer keeps the rank's
   ``E/|model|`` experts of ``w_gate``, ``w_up`` and ``w_down`` and its
   column and row blocks of the shared experts (``sharding.EXPERT_DIMS``),
@@ -48,9 +55,9 @@ what GSPMD would:
   outputs are summed over ``model``); the router is gathered whole.
   Where ``E`` or the shared width does not split over ``model``
   (``sharding.expert_parallel``) the experts are gathered whole and run
-  whole on every rank.  Every other leaf the rules put on ``model`` (the
-  frontends, whisper's cross attention) is gathered whole just in time
-  and runs whole on every rank.
+  whole on every rank.  The frontends are gathered whole just in time
+  and run whole on every rank; whisper's encoder layers are gathered
+  layer by layer like the decoder's (:meth:`Layout.encoder_layer`).
 * **Data parallel.**  The rank runs its rows; the loss is normalised by
   the label count of the *global* microbatch, and MoE layers route the
   reference's groups of the global token stream (``models/moe.py``), so
@@ -70,7 +77,8 @@ vocabulary columns of the (tied) table gathered over ``model``
 pools split the sequence over ``model``), so attention's K and V are
 computed whole where ``wk`` and ``wv`` come whole and gathered over
 ``model`` where they split, and the SP decode takes every query head
-(``TensorParallel.gather``); and a Mamba layer's decode keeps
+(``TensorParallel.gather``); whisper's cross K/V state holds every KV
+head too, computed whole in prefill; and a Mamba layer's decode keeps
 ``in_proj``'s stored ``model`` block and exchanges its outputs
 (:meth:`Layout.in_proj_exchange`).  Each data rank serves its batch
 rows, and MoE layers route the reference's groups of the global token
@@ -95,10 +103,8 @@ from repro_torch.models.rwkv6 import HEAD_SIZE
 #: per mixer, the leaves a tensor-parallel rank keeps as its stored
 #: ``model`` block (its heads' or channels' columns, then the output
 #: projection's rows); the mixer cuts its other leaves itself.  Attention
-#: keeps ``wk`` and ``wv`` only where ``KV`` splits too (:meth:`Layout.
-#: layer`).
-TP_MIX = {"attn": ("wq", "wk", "wv", "wo"),
-          "rwkv6": ("wr", "wk", "wv", "wg", "wo"),
+#: keeps those whose block is the rank's heads (:meth:`Layout.attn_keep`).
+TP_MIX = {"rwkv6": ("wr", "wk", "wv", "wg", "wo"),
           "mla": ("wq_b", "wkv_b", "wo"),
           "mamba": ("dt_proj", "out_proj")}
 #: dense-FFN leaves kept tensor-parallel
@@ -106,6 +112,16 @@ TP_FFN = ("w_gate", "w_up", "w_down")
 #: MoE leaves kept expert-parallel (the rank's experts, the shared
 #: experts' columns and rows)
 EP_FFN = tuple(EXPERT_DIMS)
+
+
+def block(n: int, size: int, index: int) -> tuple[int, int]:
+    """Member ``index`` of ``size``'s units ``[start, stop)`` of ``n``:
+    ``⌈n/size⌉`` a member in member order, the last blocks short and some
+    empty where ``size`` does not divide ``n`` (as ``param_specs`` blocks
+    and ``vocab_shard`` split an uneven dim).  Fixed by the mesh, never by
+    the data."""
+    c = -(-n // size)
+    return min(index * c, n), min((index + 1) * c, n)
 
 
 class TensorParallel:
@@ -136,20 +152,27 @@ class TensorParallel:
             return self.reduce_out(a @ w)
         return self.reduce_out(a.double() @ w.double()).float()
 
-    def cut(self, x, dim: int):
-        """This rank's block of ``x`` along ``dim`` (split evenly over
-        the members) after :meth:`copy_in`: a leaf or tensor the rank has
-        whole and uses in part, whose gradient then comes back whole on
-        every rank."""
-        n = x.shape[dim] // self.size
-        return self.copy_in(x).narrow(dim, self.index * n, n)
+    def block(self, n: int) -> tuple[int, int]:
+        """This rank's units ``[start, stop)`` of ``n`` (:func:`block`)."""
+        return block(n, self.size, self.index)
+
+    def cut(self, x, dim: int, unit: int = 1):
+        """This rank's block of ``x`` along ``dim`` after :meth:`copy_in`:
+        the dim's ``x.shape[dim] / unit`` units (heads of ``unit``
+        columns) split as :func:`block` splits them, so a rank may get a
+        short block or none.  For a leaf or tensor the rank has whole and
+        uses in part, whose gradient then comes back whole on every
+        rank."""
+        start, stop = self.block(x.shape[dim] // unit)
+        return self.copy_in(x).narrow(dim, start * unit,
+                                      (stop - start) * unit)
 
     def gather(self, x, dim: int, size: int | None = None):
         """Every member's block of ``x`` along ``dim``, in member order:
         one ``all_gather_into_tensor`` over ``model`` (serving only: no
         gradient flows back).  The blocks are of one size, or, with
-        ``size``, the whole's ``size`` split as ``vocab_shard`` splits
-        it (a short last block)."""
+        ``size``, the whole's ``size`` split as :func:`block` splits it
+        (short or empty last blocks)."""
         dim %= x.dim()
         shape = list(x.shape)
         shape[dim] = size if size is not None else x.shape[dim] * self.size
@@ -234,17 +257,32 @@ class Layout:
 
     # ---------------------------------------------------------- blocks
     def mixer_tp(self, mix: str) -> bool:
-        """Whether mixers of family ``mix`` run tensor-parallel: the
-        heads or channels they split by (attention's and MLA's query
-        heads, RWKV-6's heads, Mamba's ``d_inner``) split evenly over
-        ``model``.  Attention's ``KV`` need not: a rank then computes the
-        KV heads its query heads read (``models/attention.py``)."""
+        """Whether mixers of family ``mix`` run tensor-parallel: attention
+        always on a ``model`` dim of more than one member (a rank computes
+        its block of query heads, :func:`block`, and the KV heads they
+        read: ``models/attention.py``); MLA, RWKV-6 and Mamba where the
+        heads or channels they split by (MLA's query heads, RWKV-6's
+        heads, Mamba's ``d_inner``) split evenly over ``model``."""
         if self.tp is None:
             return False
+        if mix == "attn":
+            return True
         c = self.cfg
-        width = {"attn": c.n_heads, "mla": c.n_heads,
-                 "rwkv6": c.d_model // HEAD_SIZE, "mamba": c.d_inner}[mix]
+        width = {"mla": c.n_heads, "rwkv6": c.d_model // HEAD_SIZE,
+                 "mamba": c.d_inner}[mix]
         return width % self.tp.size == 0
+
+    def attn_keep(self) -> tuple:
+        """The attention leaves a tensor-parallel rank keeps as its stored
+        ``model`` block: ``wq`` and ``wo`` where the query heads split
+        evenly over ``model`` (the block is then the rank's heads), and
+        ``wk`` and ``wv`` too where ``KV`` does; elsewhere the leaves come
+        whole and the mixer cuts the rank's heads from them."""
+        c, n = self.cfg, self.tp.size
+        if c.n_heads % n:
+            return ()
+        return ("wq", "wo") + (("wk", "wv") if c.n_kv_heads % n == 0
+                               else ())
 
     def in_proj_exchange(self, mix: str, step: str) -> bool:
         """Whether a layer of family ``mix`` keeps Mamba's ``in_proj`` as
@@ -261,28 +299,41 @@ class Layout:
         """Layer ``i``'s compute params from its local blocks ``lp`` (at
         ``where`` in the params tree) → (params, tp of the mixer, tp of
         the FFN), a tp None where that part runs whole; an MoE layer's
-        FFN tp is its expert-parallel map (``moe_mix``'s ``ep``).  Under a
-        tp the leaves of :data:`TP_MIX` or the FFN's are the rank's
-        ``model`` blocks gathered over the data dims, every other leaf
-        comes whole; ``step`` (``"train"``, ``"prefill"`` or
-        ``"decode"``) adds ``in_proj`` to them where
-        :meth:`in_proj_exchange` says so."""
+        FFN tp is its expert-parallel map (``moe_mix``'s ``ep``), and an
+        encoder-decoder layer's cross attention runs under the mixer's
+        tp.  Under a tp the leaves of :data:`TP_MIX` (attention's of
+        :meth:`attn_keep`, the cross attention's ``wq`` and ``wo`` among
+        them) or the FFN's are the rank's ``model`` blocks gathered over
+        the data dims, every other leaf comes whole; ``step``
+        (``"train"``, ``"prefill"`` or ``"decode"``) adds ``in_proj`` to
+        them where :meth:`in_proj_exchange` says so."""
         mix, ffn = self.cfg.layer_sig(i)
+        return self._block(lp, where, mix, ffn, step)
+
+    def encoder_layer(self, lp: dict, j: int):
+        """Whisper encoder layer ``j``'s compute params from its local
+        blocks ``lp`` → (params, tp of its attention, tp of its dense
+        FFN), as :meth:`layer` gathers a decoder layer's."""
+        return self._block(lp, ("encoder", j), "attn", "dense", "train")
+
+    def _block(self, lp: dict, where: tuple, mix: str, ffn: str, step: str):
         tp_mix = self.tp if self.mixer_tp(mix) else None
         tp_ffn = self.tp if (ffn == "dense" or (
             self.tp is not None and expert_parallel(self.cfg, self.tp.size))
         ) else None
-        keep_mix = TP_MIX[mix]
-        if mix == "attn" and tp_mix is not None and (
-                self.cfg.n_kv_heads % self.tp.size):
-            keep_mix = ("wq", "wo")             # wk, wv whole: KV replicated
+        keeps = {"mix": TP_MIX.get(mix, ()),
+                 "ffn": TP_FFN if ffn == "dense" else EP_FFN}
+        if tp_mix is not None and mix == "attn":
+            keeps["mix"] = self.attn_keep()
+            # cross wk, wv make every KV head's cross K/V: whole
+            keeps["cross"] = tuple(k for k in keeps["mix"]
+                                   if k in ("wq", "wo"))
         if self.in_proj_exchange(mix, step):
-            keep_mix = keep_mix + ("in_proj",)
+            keeps["mix"] = keeps["mix"] + ("in_proj",)
         out = {}
         for part, sub in lp.items():
-            tp = {"mix": tp_mix, "ffn": tp_ffn}.get(part)
-            keep = {"mix": keep_mix,
-                    "ffn": TP_FFN if ffn == "dense" else EP_FFN}.get(part, ())
+            tp = {"mix": tp_mix, "ffn": tp_ffn, "cross": tp_mix}.get(part)
+            keep = keeps.get(part, ())
             out[part] = {}
             for name, t in sub.items():
                 at = where + (part, name)
@@ -295,12 +346,12 @@ class Layout:
     def top(self, params: dict) -> dict:
         """The params outside the layer stacks for compute: ``embed`` /
         ``unembed`` as this rank's vocabulary rows gathered over the data
-        dims, the encoder and every other leaf whole; ``prefix`` and
-        ``body`` stay local (:meth:`layer` gathers them block by
-        block)."""
+        dims, every other leaf whole; ``prefix``, ``body`` and
+        ``encoder`` stay local (:meth:`layer` and :meth:`encoder_layer`
+        gather them layer by layer)."""
         out = {}
         for k, v in params.items():
-            if k in ("prefix", "body"):
+            if k in ("prefix", "body", "encoder"):
                 out[k] = v
             elif k in ("embed", "unembed"):
                 out[k] = self.data_whole(v, (k,))

@@ -42,40 +42,46 @@ def qkv_proj(params: dict, x: torch.Tensor, cfg,
     """x: (B,S,D) → q (B,S,H,hd), k/v (B,S,KV,hd), rope applied.
 
     Under ``tp`` (``distributed.parallel.TensorParallel``; x has passed
-    ``tp.copy_in``) ``wq`` holds the columns of the rank's ``H/|model|``
-    query heads ``[q0, q0 + Hl)``, and q, k, v are those heads' and the
-    KV heads ``[k0, k1)`` they read (query head h reads KV head h // G):
-    ``wk`` and ``wv`` hold the KV heads' columns where ``KV`` splits over
-    ``model`` too, else they come whole (``KV·hd`` wide) and pass
-    ``tp.copy_in`` before this cuts the KV heads' columns, so the ranks
-    that share a KV head each return part of its gradient and the SUM
-    adds them.  The biases come whole and are cut the same way.  Where a
+    ``tp.copy_in``) q, k, v are those of the rank's query heads ``[q0,
+    q0 + Hl)`` (``parallel.block``'s: ``⌈H/|model|⌉`` a rank, the last
+    short, some ranks none) and of the KV heads ``[k0, k1)`` they read
+    (query head h reads KV head h // G) (:func:`rank_heads`).  ``wq``
+    holds the query heads' columns where ``H`` splits evenly over
+    ``model``, else it comes whole (``H·hd`` wide); ``wk`` and ``wv`` hold
+    the KV heads' columns where ``KV`` splits evenly too, else they come
+    whole (``KV·hd`` wide).  A leaf that comes whole passes
+    ``tp.copy_in`` before this cuts the rank's heads' columns
+    (:func:`_rank_cols`), so each rank returns its part of the gradient
+    (the ranks that share a KV head each part of it) and the SUM adds
+    them.  The biases come whole and are cut the same way.  Where a
     rank's query heads do not read their KV heads in groups of one size
     (``Hl`` and ``G`` divide neither the other), k and v are repeated to
-    one KV head a query head."""
+    one KV head a query head.  A rank with no heads returns q, k, v of
+    none (every shape fixed by the mesh), still through the same
+    products and collectives as the other ranks."""
     B, S, _ = x.shape
     HD = cfg.head_dim
     w = {n: params[n] for n in ("wq", "wk", "wv")}
     if cfg.attn.qkv_bias:
         w.update((n, params[n]) for n in ("bq", "bk", "bv"))
+    nq, nkv, read = cfg.n_heads, cfg.n_kv_heads, None
     if tp is not None:
-        q0, Hl, k0, k1, read = rank_heads(cfg, tp)
-        kv = slice(k0 * HD, k1 * HD)
-        cut = {"bq": slice(q0 * HD, (q0 + Hl) * HD), "bk": kv, "bv": kv}
-        if params["wk"].shape[-1] == cfg.n_kv_heads * HD:     # came whole
-            cut.update(wk=kv, wv=kv)
-        for n, cols in cut.items():
-            if n in w:
-                w[n] = tp.copy_in(w[n])[..., cols]
+        q0, nq, k0, k1, read = rank_heads(cfg, tp)
+        nkv = k1 - k0
+        heads = {"q": (q0, q0 + nq, cfg.n_heads),
+                 "k": (k0, k1, cfg.n_kv_heads),
+                 "v": (k0, k1, cfg.n_kv_heads)}
+        for n in tuple(w):
+            w[n] = _rank_cols(tp, w[n], *heads[n[1]], HD)
     q = x @ w["wq"]
     k = x @ w["wk"]
     v = x @ w["wv"]
     if cfg.attn.qkv_bias:
         q, k, v = q + w["bq"], k + w["bk"], v + w["bv"]
-    q = q.reshape(B, S, -1, HD)
-    k = k.reshape(B, S, -1, HD)
-    v = v.reshape(B, S, -1, HD)
-    if tp is not None and read is not None:
+    q = q.reshape(B, S, nq, HD)
+    k = k.reshape(B, S, nkv, HD)
+    v = v.reshape(B, S, nkv, HD)
+    if read is not None:
         k, v = _per_query_head(k, v, read)
     if cfg.attn.rope and positions is not None:
         q = apply_rope(q, positions, cfg.attn.rope_theta)
@@ -88,16 +94,44 @@ def rank_heads(cfg, tp) -> tuple:
     heads ``Hl``, KV heads ``[k0, k1)`` they read, and for each query head
     the index of its KV head among those, or None where the rank's query
     heads read them in groups of one size: ``Hl`` and ``G`` divide one
-    another)."""
+    another).  The query heads are the rank's block of ``H`` as
+    ``tp.block`` splits it (``⌈H/|model|⌉``, the last blocks short, some
+    empty); a rank with none has ``Hl = 0`` and an empty KV range."""
     G = cfg.n_heads // cfg.n_kv_heads
-    Hl = cfg.n_heads // tp.size
-    q0 = tp.index * Hl
-    k0, k1 = q0 // G, (q0 + Hl - 1) // G + 1
+    q0, q1 = tp.block(cfg.n_heads)
+    Hl = q1 - q0
+    if Hl == 0:
+        return q0, 0, q0 // G, q0 // G, None
+    k0, k1 = q0 // G, (q1 - 1) // G + 1
     read = [(q0 + j) // G - k0 for j in range(Hl)]
     KVl = k1 - k0
     if Hl % KVl == 0 and read == [j // (Hl // KVl) for j in range(Hl)]:
         read = None
     return q0, Hl, k0, k1, read
+
+
+def _rank_cols(tp, w, h0: int, h1: int, heads: int, hd: int):
+    """A projection's (or bias's) columns of heads ``[h0, h1)``: ``w``
+    itself where it holds those already (the stored block of a leaf
+    whose heads split evenly), else, where it came whole (``heads·hd``
+    wide), cut after ``tp.copy_in``."""
+    if w.shape[-1] != heads * hd:
+        return w
+    return tp.copy_in(w)[..., h0 * hd:h1 * hd]
+
+
+def out_proj(o: torch.Tensor, wo: torch.Tensor, cfg, tp=None):
+    """Attention's output projection: o (..., heads, hd) → (..., D).
+    Under ``tp`` o holds the rank's query heads and meets ``wo``'s rows
+    of them (its stored block, or cut from a whole ``wo`` by
+    ``tp.cut``), the partial products summed over ``model`` by
+    ``tp.reduce_product`` (a rank with no heads adds 0)."""
+    o = o.flatten(-2)
+    if tp is None:
+        return o @ wo
+    if wo.shape[0] == cfg.n_heads * cfg.head_dim:         # came whole
+        wo = tp.cut(wo, 0, cfg.head_dim)
+    return tp.reduce_product(o, wo)
 
 
 def _per_query_head(k, v, read):
@@ -109,7 +143,8 @@ def _per_query_head(k, v, read):
 def serving_qkv(params: dict, x: torch.Tensor, cfg,
                 positions: torch.Tensor | None, tp):
     """Serving under ``tp``: x (B, S, D) → q, k, v of the rank's heads as
-    :func:`qkv_proj` gives them, and the fused K/V of *every* KV head
+    :func:`qkv_proj` gives them (``wq`` its stored block, or whole and
+    cut to the rank's heads), and the fused K/V of *every* KV head
     (B, S, 2·KV, hd, :func:`fuse_kv`) for the paged cache, whose pools
     split the sequence over ``model``, never the KV heads.  Where ``wk``
     and ``wv`` come whole (``KV`` does not split over ``model``), k and
@@ -118,27 +153,27 @@ def serving_qkv(params: dict, x: torch.Tensor, cfg,
     all-gathered over ``model`` (``tp.gather``).  No gradient flows
     through it."""
     B, S, _ = x.shape
-    HD = cfg.head_dim
+    H, KV, HD = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     q0, Hl, k0, k1, read = rank_heads(cfg, tp)
     bias = cfg.attn.qkv_bias
 
-    def proj(name, cols=slice(None), rope=True):
-        t = x @ params[name]
+    def proj(name, h0, h1, heads, rope=True):
+        w = _rank_cols(tp, params[name], h0, h1, heads, HD)
+        t = x @ w
         if bias:
-            t = t + params["b" + name[1]][cols]
-        t = t.reshape(B, S, -1, HD)
+            t = t + params["b" + name[1]][h0 * HD:h1 * HD]
+        t = t.reshape(B, S, w.shape[-1] // HD, HD)
         if rope and cfg.attn.rope and positions is not None:
             t = apply_rope(t, positions, cfg.attn.rope_theta)
         return t
 
-    q = proj("wq", slice(q0 * HD, (q0 + Hl) * HD))
-    if params["wk"].shape[-1] == cfg.n_kv_heads * HD:         # came whole
-        k, v = proj("wk"), proj("wv", rope=False)
+    q = proj("wq", q0, q0 + Hl, H)
+    if params["wk"].shape[-1] == KV * HD:                     # came whole
+        k, v = proj("wk", 0, KV, KV), proj("wv", 0, KV, KV, rope=False)
         kv = fuse_kv(k, v)
         k, v = k[:, :, k0:k1], v[:, :, k0:k1]
     else:
-        cols = slice(k0 * HD, k1 * HD)
-        k, v = proj("wk", cols), proj("wv", cols, rope=False)
+        k, v = proj("wk", k0, k1, KV), proj("wv", k0, k1, KV, rope=False)
         kv = tp.gather(fuse_kv(k, v), 2)
     if read is not None:
         k, v = _per_query_head(k, v, read)
@@ -152,7 +187,7 @@ def direct_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """q: (B,Sq,H,hd); k,v: (B,Sk,KV,hd). GQA by head grouping."""
     B, Sq, H, hd = q.shape
     KV, Sk = k.shape[2], k.shape[1]
-    G = H // KV
+    G = _groups(H, KV)
     qf = q.reshape(B, Sq, KV, G, hd).float()
     scores = torch.einsum("bqkgd,bskd->bkgqs", qf, k.float()) / math.sqrt(hd)
     qpos = torch.arange(Sq, device=q.device) + q_offset
@@ -172,6 +207,13 @@ def direct_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 #: queries are processed in blocks of this many rows so the live
 #: (B, KV, G, q_block, chunk) score tile stays bounded, in both directions
 Q_BLOCK = 2048
+
+
+def _groups(H: int, KV: int) -> int:
+    """Query heads a KV head: ``H // KV``, and 1 for a tensor-parallel
+    rank with no heads (``H = KV = 0``), whose attention is of empty
+    tensors."""
+    return H // KV if KV else 1
 
 
 def _q_blocks(Sq: int) -> int:
@@ -254,7 +296,7 @@ def _chunked_fwd(q, k, v, causal, window, q_offset, chunk):
 def _chunked_fwd_body(q, k, v, causal, window, q_offset, chunk):
     B, Sq, H, hd = q.shape
     Sk, KV = k.shape[1], k.shape[2]
-    G = H // KV
+    G = _groups(H, KV)
     qf = q.reshape(B, Sq, KV, G, hd).float() / math.sqrt(hd)
     qpos = torch.arange(Sq, device=q.device) + q_offset
     m = torch.full((B, KV, G, Sq), NEG_INF, dtype=torch.float32,
@@ -309,7 +351,7 @@ def _chunked_bwd_body(causal, window, q_offset, chunk, res, dout, q_base=0):
     q, k, v, out, lse = res
     B, Sq, H, hd = q.shape
     Sk, KV = k.shape[1], k.shape[2]
-    G = H // KV
+    G = _groups(H, KV)
     scale = hd ** -0.5
     qf = q.reshape(B, Sq, KV, G, hd).float()
     dof = dout.reshape(B, Sq, KV, G, hd).float()
@@ -408,44 +450,57 @@ IMPLS = ("direct", "chunked", "kernel")
 
 
 def attn_layer(params: dict, x: torch.Tensor, positions: torch.Tensor, cfg,
-               *, impl: str = "chunked", tp=None) -> torch.Tensor:
-    """Pre-norm residual causal attention block over (B, S, D).  With
-    ``tp`` (``distributed.parallel.TensorParallel``) the rank computes
-    its ``H/|model|`` query heads and the KV heads they read
-    (:func:`qkv_proj`) and ``wo`` is its heads' row block: the normed
-    input passes ``tp.copy_in``, the partial output is summed by
-    ``tp.reduce_product``."""
+               *, impl: str = "chunked", tp=None,
+               causal: bool = True) -> torch.Tensor:
+    """Pre-norm residual attention block over (B, S, D): causal (within
+    the config's window), or with ``causal=False`` over every position
+    and no window (whisper's encoder, whose ``positions`` are None: no
+    rope).  With ``tp`` (``distributed.parallel.TensorParallel``) the rank
+    computes its block of query heads and the KV heads they read
+    (:func:`qkv_proj`) and ``wo``'s rows of its heads (:func:`out_proj`):
+    the normed input passes ``tp.copy_in``, the partial output is summed
+    by ``tp.reduce_product``."""
     h = rms_norm(x, params["norm"], cfg.norm_eps)
     if tp is not None:
         h = tp.copy_in(h)
     q, k, v = qkv_proj(params, h, cfg, positions, tp)
-    w = cfg.attn.window
+    w = cfg.attn.window if causal else None
     if impl == "direct":
-        o = direct_attention(q, k, v, causal=True, window=w)
+        o = direct_attention(q, k, v, causal=causal, window=w)
     elif impl == "chunked":
-        o = chunked_attention(q, k, v, causal=True, window=w)
+        o = chunked_attention(q, k, v, causal=causal, window=w)
     elif impl == "kernel":
         from repro_torch.kernels.flash_attention import ops as fa_ops
-        o = fa_ops.flash_attention(q, k, v, causal=True, window=w)
+        o = fa_ops.flash_attention(q, k, v, causal=causal, window=w)
     else:
         raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
-    B, S, H, hd = o.shape
-    o = o.reshape(B, S, H * hd)
-    return x + (o @ params["wo"] if tp is None
-                else tp.reduce_product(o, params["wo"]))
+    return x + out_proj(o, params["wo"], cfg, tp)
 
 
-def cross_attn_layer(params: dict, x: torch.Tensor, enc_kv: tuple, cfg
-                     ) -> torch.Tensor:
+def cross_attn_layer(params: dict, x: torch.Tensor, enc_kv: tuple, cfg,
+                     tp=None) -> torch.Tensor:
     """Encoder-decoder cross attention (whisper) over precomputed encoder
-    keys and values: pre-norm residual, non-causal, no rope."""
+    keys and values: pre-norm residual, non-causal, no rope.  With ``tp``
+    the rank computes its block of query heads (``wq``'s stored block, or
+    whole and cut: :func:`_rank_cols`) against the KV heads they read,
+    cut from the whole ``enc_kv`` after ``tp.copy_in`` (the cross K/V of
+    every KV head, as the decode state holds it), and sums ``wo``'s row
+    block over ``model`` (:func:`out_proj`)."""
     h = rms_norm(x, params["norm"], cfg.norm_eps)
     B, S, _ = h.shape
     H, HD = cfg.n_heads, cfg.head_dim
-    q = (h @ params["wq"]).reshape(B, S, H, HD)
     k, v = enc_kv
+    wq, nq = params["wq"], H
+    if tp is not None:
+        h = tp.copy_in(h)
+        q0, nq, k0, k1, read = rank_heads(cfg, tp)
+        wq = _rank_cols(tp, wq, q0, q0 + nq, H, HD)
+        k, v = (tp.copy_in(t)[:, :, k0:k1] for t in (k, v))
+        if read is not None:
+            k, v = _per_query_head(k, v, read)
+    q = (h @ wq).reshape(B, S, nq, HD)
     o = chunked_attention(q, k, v, causal=False)
-    return x + o.reshape(B, S, H * HD) @ params["wo"]
+    return x + out_proj(o, params["wo"], cfg, tp)
 
 
 def encode_cross_kv(params: dict, enc_out: torch.Tensor, cfg) -> tuple:

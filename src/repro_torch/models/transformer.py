@@ -64,11 +64,16 @@ takes ``page_impl="sp"`` or ``"sp_opt"`` (and only those), and
   recurrent states, the logits) is the rank's rows over ``batch_axes``
   (``collectives.local_state(layout=)``).  Each layer gathers its
   data-split leaves just in time (``Layout.layer``, under
-  ``torch.no_grad()``); every mixer whose heads or channels split over
-  ``model`` and the dense FFN compute only the rank's heads, channels or
-  columns, MoE layers run expert-parallel, and every other leaf (the
-  frontends, whisper's encoder and cross attention, a mixer whose heads
-  do not split) is gathered whole.  The paged pools hold every KV head
+  ``torch.no_grad()``); attention (whatever its head count: each rank a
+  block of ``⌈H/|model|⌉`` query heads or fewer), whisper's encoder and
+  cross attention, every other mixer whose heads or channels split
+  evenly over ``model`` and the dense FFN compute only the rank's heads,
+  channels or columns, MoE layers run expert-parallel, and every other
+  leaf (the frontends, an MLA, RWKV-6 or Mamba mixer whose heads or
+  channels do not split) is gathered whole.  Whisper's encoder runs on
+  the rank's batch rows, its layers gathered one by one like the
+  decoder's, and its cross K/V state holds every KV head (computed whole
+  in prefill; decode gathers no cross ``wk``/``wv``).  The paged pools hold every KV head
   and split the sequence: attention's K and V for the cache are whole
   or gathered over ``model`` (``attention.serving_qkv``), the SP decode
   takes every query head (gathered over ``model``) and its output's
@@ -103,9 +108,10 @@ an MoE layer's tokens in that many groups of the whole token stream
 **Training on a mesh** passes a ``layout`` (``distributed.parallel.
 Layout``) to :func:`loss_fn` and :func:`forward_hidden`: ``params`` are
 then the rank's blocks under ``param_specs`` and the batch its rows.
-Each layer gathers its data-sharded leaves just in time, every mixer
-whose heads or channels split over ``model`` and the dense FFN run
-tensor-parallel and MoE layers expert-parallel (``distributed/
+Each layer (whisper's encoder layers too) gathers its data-sharded
+leaves just in time, attention and its cross attention, every other
+mixer whose heads or channels split evenly over ``model`` and the dense
+FFN run tensor-parallel and MoE layers expert-parallel (``distributed/
 parallel.py``), every other leaf runs whole, the loss is vocab-parallel
 and normalised by the global label count, and MoE layers route the
 reference's groups of the global token stream; the result is the rank's
@@ -690,18 +696,16 @@ def _decode_step(params, cfg: ModelConfig, state: dict, tokens, *,
             q, _, _, kv = _attn_qkv(lp["mix"], h, cfg, positions, tp)
             drop_write(st["kv"][a], targets, kv[:, 0])
             if tp is not None:          # the SP decode takes every head
-                q = tp.gather(q, 2)
+                q = tp.gather(q, 2, cfg.n_heads)
             o = _paged_attn(q[:, 0], st["kv"][a], st["tables"], pos + 1,
                             window=cfg.attn.window, **sp)
-            if tp is None:
-                x = x + o.reshape(B, -1) @ lp["mix"]["wo"]
-            else:
-                x = x + tp.reduce_product(tp.cut(o, 1).reshape(B, -1),
-                                          lp["mix"]["wo"])
+            if tp is not None:          # back to the rank's heads
+                o = tp.cut(o, 1)
+            x = x + attn_mod.out_proj(o, lp["mix"]["wo"], cfg, tp)
         if cfg.enc_dec:
             x = attn_mod.cross_attn_layer(
                 lp["cross"], x[:, None],
-                (st["cross_k"][i], st["cross_v"][i]), cfg)[:, 0]
+                (st["cross_k"][i], st["cross_v"][i]), cfg, tp)[:, 0]
         x = _ffn_aux(lp, x[:, None], cfg, i, moe_groups, tp_ffn, dp)[0][:, 0]
         lp = None                   # drop the layer before the next gathers
     h = rms_norm(x, params["final_norm"], cfg.norm_eps)
@@ -754,7 +758,8 @@ def _prefill(params, cfg: ModelConfig, tokens, state, *, impl, enc_frames,
     B = tokens.shape[0]
     bs = BLOCK_SIZE
     st = dict(state)
-    enc_out = encode(params, cfg, enc_frames) if cfg.enc_dec else None
+    enc_out = (encode(params, cfg, enc_frames, layout) if cfg.enc_dec
+               else None)
     x = embed_inputs(params, cfg, tokens, patches, mesh=mesh, layout=layout)
     S = x.shape[1]                                       # S_tot
     positions = torch.arange(S, device=tokens.device)[None].expand(B, S)
@@ -811,13 +816,11 @@ def _prefill(params, cfg: ModelConfig, tokens, state, *, impl, enc_frames,
             q, k, v, kv = _attn_qkv(lp["mix"], h, cfg, positions, tp)
             o = attn_mod.chunked_attention(q, k, v, causal=True,
                                            window=cfg.attn.window)
-            o = o.reshape(B, S, -1)
-            x = x + (o @ lp["mix"]["wo"] if tp is None
-                     else tp.reduce_product(o, lp["mix"]["wo"]))
+            x = x + attn_mod.out_proj(o, lp["mix"]["wo"], cfg, tp)
             scatter_seq(st["kv"][attn_ids.index(i)], kv)
         if cfg.enc_dec:
             kc, vc = attn_mod.encode_cross_kv(lp["cross"], enc_out, cfg)
-            x = attn_mod.cross_attn_layer(lp["cross"], x, (kc, vc), cfg)
+            x = attn_mod.cross_attn_layer(lp["cross"], x, (kc, vc), cfg, tp)
             st["cross_k"][i] = kc
             st["cross_v"][i] = vc
         x = _ffn_aux(lp, x, cfg, i, moe_groups, tp_ffn, dp)[0]
@@ -950,18 +953,24 @@ def ragged_step(params, cfg: ModelConfig, state: dict, tokens: torch.Tensor,
 
 
 # ===================================================== full-sequence forward
-def encode(params, cfg: ModelConfig, frames: torch.Tensor) -> torch.Tensor:
+def encode(params, cfg: ModelConfig, frames: torch.Tensor,
+           layout=None) -> torch.Tensor:
     """Whisper encoder: frames (B, enc_len, D) → enc_out (B, enc_len, D).
-    Non-causal ``chunked_attention`` with no rope, as in the reference."""
+    Non-causal ``chunked_attention`` with no rope, as in the reference.
+    With a ``layout`` (``distributed.parallel.Layout``) ``params`` are as
+    ``Layout.top`` gives them (the encoder's layers the rank's blocks)
+    and ``frames`` the rank's rows: each layer is gathered just in time
+    (``Layout.encoder_layer``), its attention computes the rank's query
+    heads and its dense FFN the rank's columns."""
     x = audio_frames_to_embeddings(params, frames)
     x = x + params["enc_pos"][None, :x.shape[1]]
-    for lp in params["encoder"]:
-        h = rms_norm(x, lp["mix"]["norm"], cfg.norm_eps)
-        q, k, v = attn_mod.qkv_proj(lp["mix"], h, cfg, None)
-        o = attn_mod.chunked_attention(q, k, v, causal=False)
-        B, S, H, hd = o.shape
-        x = x + o.reshape(B, S, H * hd) @ lp["mix"]["wo"]
-        x = dense_ffn(lp["ffn"], x, cfg.norm_eps)
+    for j, lp in enumerate(params["encoder"]):
+        tp = tp_ffn = None
+        if layout is not None:
+            lp, tp, tp_ffn = layout.encoder_layer(lp, j)
+        x = attn_mod.attn_layer(lp["mix"], x, None, cfg, tp=tp, causal=False)
+        x = dense_ffn(lp["ffn"], x, cfg.norm_eps, tp_ffn)
+        lp = None                   # drop the layer before the next gathers
     return rms_norm(x, params["final_norm"], cfg.norm_eps)
 
 
@@ -1002,7 +1011,7 @@ def _apply_layer(lp, x, positions, cfg: ModelConfig, i: int, *, impl,
         x = rwkv_mod.rwkv6_layer(lp["mix"], x, cfg, impl=impl, tp=tp[0])
     if cfg.enc_dec and enc_out is not None:
         enc_kv = attn_mod.encode_cross_kv(lp["cross"], enc_out, cfg)
-        x = attn_mod.cross_attn_layer(lp["cross"], x, enc_kv, cfg)
+        x = attn_mod.cross_attn_layer(lp["cross"], x, enc_kv, cfg, tp[0])
     return _ffn_aux(lp, x, cfg, i, moe_groups, tp[1], dp)
 
 
@@ -1131,7 +1140,8 @@ def loss_fn(params, cfg: ModelConfig, batch: dict, *,
     if layout is not None:
         mesh = layout.mesh
         params = layout.top(params)
-    enc_out = encode(params, cfg, batch["frames"]) if cfg.enc_dec else None
+    enc_out = (encode(params, cfg, batch["frames"], layout) if cfg.enc_dec
+               else None)
     x = embed_inputs(params, cfg, batch["tokens"], batch.get("patches"),
                      mesh=mesh, layout=layout)
     hidden, aux = forward_hidden(params, cfg, x, impl=impl, enc_out=enc_out,

@@ -5,12 +5,13 @@ No JAX here.
     python tests/_torch_dryrun_ranks.py fake 0 1 WORKDIR
 
 ``tests/test_torch_dryrun.py`` writes the cells into
-``WORKDIR/cells.json`` (a smoke config, a cut shape).  ``real``: one of
+``WORKDIR/cells.json`` (a smoke config or a dict of config fields, a cut
+shape, and a (data, model) mesh, (2, 2) unless the cell names one).  ``real``: one of
 WORLD gloo CPU ranks (a file store under WORKDIR) runs each cell's
 ``build_cell`` step on real tensors under ``op_analysis.analyze``.
 ``fake``: one process stands as rank 0 of a fake process group of 4
 ranks and runs the same cells through ``run_cell`` on meta tensors.
-Both build a (data 2, model 2) host mesh.  Rank 0 writes
+Both build each cell's host mesh.  Rank 0 writes
 ``<mode>.json``: per cell its record, or the traceback.
 """
 
@@ -29,12 +30,24 @@ from repro_torch.configs import ShapeSpec, get_smoke
 from repro_torch.distributed import collectives as coll
 from repro_torch.launch import dryrun
 from repro_torch.launch.mesh import make_host_mesh
+from repro_torch.models.config import AttnConfig, ModelConfig
 
 MESH = (2, 2)
 
 
+def config(c: dict) -> ModelConfig:
+    """The cell's ``cfg`` (ModelConfig fields, ``attn`` a dict of
+    AttnConfig's), or its arch's smoke config."""
+    if "cfg" not in c:
+        return get_smoke(c["arch"])
+    spec = dict(c["cfg"])
+    if isinstance(spec.get("attn"), dict):
+        spec["attn"] = AttnConfig(**spec["attn"])
+    return ModelConfig(**spec)
+
+
 def cell_kw(c: dict, device: str = "cpu") -> dict:
-    return dict(cfg=get_smoke(c["arch"]), shape=ShapeSpec(**c["shape"]),
+    return dict(cfg=config(c), shape=ShapeSpec(**c["shape"]),
                 device=device)
 
 
@@ -62,10 +75,15 @@ def main() -> None:
             world_size=world, timeout=timedelta(seconds=120))
     else:
         dryrun.fake_world(math.prod(MESH))
-    mesh = make_host_mesh(*MESH, device_type="cpu")
-    coll.make_groups(mesh)
+    meshes = {}
+    for c in cells.values():                 # every rank builds each once
+        shape = tuple(c.get("mesh", MESH))
+        if shape not in meshes:
+            meshes[shape] = make_host_mesh(*shape, device_type="cpu")
+            coll.make_groups(meshes[shape])
     out = {}
     for name, c in cells.items():
+        mesh = meshes[tuple(c.get("mesh", MESH))]
         try:
             out[name] = {"ok": True,
                          "value": (real if mode == "real" else fake)(c, mesh)}

@@ -47,13 +47,19 @@ from repro_torch.distributed import parallel, sharding
 from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.models import attention, mla
 from repro_torch.models import transformer as tfm
-from repro_torch.models.config import ModelConfig
+from repro_torch.models.config import AttnConfig, ModelConfig
 from repro_torch.models.layers import rms_norm
 
 
 def config(spec) -> ModelConfig:
-    """A dict of ModelConfig fields, or the name of a smoke config."""
-    return ModelConfig(**spec) if isinstance(spec, dict) else get_smoke(spec)
+    """A dict of ModelConfig fields (``attn`` a dict of AttnConfig's), or
+    the name of a smoke config."""
+    if isinstance(spec, dict):
+        spec = dict(spec)
+        if isinstance(spec.get("attn"), dict):
+            spec["attn"] = AttnConfig(**spec["attn"])
+        return ModelConfig(**spec)
+    return get_smoke(spec)
 
 
 def t(a) -> torch.Tensor:

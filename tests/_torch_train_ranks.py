@@ -19,11 +19,16 @@ runs every case:
   checkpoints' leaves;
 * ``psum``: ``compressed_psum`` of this rank's gradients over "data";
 * ``pipeline``: ``pipeline_apply`` on a ("pipe",) mesh of the four ranks;
-* ``layout``: the shapes a rank holds of one layer and computes with,
-  and the bytes its mixer's and its FFN's gathers move.
+* ``layout``: the shapes a rank holds of one layer (and of an
+  encoder-decoder model's first encoder layer) and computes with, and
+  the bytes its mixer's and its FFN's gathers move;
+* ``serve``: ``tests/_torch_serve_ranks.py``'s case of that name
+  (serving from the rank's blocks), for a module that trains and serves
+  on one start of the ranks.
 
-Each rank writes ``result_<rank>.pkl``: per case its values (``psum``
-per rank, the rest from rank 0) or the traceback.  A case that raises on
+Each rank writes ``result_<rank>.pkl``: per case its values (``psum``,
+``layout`` and ``serve`` per rank, the rest from rank 0) or the
+traceback.  A case that raises on
 one rank alone leaves the others in a collective; the parent's timeout
 then stops them.
 """
@@ -45,7 +50,7 @@ from repro_torch.configs import get_smoke
 from repro_torch.distributed.elastic import assemble, shard_entries
 from repro_torch.distributed.pipeline import pipeline_apply
 from repro_torch.launch.mesh import make_host_mesh
-from repro_torch.models.config import ModelConfig
+from repro_torch.models.config import AttnConfig, ModelConfig
 from repro_torch.training import optimizer as topt
 from repro_torch.training import train_loop as ttl
 from repro_torch.training.checkpoint import CheckpointManager
@@ -54,8 +59,12 @@ from repro_torch.training.grad_compression import compressed_psum
 
 
 def config(spec) -> ModelConfig:
-    """A dict of ModelConfig fields, or the name of a smoke config."""
+    """A dict of ModelConfig fields (``attn`` a dict of AttnConfig's), or
+    the name of a smoke config."""
     if isinstance(spec, dict):
+        spec = dict(spec)
+        if isinstance(spec.get("attn"), dict):
+            spec["attn"] = AttnConfig(**spec["attn"])
         return ModelConfig(**spec)
     return get_smoke(spec)
 
@@ -172,10 +181,17 @@ def layout_case(c, mesh, work):
                        for k, v in coll.TRAFFIC.by_kind().items()}
     shapes = lambda tree: {p: {k: list(v.shape) for k, v in d.items()}
                            for p, d in tree.items()}
-    return {"held": shapes(lp), "compute": shapes(used),
-            "tp": [tp_mix is not None, tp_ffn is not None],
-            "mixer": computed, "mix_bytes": moved["mix"],
-            "ffn_bytes": moved["ffn"]}
+    out = {"held": shapes(lp), "compute": shapes(used),
+           "tp": [tp_mix is not None, tp_ffn is not None],
+           "mixer": computed, "mix_bytes": moved["mix"],
+           "ffn_bytes": moved["ffn"]}
+    if cfg.enc_dec:
+        enc, tp_enc, tp_enc_ffn = lay.encoder_layer(local["encoder"][0], 0)
+        out["encoder"] = {
+            "held": shapes(local["encoder"][0]), "compute": shapes(enc),
+            "tp": [tp_enc is not None, tp_enc_ffn is not None],
+            "mixer": mixer_shapes(cfg, "attn", enc["mix"], tp_enc)}
+    return out
 
 
 def mixer_shapes(cfg, mix, params, tp) -> dict:
@@ -202,8 +218,16 @@ def mixer_shapes(cfg, mix, params, tp) -> dict:
     return {k: list(v.shape) for k, v in out.items()}
 
 
+def serve_case(c, mesh, work):
+    from _torch_serve_ranks import serve_case as serve
+    return serve(c, mesh, work)
+
+
 RUNNERS = {"step": step_case, "train": train_case, "psum": psum_case,
-           "pipeline": pipeline_case, "layout": layout_case}
+           "pipeline": pipeline_case, "layout": layout_case,
+           "serve": serve_case}
+#: the kinds whose values every rank returns (the others: rank 0 alone)
+PER_RANK = ("psum", "layout", "serve")
 
 
 def main() -> None:
@@ -229,7 +253,7 @@ def main() -> None:
         try:
             value = RUNNERS[c["kind"]](c, meshes[shape], f"{work}/{name}")
             results[name] = {"ok": True, "value": value
-                             if rank == 0 or c["kind"] == "psum" else None}
+                             if rank == 0 or c["kind"] in PER_RANK else None}
         except Exception:
             results[name] = {"ok": False, "error": traceback.format_exc()}
     with open(f"{work}/result_{rank}.pkl", "wb") as f:

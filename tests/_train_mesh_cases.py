@@ -21,7 +21,9 @@ from repro.configs import deepseek_v2_236b as jdsv2
 from repro.configs import jamba_v0_1_52b as jjamba
 from repro.configs import qwen2_5_14b as jqwen
 from repro.configs import rwkv6_7b as jrwkv
+from repro.configs import whisper_small as jwhisper
 from repro.models import transformer as jtfm
+from repro.models.config import AttnConfig as JAttn
 from repro.models.config import ModelConfig as JCfg
 from repro.training import grad_compression as jgc
 from repro.training import optimizer as jopt
@@ -40,28 +42,50 @@ TINY = dict(name="tiny", n_layers=2, d_model=32, n_heads=4, n_kv_heads=2,
 #: heads do not align with (G 4: 6 heads a rank on 2, 3 on 4)
 GQA_ODD = dict(name="gqa-odd", n_layers=1, d_model=32, n_heads=12,
                n_kv_heads=3, d_ff=64, vocab=61, head_dim=8)
-#: config spec (a dict of fields, or a smoke config's arch id) → the
-#: reference's config
+#: attention whose query heads do not split evenly over 4 ranks: blocks
+#: of 3, 3, 3 and 1 heads (G 5: the second rank reads KV heads 0, 0 and
+#: 1, repeated to one a query head), with QKV biases
+GQA_UNEVEN = dict(name="gqa-uneven", n_layers=2, d_model=32, n_heads=10,
+                  n_kv_heads=2, d_ff=64, vocab=61, head_dim=8,
+                  attn=dict(qkv_bias=True))
+#: multi-head attention of 3 heads: on 4 ranks the last computes none
+MHA_EMPTY = dict(name="mha-empty", n_layers=2, d_model=24, n_heads=3,
+                 n_kv_heads=3, d_ff=48, vocab=61, head_dim=8)
+#: whisper's smoke config with 3 heads (encoder, decoder and cross
+#: attention): on 4 ranks the last computes none in any of them
+ENCDEC3 = dict(name="encdec3", n_layers=2, d_model=48, n_heads=3,
+               n_kv_heads=3, d_ff=96, vocab=61, head_dim=16, enc_dec=True,
+               enc_layers=2, enc_len=24, frontend="audio",
+               attn=dict(rope=False))
+#: config spec (a dict of fields, ``attn`` a dict of ``AttnConfig``'s; or a
+#: smoke config's arch id) → the reference's config
 CONFIGS = {"tiny": TINY, "deepseek-moe-16b": "deepseek-moe-16b",
            "jamba-v0.1-52b": "jamba-v0.1-52b", "rwkv6-7b": "rwkv6-7b",
            "deepseek-v2-236b": "deepseek-v2-236b",
-           "qwen2.5-14b": "qwen2.5-14b", "gqa-odd": GQA_ODD}
+           "qwen2.5-14b": "qwen2.5-14b", "gqa-odd": GQA_ODD,
+           "gqa-uneven": GQA_UNEVEN, "mha-empty": MHA_EMPTY,
+           "whisper-small": "whisper-small", "encdec3": ENCDEC3}
 SMOKE = {"deepseek-moe-16b": jdsm, "jamba-v0.1-52b": jjamba,
-         "rwkv6-7b": jrwkv, "deepseek-v2-236b": jdsv2, "qwen2.5-14b": jqwen}
+         "rwkv6-7b": jrwkv, "deepseek-v2-236b": jdsv2, "qwen2.5-14b": jqwen,
+         "whisper-small": jwhisper}
 LR = 1e-3
 B, S, STEPS = 8, 16, 3
 
 
 def jcfg(spec):
     if isinstance(spec, dict):
+        spec = dict(spec)
+        if isinstance(spec.get("attn"), dict):
+            spec["attn"] = JAttn(**spec["attn"])
         return JCfg(**spec)
     return SMOKE[spec].smoke()
 
 
-def batches(vocab: int, seed: int, n: int = STEPS) -> list:
+def batches(vocab: int, seed: int, n: int = STEPS, frames=None) -> list:
     """n global batches of (B, S); the labels are the next tokens with
     the last of every row and an uneven share of the first rows masked,
-    so the data ranks count unequal labels."""
+    so the data ranks count unequal labels.  ``frames`` (enc_len, D):
+    an encoder-decoder model's frames too, (B, enc_len, D) a batch."""
     rng = np.random.RandomState(seed)
     out = []
     for _ in range(n):
@@ -71,6 +95,8 @@ def batches(vocab: int, seed: int, n: int = STEPS) -> list:
         labels[0, :5] = -100
         labels[3, :2] = -100
         out.append({"tokens": toks, "labels": labels.astype(np.int32)})
+        if frames is not None:
+            out[-1]["frames"] = rng.randn(B, *frames).astype(np.float32)
     return out
 
 
@@ -86,7 +112,8 @@ def step_cases(name: str, spec, seed: int, *, groups=(1,),
     cfg = jcfg(spec)
     params = jax.tree.map(np.asarray, jtfm.init_params(
         jax.random.PRNGKey(seed), cfg, jnp.float32))
-    data = batches(cfg.vocab, seed)
+    data = batches(cfg.vocab, seed, frames=(cfg.enc_len, cfg.d_model)
+                   if cfg.enc_dec else None)
     cases = {}
     for g in groups:
         runs = {"steps": (dict(moe_groups=g), data),

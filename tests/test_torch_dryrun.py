@@ -4,7 +4,9 @@ against the same steps run for real, and its records.
 The cells of the granite-3-8b and DeepSeek-MoE smoke configs (a train,
 a prefill and a decode cell each, cut shapes) and RWKV-6's (prefill and
 decode: a decode state with no pool) run on a (data 2, model 2)
-mesh twice, each in its own processes (``tests/_torch_dryrun_ranks.py``):
+mesh, and those of ``GQA_UNEVEN`` (10 query heads in blocks of 3, 3, 3
+and 1, whole ``wq``/``wo`` cut to them) on (data 1, model 4), twice,
+each in its own processes (``tests/_torch_dryrun_ranks.py``):
 on 4 gloo CPU ranks with real tensors, and as rank 0 of a 4-rank fake
 process group on meta tensors.  Rank 0's collective calls, bytes and
 payload by kind, its FLOPs, HBM bytes and MemTracker's memory peak must
@@ -34,6 +36,7 @@ torch = pytest.importorskip("torch")
 from torch.utils._python_dispatch import TorchDispatchMode  # noqa: E402
 
 from _torch_dist_ranks import spawn  # noqa: E402
+from _train_mesh_cases import GQA_UNEVEN  # noqa: E402
 from repro.launch.hlo_analysis import _wire_factor  # noqa: E402
 from repro_torch.configs import ARCH_IDS, get_config  # noqa: E402
 from repro_torch.configs import SHAPES as PRODUCTION_SHAPES  # noqa: E402
@@ -59,6 +62,10 @@ CELLS = {f"{arch}-{kind}": {"arch": arch, "shape": shape}
          for arch in ("granite-3-8b", "deepseek-moe-16b", "rwkv6-7b")
          for kind, shape in SHAPES.items()
          if arch != "rwkv6-7b" or kind != "train"}
+CELLS.update({f"gqa-uneven-{kind}": {"arch": "gqa-uneven",
+                                     "cfg": GQA_UNEVEN, "mesh": [1, 4],
+                                     "shape": shape}
+              for kind, shape in SHAPES.items()})
 
 #: the record keys of the reference's dry run that the port keeps
 #: (``fits_hbm_80g`` for its ``fits_hbm_16g``; no XLA:CPU artifact)

@@ -253,10 +253,11 @@ def test_decode_step_gathers_only_its_blocks(ranks, name):
     exactly each layer's model blocks of the attention and FFN leaves and,
     untied (``GQA_ODD``), the unembedding's vocabulary rows (31 of 61);
     where KV does not split over ``model`` (``GQA_ODD``: 3 KV heads)
-    ``wk`` and ``wv`` come whole over all four ranks instead, as do
-    whisper's cross-attention ``wq`` and ``wo`` (its encoder, frontend
-    and cross ``wk``/``wv`` are prefill's alone: never gathered in
-    decode); over ``model`` move only the activations: the rank's query
+    ``wk`` and ``wv`` come whole over all four ranks instead; whisper's
+    cross-attention ``wq`` and ``wo`` are its 4 heads' blocks over
+    ``data``, as its self attention's (its encoder, frontend and cross
+    ``wk``/``wv`` are prefill's alone: never gathered in decode); over
+    ``model`` move only the activations: the rank's query
     heads, its KV heads' fused K/V where KV splits, and the logits'
     vocabulary columns (61 padded to 2 x 31)."""
     first, _, _ = ranks
@@ -279,9 +280,9 @@ def test_decode_step_gathers_only_its_blocks(ranks, name):
     if not kv_split:
         want[(0, 1, 2, 3)] = [2 * L, L * _layer_bytes(cfg, ("wk", "wv"), n,
                                                       False)]
-    if cfg.enc_dec:
-        want[(0, 1, 2, 3)] = [2 * L, L * _layer_bytes(cfg, ("wq", "wo"), n,
-                                                      False)]
+    if cfg.enc_dec:                     # the cross attention's blocks
+        want[(0, 2)][0] += 2 * L
+        want[(0, 2)][1] += L * _layer_bytes(cfg, ("wq", "wo"), n, True)
     assert gathers == want
 
 
