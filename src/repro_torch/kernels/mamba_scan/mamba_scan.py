@@ -84,7 +84,7 @@ def mamba_scan_fwd(dt: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
     if dt.device.type == "cpu":
         return ref.mamba_scan_ref(dt, A, B, C, x, h0)
     for name, t in (("A", A), ("h0", h0)):
-        _check(name, t, torch.float32, dt.device)
+        _check(name, t, (torch.float32,), dt.device)
     for name, t in (("dt", dt), ("B", B), ("C", C), ("x", x)):
         if t.device != dt.device or t.dtype != torch.float32:
             raise ValueError(f"{name} is {t.dtype} on {t.device}, the "

@@ -83,11 +83,11 @@ def mla_paged_ctx_fwd(q_lat: torch.Tensor, q_rope: torch.Tensor,
     dev = q_lat.device
     for name, t in (("q_lat", q_lat), ("q_rope", q_rope), ("c_pool", c_pool),
                     ("rope_pool", rope_pool)):
-        _check(name, t, torch.float32, dev)
+        _check(name, t, (torch.float32,), dev)
         if t.data_ptr() % 16:                # float4 and 16-byte copies
             raise ValueError(f"{name} is not 16-byte aligned")
-    _check("tables", tables, torch.int32, dev)
-    _check("lengths", lengths, torch.int32, dev)
+    _check("tables", tables, (torch.int32,), dev)
+    _check("lengths", lengths, (torch.int32,), dev)
     if rank % 8 or rank > _MAX_RANK or rope % 8 or rope > _MAX_ROPE:
         raise ValueError(f"rank {rank} / rope_hd {rope} unsupported: the "
                          f"kernel takes multiples of 8 up to {_MAX_RANK} / "

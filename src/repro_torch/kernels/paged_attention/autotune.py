@@ -1,11 +1,13 @@
 """Tuning cache and CUDA-event tuner for the fused paged-decode kernel.
 
-Keyed by the kernel-shape triple ``(heads, head_dim, bs)``; the engine
-and ``decode_step`` read the tuned ``buffer_depth`` through
-:func:`get_tuning`.  Without a recorded entry every key falls back to
-:data:`DEFAULT_BUFFER_DEPTH`, so two engines decode identical tokens
-whether or not anything was tuned (the depth never changes the kernel's
-output anyway).  :func:`autotune` times the kernel on the card at each
+Keyed by the kernel-shape triple ``(heads, head_dim, bs)`` and the
+pool's dtype (``dtype=``, float32 unless given: a bf16 page's copies
+are half as large, so it gets its own depth); the engine and
+``decode_step`` read the tuned ``buffer_depth`` through
+:func:`get_tuning` for their pool's dtype.  Without a recorded entry
+every key falls back to :data:`DEFAULT_BUFFER_DEPTH`, so two engines
+decode identical tokens whether or not anything was tuned (the depth
+never changes the kernel's output anyway).  :func:`autotune` times the kernel on the card at each
 depth with CUDA events and records the fastest.
 
 The reference's ``KernelCostModel`` is not carried over: it ranks depths
@@ -39,26 +41,31 @@ class KernelTuning:
     ms: dict | None = field(default=None, compare=False)
 
 
-_CACHE: dict[tuple[int, int, int], KernelTuning] = {}
+_CACHE: dict[tuple, KernelTuning] = {}
 
 
-def tuning_key(heads: int, head_dim: int, bs: int) -> tuple[int, int, int]:
-    return (int(heads), int(head_dim), int(bs))
+def tuning_key(heads: int, head_dim: int, bs: int, *,
+               dtype: torch.dtype = torch.float32) -> tuple:
+    """``(heads, head_dim, bs, dtype)``: the pool's dtype is part of the
+    key."""
+    return (int(heads), int(head_dim), int(bs), dtype)
 
 
-def get_tuning(heads: int, head_dim: int, bs: int) -> KernelTuning:
-    """The recorded entry for this shape, or the deterministic default."""
-    return _CACHE.get(tuning_key(heads, head_dim, bs),
+def get_tuning(heads: int, head_dim: int, bs: int, *,
+               dtype: torch.dtype = torch.float32) -> KernelTuning:
+    """The recorded entry for this shape and pool dtype, or the
+    deterministic default."""
+    return _CACHE.get(tuning_key(heads, head_dim, bs, dtype=dtype),
                       KernelTuning(block_size=int(bs),
                                    buffer_depth=DEFAULT_BUFFER_DEPTH))
 
 
-def set_tuning(heads: int, head_dim: int, bs: int,
-               tuning: KernelTuning) -> None:
+def set_tuning(heads: int, head_dim: int, bs: int, tuning: KernelTuning, *,
+               dtype: torch.dtype = torch.float32) -> None:
     if tuning.buffer_depth not in BUFFER_DEPTHS:
         raise ValueError(f"buffer_depth must be one of {BUFFER_DEPTHS}, "
                          f"got {tuning.buffer_depth}")
-    _CACHE[tuning_key(heads, head_dim, bs)] = tuning
+    _CACHE[tuning_key(heads, head_dim, bs, dtype=dtype)] = tuning
 
 
 def clear() -> None:
@@ -67,8 +74,8 @@ def clear() -> None:
 
 
 def autotune(heads: int, head_dim: int, bs: int, n_blocks: int, *,
-             batch: int, group: int, device="cuda",
-             reps: int = 20) -> KernelTuning:
+             batch: int, group: int, device="cuda", reps: int = 20,
+             dtype: torch.dtype = torch.float32) -> KernelTuning:
     """Time ``ops.paged_attention`` at every depth of
     :data:`BUFFER_DEPTHS` on the card and record the fastest.
 
@@ -76,7 +83,8 @@ def autotune(heads: int, head_dim: int, bs: int, n_blocks: int, *,
     ``(N, bs, 2·heads, head_dim)``, each of the ``batch`` slots owning
     ``n_blocks`` of them through a one-shard ``(1, batch, n_blocks)``
     table and seeing all ``n_blocks · bs`` tokens, with ``group`` query
-    heads per KV head.  Each depth is warmed up, then timed ``reps``
+    heads per KV head; the pool and the queries in ``dtype``, the entry
+    recorded under it.  Each depth is warmed up, then timed ``reps``
     times with CUDA events around one call; the median counts.  The
     entry's ``ms`` holds the medians.  Raises off a CUDA device: there
     is no modelled fallback."""
@@ -89,9 +97,9 @@ def autotune(heads: int, head_dim: int, bs: int, n_blocks: int, *,
     gen = torch.Generator(device=device).manual_seed(0)
     N = batch * n_blocks
     kv = torch.randn(N, bs, 2 * heads, head_dim, generator=gen,
-                     device=device)
+                     device=device).to(dtype)
     q = torch.randn(batch, heads * group, head_dim, generator=gen,
-                    device=device)
+                    device=device).to(dtype)
     tables = torch.arange(N, dtype=torch.int32, device=device).reshape(
         1, batch, n_blocks)
     lengths = torch.full((batch,), n_blocks * bs, dtype=torch.int32,
@@ -115,7 +123,7 @@ def autotune(heads: int, head_dim: int, bs: int, n_blocks: int, *,
         ms[depth] = statistics.median(times)
     tuning = KernelTuning(block_size=int(bs),
                           buffer_depth=min(ms, key=ms.get), ms=ms)
-    set_tuning(heads, head_dim, bs, tuning)
+    set_tuning(heads, head_dim, bs, tuning, dtype=dtype)
     return tuning
 
 

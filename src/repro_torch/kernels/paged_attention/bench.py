@@ -2,7 +2,8 @@
 
 Run from the root of a checkout on a machine with a CUDA device::
 
-    PYTHONPATH=src python -m repro_torch.kernels.paged_attention.bench
+    PYTHONPATH=src python -m repro_torch.kernels.paged_attention.bench \
+        [--dtype f32|bf16] [--q-dtype f32|bf16]
 
 It first compiles ``csrc/paged_attention.cu`` with ``-Xptxas -v`` and
 prints each kernel's registers and spills.  Then, at granite-3-8b's
@@ -18,14 +19,18 @@ attention shapes (KV 8, G 4, hd 128, bs 128, B 8, M 32), it times:
   and two of its rows alone: the decode row at 4095 (one query tile
   walking 4096 keys) and the 256-row chunk at 512.
 
-Each case is timed two ways with CUDA events (median of 20): one eager
-wrapper call, host work included, and one replay of a CUDA graph of the
-call, the device time of its launches.  The last line is one JSON object
-of the times.
+``--dtype`` is the pool's element type and ``--q-dtype`` the queries'
+(and the output's), each f32 unless given; the inputs are drawn in f32
+from the same seed and rounded to them.  Each case is timed two ways with
+CUDA events (median of 20): one eager wrapper call, host work included,
+and one replay of a CUDA graph of the call, the device time of its
+launches.  The last line is one JSON object of the times and the two
+dtypes.
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import os
 import statistics
@@ -44,6 +49,7 @@ SEED = 0
 #: is the decode row at 4095
 RAGGED_ROWS = ((0, 300, 0), (1, 200, 256), (2, 77, 1024), (3, 1, 1999),
                (4, 1, 0), (5, 1, 4095), (6, 256, 512))
+DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
 
 
 def ptxas_report(src: Path = Path(pa.__file__).parent / "csrc" /
@@ -91,10 +97,11 @@ def graph_ms(fn, reps: int = 20) -> float:
     return time_ms(graph.replay, reps)
 
 
-def decode_inputs(gen, dev):
+def decode_inputs(gen, dev, q_dtype, pool_dtype):
     N = B * M + 16
-    kv_pool = torch.randn(N, BS, 2 * KV, HD, generator=gen, device=dev)
-    q = torch.randn(B, KV, G, HD, generator=gen, device=dev)
+    kv_pool = torch.randn(N, BS, 2 * KV, HD, generator=gen,
+                          device=dev).to(pool_dtype)
+    q = torch.randn(B, KV, G, HD, generator=gen, device=dev).to(q_dtype)
     phys = torch.randperm(N, generator=gen, device=dev)[:B * M]
     tables = phys.reshape(B, M).to(torch.int32)
     lengths = torch.randint(1, M * BS + 1, (B,), generator=gen, device=dev,
@@ -105,9 +112,10 @@ def decode_inputs(gen, dev):
     return q, kv_pool, tables.reshape(1, B, M).contiguous(), lengths
 
 
-def ragged_inputs(gen, dev, rows):
+def ragged_inputs(gen, dev, rows, q_dtype, pool_dtype):
     N = B * M + 16
-    kv_pool = torch.randn(N, BS, 2 * KV, HD, generator=gen, device=dev)
+    kv_pool = torch.randn(N, BS, 2 * KV, HD, generator=gen,
+                          device=dev).to(pool_dtype)
     phys = torch.randperm(N, generator=gen, device=dev)[:B * M]
     tables = phys.reshape(B, M).to(torch.int32)
     for slot, qn, start in rows:
@@ -116,20 +124,27 @@ def ragged_inputs(gen, dev, rows):
         [r[0] for r in rows], [r[1] for r in rows], [r[2] for r in rows],
         [r[1] + r[2] for r in rows], num_slots=B, t_cap=B * 2 * BS)
     T = d["token_row"].shape[0]
-    q = torch.randn(T, KV, G, HD, generator=gen, device=dev)
+    q = torch.randn(T, KV, G, HD, generator=gen, device=dev).to(q_dtype)
     desc = [torch.as_tensor(d[k], device=dev)
             for k in ("tile_row", "tile_pos", "kv_lens")]
     return q, kv_pool, tables.reshape(1, B, M).contiguous(), desc
 
 
 def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--dtype", choices=DTYPES, default="f32",
+                    help="the pool's element type")
+    ap.add_argument("--q-dtype", choices=DTYPES, default="f32",
+                    help="the queries' (and the output's) element type")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("bench: needs a CUDA device")
     print(ptxas_report())
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(SEED)
-    res = {}
-    q, pool, stack, lengths = decode_inputs(gen, dev)
+    qd, pd = DTYPES[args.q_dtype], DTYPES[args.dtype]
+    res = {"q_dtype": args.q_dtype, "dtype": args.dtype}
+    q, pool, stack, lengths = decode_inputs(gen, dev, qd, pd)
     active = lengths > 0
     mean = int(lengths[active].float().mean().round().item())
     uniform = torch.where(active, torch.full_like(lengths, mean), lengths)
@@ -146,7 +161,8 @@ def main() -> int:
                            r for r in RAGGED_ROWS if r[2] != 4095)),
                        ("ragged_only_4095", ((5, 1, 4095),)),
                        ("ragged_only_256_at_512", ((6, 256, 512),))):
-        q, pool, stack, (trow, tpos, kvl) = ragged_inputs(gen, dev, rows)
+        q, pool, stack, (trow, tpos, kvl) = ragged_inputs(gen, dev, rows,
+                                                          qd, pd)
 
         def fn(q=q, pool=pool, stack=stack, trow=trow, tpos=tpos, kvl=kvl):
             return pa.ragged_fused_fwd(q, pool, stack, trow, tpos, kvl)

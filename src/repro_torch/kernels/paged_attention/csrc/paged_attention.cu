@@ -72,7 +72,22 @@
 //     bit-identical output.  Arithmetic uses explicit fmaf/__fmul_rn/expf so
 //     no contraction choice can differ between instantiations.
 //   * Masked keys score NEG_INF = -1e30 (finite) and weigh exactly 0.
+//
+// Element types.  q (and the output, which has q's type) and the pool are
+// each float or bf16, independently, as in the TPU kernels, which upcast to
+// f32, compute in f32 and write q.dtype.  Pages are staged in shared memory
+// in the pool's own type and each element becomes an f32 (exactly) where
+// it is read from the ring; q is staged as f32.  Every multiply and add
+// after that is the f32 kernel's, in the same order, and the split-K
+// scratch stays f32, so a bf16 call gives exactly the f32 kernel's result
+// on the upcast inputs, rounded once to q's type (to nearest even) where it
+// is written.  A 16-byte cp.async moves 8 bf16 elements; where hd is not a
+// multiple of 8, bf16 rows are copied in 8-byte chunks of 4 elements.  bf16
+// ring rows are padded by 8 elements, so they stay 16-byte aligned: decode's
+// 8-byte K reads then meet 2-way bank conflicts (a 4-word row stride), the
+// ragged fragment reads none.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -81,6 +96,60 @@
 #include "../../csrc/tf32x3.cuh"
 
 namespace {
+
+using bf16 = __nv_bfloat16;
+
+// Element-type codes of the C entry points (kernels/paged_attention/
+// paged_attention.py: DTYPE_CODES).
+constexpr int DT_F32 = 0;
+constexpr int DT_BF16 = 1;
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(bf16 x) { return __bfloat162float(x); }
+
+template <typename T>
+__device__ __forceinline__ T from_f32(float x);
+template <>
+__device__ __forceinline__ float from_f32<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ bf16 from_f32<bf16>(float x) { return __float2bfloat16_rn(x); }
+
+// Four consecutive elements (4-element aligned) as floats; bf16 to f32 is
+// exact (the 16 bits shifted up).
+__device__ __forceinline__ float4 load4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 load4(const bf16* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  return make_float4(__uint_as_float(u.x << 16), __uint_as_float(u.x & 0xffff0000u),
+                     __uint_as_float(u.y << 16), __uint_as_float(u.y & 0xffff0000u));
+}
+
+__device__ __forceinline__ void store4(float* p, float4 v) {
+  *reinterpret_cast<float4*>(p) = v;
+}
+__device__ __forceinline__ void store4(bf16* p, float4 v) {
+  __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y);
+  __nv_bfloat162 hi = __floats2bfloat162_rn(v.z, v.w);
+  uint2 u;
+  u.x = *reinterpret_cast<const uint32_t*>(&lo);
+  u.y = *reinterpret_cast<const uint32_t*>(&hi);
+  *reinterpret_cast<uint2*>(p) = u;
+}
+
+// Elements of one cp.async chunk: 16 bytes, or 8 for bf16 rows whose hd is
+// not a multiple of 8 (their V half and odd heads sit 8 bytes off 16).
+template <typename T>
+__host__ __device__ __forceinline__ int chunk_elems(int hd) {
+  return sizeof(T) == 4 ? 4 : (hd % 8 == 0 ? 8 : 4);
+}
+
+// Row stride (elements) of the decode ring: f32 hd + 4 (4 mod 32 words);
+// bf16 hd + 8, 16-byte aligned for the 16-byte copies, else hd + 4.
+template <typename T>
+__host__ __device__ __forceinline__ int decode_ld(int hd) {
+  return sizeof(T) == 4 ? hd + 4 : (hd % 8 == 0 ? hd + 8 : hd + 4);
+}
 
 constexpr int TILE = 32;                    // key tokens per ring slot
 constexpr int MAX_HD = 128;
@@ -97,6 +166,11 @@ constexpr float NEG_INF = -1e30f;
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
+}
+
+__device__ __forceinline__ void cp_async8(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(s), "l"(gmem));
 }
 
 __device__ __forceinline__ void cp_async_commit() {
@@ -124,9 +198,10 @@ __device__ __forceinline__ float warp_sum(float v) {
 
 // One KV head of a paged pool.  Fused pool: k = pool + 2*kvh*hd, v = k + hd.
 // Split pools: k = k_pool + kvh*hd, v = v_pool + kvh*hd.
+template <typename T>
 struct HeadPool {
-  const float* k;
-  const float* v;
+  const T* k;
+  const T* v;
   long long blk_stride;   // elements between physical blocks
   long long tok_stride;   // elements between tokens of one block
 };
@@ -175,52 +250,63 @@ __device__ __forceinline__ const int* table_row(const int* tables, int b, int W,
   return tables + static_cast<long long>(b % W) * Bs * M + static_cast<long long>(b / W) * M;
 }
 
-// The 16-byte chunks of a tile this thread copies: token tok0, float4
-// column d40, then steps of blockDim.x chunks (no division per chunk).
+// The chunks (ce elements: 16 bytes, or 8 for chunk_elems' narrow bf16
+// rows) of a tile this thread copies: token tok0, chunk column c0, then
+// steps of blockDim.x chunks (no division per chunk).
 struct TileCopy {
-  int tok0, d40, dtok, dd4, hd4;
-  __device__ __forceinline__ explicit TileCopy(int hd) : hd4(hd >> 2) {
-    tok0 = threadIdx.x / hd4;
-    d40 = threadIdx.x - tok0 * hd4;
-    dtok = blockDim.x / hd4;
-    dd4 = blockDim.x - dtok * hd4;
+  int tok0, c0, dtok, dc, nc, ce;
+  __device__ __forceinline__ TileCopy(int hd, int ce_) : nc(hd / ce_), ce(ce_) {
+    tok0 = threadIdx.x / nc;
+    c0 = threadIdx.x - tok0 * nc;
+    dtok = blockDim.x / nc;
+    dc = blockDim.x - dtok * nc;
   }
 };
 
-// Copy tile j (32 tokens x hd of K and of V) into rows of ldk / ldv floats.
-__device__ __forceinline__ void load_tile(float* kdst, int ldk, float* vdst, int ldv,
-                                          const HeadPool& kv, const Walk& w, int j,
+// Copy tile j (32 tokens x hd of K and of V) into rows of ldk / ldv
+// elements, in the pool's type.
+template <typename T>
+__device__ __forceinline__ void load_tile(T* kdst, int ldk, T* vdst, int ldv,
+                                          const HeadPool<T>& kv, const Walk& w, int j,
                                           const TileCopy& tc) {
   const long long off = w.trow[j / w.tiles_per_blk] * kv.blk_stride +
                         static_cast<long long>((j % w.tiles_per_blk) * TILE) * kv.tok_stride;
-  const float* kb = kv.k + off;
-  const float* vb = kv.v + off;
+  const T* kb = kv.k + off;
+  const T* vb = kv.v + off;
   const int ts = static_cast<int>(kv.tok_stride);
+  const bool wide = sizeof(T) == 4 || tc.ce == 8;    // 16-byte chunks
   int tok = tc.tok0;
-  int d4 = tc.d40;
+  int c = tc.c0;
   while (tok < TILE) {
-    const int src = tok * ts + 4 * d4;
-    cp_async16(kdst + tok * ldk + 4 * d4, kb + src);
-    cp_async16(vdst + tok * ldv + 4 * d4, vb + src);
+    const int e = tc.ce * c;
+    const int src = tok * ts + e;
+    if (wide) {
+      cp_async16(kdst + tok * ldk + e, kb + src);
+      cp_async16(vdst + tok * ldv + e, vb + src);
+    } else {
+      cp_async8(kdst + tok * ldk + e, kb + src);
+      cp_async8(vdst + tok * ldv + e, vb + src);
+    }
     tok += tc.dtok;
-    d4 += tc.dd4;
-    if (d4 >= tc.hd4) {
-      d4 -= tc.hd4;
+    c += tc.dc;
+    if (c >= tc.nc) {
+      c -= tc.nc;
       ++tok;
     }
   }
 }
 
 // ------------------------------------------------------------------ decode
-// q, out: (B, KV, G, hd).  Grid (nsplit, B, KV * G/gc), 128 threads.
-// part_o: (nsplit, B, KV, G, hd), part_ml: (nsplit, B, KV, G, 2).
-template <int DEPTH>
+// q, out: (B, KV, G, hd) of TQ; pools of TP.  Grid (nsplit, B, KV * G/gc),
+// 128 threads.  part_o: (nsplit, B, KV, G, hd), part_ml: (nsplit, B, KV, G,
+// 2), both f32.
+template <int DEPTH, typename TQ, typename TP>
 __global__ void __launch_bounds__(DEC_THREADS)
-paged_decode_kernel(const float* __restrict__ q, const float* __restrict__ kbase,
-                    const float* __restrict__ vbase, long long blk_stride,
+paged_decode_kernel(const TQ* __restrict__ q, const TP* __restrict__ kbase,
+                    const TP* __restrict__ vbase, long long blk_stride,
                     long long tok_stride, long long head_stride,
                     const int* __restrict__ tables, const int* __restrict__ lengths,
-                    float* __restrict__ out, float* __restrict__ part_o,
+                    TQ* __restrict__ out, float* __restrict__ part_o,
                     float* __restrict__ part_ml, int B, int KV, int G, int gc, int hd, int bs,
                     int W, int Bs, int M, int window, float scale, int split) {
   const int s = blockIdx.x;
@@ -235,30 +321,31 @@ paged_decode_kernel(const float* __restrict__ q, const float* __restrict__ kbase
   const int tid = threadIdx.x;
   const long long head0 = (static_cast<long long>(b) * KV + kvh) * G + g0;
   if (sp.hi < sp.lo) {                               // sees nothing: zeros
-    for (int i = tid; i < gc * hd; i += DEC_THREADS) out[head0 * hd + i] = 0.f;
+    for (int i = tid; i < gc * hd; i += DEC_THREADS)
+      out[head0 * hd + i] = from_f32<TQ>(0.f);
     return;
   }
 
   extern __shared__ __align__(16) float smem[];
   const int hd4 = hd >> 2;
-  const int ld = hd + 4;
+  const int ld = decode_ld<TP>(hd);
   const int lane = tid & 31;
   const int warp = tid >> 5;
   float* qs = smem;                                  // gc x hd
   float* red = qs + gc * hd;                         // 4 warps x gc x TILE
   float* ps = red + 4 * gc * TILE;                   // gc x TILE probabilities
   float* st = ps + gc * TILE;                        // alpha, l, m: 3 x MAX_GC
-  float* ring = st + 3 * MAX_GC;                     // DEPTH x {K, V} x TILE x ld
+  TP* ring = reinterpret_cast<TP*>(st + 3 * MAX_GC); // DEPTH x {K, V} x TILE x ld
   const int slot_elems = 2 * TILE * ld;
 
   for (int i = tid; i < gc * hd4; i += DEC_THREADS)
-    reinterpret_cast<float4*>(qs)[i] = reinterpret_cast<const float4*>(q + head0 * hd)[i];
+    store4(qs + 4 * i, load4(q + head0 * hd + 4 * i));
 
-  const HeadPool kv{kbase + kvh * head_stride, vbase + kvh * head_stride, blk_stride,
-                    tok_stride};
+  const HeadPool<TP> kv{kbase + kvh * head_stride, vbase + kvh * head_stride, blk_stride,
+                        tok_stride};
   int j0;
   const Walk walk = split_walk(sp, s, split, table_row(tables, b, W, Bs, M), M, bs, &j0);
-  const TileCopy tc(hd);
+  const TileCopy tc(hd, chunk_elems<TP>(hd));
 
   float m_i[2] = {NEG_INF, NEG_INF};                 // heads warp, warp + 4
   float l_i[2] = {0.f, 0.f};
@@ -270,7 +357,7 @@ paged_decode_kernel(const float* __restrict__ q, const float* __restrict__ kbase
 #pragma unroll
   for (int d = 0; d < DEPTH; ++d) {
     if (issue < walk.j_end) {
-      float* kt = ring + d * slot_elems;
+      TP* kt = ring + d * slot_elems;
       load_tile(kt, ld, kt + TILE * ld, ld, kv, walk, issue, tc);
       issue = walk.next(issue + 1);
     }
@@ -282,16 +369,16 @@ paged_decode_kernel(const float* __restrict__ q, const float* __restrict__ kbase
     cp_async_wait<DEPTH - 1>();
     __syncthreads();
     const int slot = k % DEPTH;
-    const float* kt = ring + slot * slot_elems;
-    const float* vt = kt + TILE * ld;
+    const TP* kt = ring + slot * slot_elems;
+    const TP* vt = kt + TILE * ld;
 
-    // scores: lane = key, warp = float4 columns warp, warp + 4, ...
+    // scores: lane = key, warp = 4-element columns warp, warp + 4, ...
     float dot[MAX_GC];
 #pragma unroll
     for (int g = 0; g < MAX_GC; ++g) dot[g] = 0.f;
-    const float4* k4 = reinterpret_cast<const float4*>(kt + lane * ld);
+    const TP* krow = kt + lane * ld;
     for (int c = warp; c < hd4; c += 4) {
-      const float4 kk = k4[c];
+      const float4 kk = load4(krow + 4 * c);
 #pragma unroll
       for (int g = 0; g < MAX_GC; ++g) {
         if (g < gc) {
@@ -337,7 +424,7 @@ paged_decode_kernel(const float* __restrict__ q, const float* __restrict__ kbase
       for (int g = 0; g < MAX_GC; ++g)
         if (g < gc) acc[g] = __fmul_rn(acc[g], st[g]);
       for (int t = 0; t < TILE; ++t) {
-        const float v = vt[t * ld + tid];
+        const float v = to_f32(vt[t * ld + tid]);
 #pragma unroll
         for (int g = 0; g < MAX_GC; ++g)
           if (g < gc) acc[g] = fmaf(ps[g * TILE + t], v, acc[g]);
@@ -345,7 +432,7 @@ paged_decode_kernel(const float* __restrict__ q, const float* __restrict__ kbase
     }
     __syncthreads();                                 // slot consumed by every warp
     if (issue < walk.j_end) {
-      float* kn = ring + slot * slot_elems;
+      TP* kn = ring + slot * slot_elems;
       load_tile(kn, ld, kn + TILE * ld, ld, kv, walk, issue, tc);
       issue = walk.next(issue + 1);
     }
@@ -370,7 +457,7 @@ paged_decode_kernel(const float* __restrict__ q, const float* __restrict__ kbase
       if (g < gc) {
         const long long o = (head0 + g) * hd + tid;
         if (direct)
-          out[o] = __fdiv_rn(acc[g], fmaxf(st[MAX_GC + g], 1e-30f));
+          out[o] = from_f32<TQ>(__fdiv_rn(acc[g], fmaxf(st[MAX_GC + g], 1e-30f)));
         else
           part_o[static_cast<long long>(s) * B * KV * G * hd + o] = acc[g];
       }
@@ -387,17 +474,24 @@ paged_decode_kernel(const float* __restrict__ q, const float* __restrict__ kbase
 // 3xTF32 helpers: to_tf32, split_tf32, mma_tf32, Frag3, mma3 (kernels/csrc/tf32x3.cuh).
 using namespace tf32x3;
 
-// Row strides of the ragged tiles for HD = 32 * KQ padded columns: Q and K
-// at HD + 4 (= 4 mod 32: the A and B fragment reads of a warp hit 32
-// banks), V at HD + 8 (= 8 mod 32, for V's B fragments).
-__host__ __device__ constexpr int ragged_ldk(int kq) { return 32 * kq + 4; }
+// Row strides of the ragged tiles for HD = 32 * KQ padded columns: Q (f32)
+// and an f32 K at HD + 4 (= 4 mod 32 words: the A and B fragment reads of a
+// warp hit 32 banks), an f32 V at HD + 8 (= 8 mod 32, for V's B
+// fragments).  bf16 K and V rows at HD + 8 elements (16-byte aligned; 4 or
+// 20 mod 32 words: a fragment read's 8 rows x 2 words, or 4 rows x 4
+// words, hit distinct banks).
+__host__ __device__ constexpr int ragged_ldq(int kq) { return 32 * kq + 4; }
+template <typename T>
+__host__ __device__ constexpr int ragged_ldk(int kq) {
+  return sizeof(T) == 4 ? 32 * kq + 4 : 32 * kq + 8;
+}
 __host__ __device__ constexpr int ragged_ldv(int kq) { return 32 * kq + 8; }
 
 // One work unit of the ragged kernel: query tile t, split s, head group hz
-// (KV head hz / (G/gc)).  q, out: (T, KV, G, hd), T = QT * tiles, hd <=
-// 32 * KQ; 2 * QW * mp threads (QW warps per 16-row slab), mp = QT*gc
-// rounded up to 16.  part_o: (nsplit, T, KV, G, hd), part_ml: (nsplit, T,
-// KV, G, 2).
+// (KV head hz / (G/gc)).  q, out: (T, KV, G, hd) of TQ, T = QT * tiles, hd
+// <= 32 * KQ; the pool of TP; 2 * QW * mp threads (QW warps per 16-row
+// slab), mp = QT*gc rounded up to 16.  part_o: (nsplit, T, KV, G, hd),
+// part_ml: (nsplit, T, KV, G, 2), both f32.
 //
 // Per 32-key tile: (1) warp `part` of a slab computes S over its KQ
 // k-steps of hd for all 32 keys and stores the partial; (2) it sums the QW
@@ -405,16 +499,17 @@ __host__ __device__ constexpr int ragged_ldv(int kq) { return 32 * kq + 8; }
 // row maxima meet in shared memory; (3) it writes those keys' P and the
 // row sums meet likewise; (4) it runs P.V for its KQ n-tiles of hd with the
 // whole slab's P.  So the softmax is computed once, not once per warp.
-template <int KQ>
+template <int KQ, typename TQ, typename TP>
 __device__ __forceinline__ void ragged_unit(
-    const float* __restrict__ q, const float* __restrict__ pool, long long blk_stride,
+    const TQ* __restrict__ q, const TP* __restrict__ pool, long long blk_stride,
     long long tok_stride, const int* __restrict__ tables, const int* __restrict__ tile_row,
-    const int* __restrict__ tile_pos, const int* __restrict__ kv_lens, float* __restrict__ out,
+    const int* __restrict__ tile_pos, const int* __restrict__ kv_lens, TQ* __restrict__ out,
     float* __restrict__ part_o, float* __restrict__ part_ml, int tiles, int KV, int G, int gc,
     int hd, int bs, int W, int Bs, int M, int window, float scale, int split, int s, int t,
     int hz, float* smem) {
   constexpr int HD = 32 * KQ;
-  constexpr int LDK = ragged_ldk(KQ);
+  constexpr int LDQ = ragged_ldq(KQ);
+  constexpr int LDK = ragged_ldk<TP>(KQ);
   constexpr int LDV = ragged_ldv(KQ);
   const int ngr = G / gc;
   const int kvh = hz / ngr;
@@ -433,7 +528,7 @@ __device__ __forceinline__ void ragged_unit(
     for (int i = tid; i < QT * gc * hd; i += blockDim.x) {
       const int r = i / (gc * hd);
       const int rem = i - r * gc * hd;
-      out[(head_t + r * rstride) * hd + rem] = 0.f;
+      out[(head_t + r * rstride) * hd + rem] = from_f32<TQ>(0.f);
     }
     return;
   }
@@ -441,34 +536,34 @@ __device__ __forceinline__ void ragged_unit(
   const int mr = QT * gc;                            // real rows: m = r * gc + g
   const int mp = (mr + 15) & ~15;
   const int hd4 = hd >> 2;
-  float* qs = smem;                                  // mp x LDK
-  float* ss = qs + mp * LDK;                         // QW partial S slabs, mp x LDS; P in slab 0
+  float* qs = smem;                                  // mp x LDQ
+  float* ss = qs + mp * LDQ;                         // QW partial S slabs, mp x LDS; P in slab 0
   float* red = ss + QW * mp * LDS;                   // mp x QW row maxima, then row sums
-  float* ring = red + 2 * mp * QW;                   // RAGGED_DEPTH x {K: TILE x LDK, V: TILE x LDV}
+  // RAGGED_DEPTH x {K: TILE x LDK, V: TILE x LDV}, in the pool's type
+  TP* ring = reinterpret_cast<TP*>(red + 2 * mp * QW);
   constexpr int SLOT = TILE * (LDK + LDV);
 
   // zeros in Q's padding rows and columns and in K's padding columns (the
   // copies never write them, and 0 * garbage may be NaN)
-  for (int i = tid; i < mp * LDK; i += blockDim.x) qs[i] = 0.f;
+  for (int i = tid; i < mp * LDQ; i += blockDim.x) qs[i] = 0.f;
   if (HD > hd)
     for (int i = tid; i < RAGGED_DEPTH * TILE * (HD - hd); i += blockDim.x) {
       const int r = i / (HD - hd);
-      ring[(r / TILE) * SLOT + (r % TILE) * LDK + hd + i % (HD - hd)] = 0.f;
+      ring[(r / TILE) * SLOT + (r % TILE) * LDK + hd + i % (HD - hd)] = from_f32<TP>(0.f);
     }
   __syncthreads();
   for (int i = tid; i < mr * hd4; i += blockDim.x) {
     const int m = i / hd4;
     const int d4 = i - m * hd4;
     const int r = m / gc;
-    *reinterpret_cast<float4*>(qs + m * LDK + 4 * d4) = *reinterpret_cast<const float4*>(
-        q + (head_t + r * rstride + (m - r * gc)) * hd + 4 * d4);
+    store4(qs + m * LDQ + 4 * d4, load4(q + (head_t + r * rstride + (m - r * gc)) * hd + 4 * d4));
   }
 
-  const float* kb = pool + 2LL * kvh * hd;
-  const HeadPool kv{kb, kb + hd, blk_stride, tok_stride};
+  const TP* kb = pool + 2LL * kvh * hd;
+  const HeadPool<TP> kv{kb, kb + hd, blk_stride, tok_stride};
   int j0;
   const Walk walk = split_walk(sp, s, split, table_row(tables, slot, W, Bs, M), M, bs, &j0);
-  const TileCopy tc(hd);
+  const TileCopy tc(hd, chunk_elems<TP>(hd));
 
   const int lane = tid & 31;
   const int warp = tid >> 5;
@@ -499,14 +594,14 @@ __device__ __forceinline__ void ragged_unit(
 #pragma unroll
   for (int d = 0; d < RAGGED_DEPTH; ++d) {
     if (issue < walk.j_end) {
-      float* kt = ring + d * SLOT;
+      TP* kt = ring + d * SLOT;
       load_tile(kt, LDK, kt + TILE * LDK, LDV, kv, walk, issue, tc);
       issue = walk.next(issue + 1);
     }
     cp_async_commit();
   }
 
-  const float* qa = qs + (mt * 16 + gq) * LDK + part * KQ * 8 + tq;
+  const float* qa = qs + (mt * 16 + gq) * LDQ + part * KQ * 8 + tq;
   float* slab = ss + (mt * 16) * LDS;                // this slab's rows in slab 0
   float* rmax = red + (mt * 16) * QW;
   float* rsum = red + mp * QW + (mt * 16) * QW;
@@ -514,8 +609,8 @@ __device__ __forceinline__ void ragged_unit(
   for (int j = walk.next(j0); j < walk.j_end; j = walk.next(j + 1), ++k) {
     cp_async_wait<RAGGED_DEPTH - 1>();
     __syncthreads();
-    const float* kt = ring + (k % RAGGED_DEPTH) * SLOT;
-    const float* vt = kt + TILE * LDK;
+    const TP* kt = ring + (k % RAGGED_DEPTH) * SLOT;
+    const TP* vt = kt + TILE * LDK;
 
     // (1) partial S over this warp's KQ k-steps: 16 rows x 32 keys
     float sacc[4][4];
@@ -526,15 +621,15 @@ __device__ __forceinline__ void ragged_unit(
 #pragma unroll
     for (int x = 0; x < KQ; ++x) {
       Frag3 a;
-      const float av[4] = {qa[x * 8], qa[8 * LDK + x * 8], qa[x * 8 + 4],
-                           qa[8 * LDK + x * 8 + 4]};
+      const float av[4] = {qa[x * 8], qa[8 * LDQ + x * 8], qa[x * 8 + 4],
+                           qa[8 * LDQ + x * 8 + 4]};
       a.set(av);
       float b0[4], b1[4];
 #pragma unroll
       for (int n = 0; n < 4; ++n) {
-        const float* kr = kt + (n * 8 + gq) * LDK + (part * KQ + x) * 8 + tq;
-        b0[n] = kr[0];
-        b1[n] = kr[4];
+        const TP* kr = kt + (n * 8 + gq) * LDK + (part * KQ + x) * 8 + tq;
+        b0[n] = to_f32(kr[0]);
+        b1[n] = to_f32(kr[4]);
       }
       mma3(sacc, a, b0, b1);
     }
@@ -624,18 +719,18 @@ __device__ __forceinline__ void ragged_unit(
       const float* pa = slab + gq * LDS + kk * 8 + tq;
       const float av[4] = {pa[0], pa[8 * LDS], pa[4], pa[8 * LDS + 4]};
       a.set(av);
-      const float* vr = vt + (kk * 8 + tq) * LDV + part * KQ * 8 + gq;
+      const TP* vr = vt + (kk * 8 + tq) * LDV + part * KQ * 8 + gq;
       float b0[KQ], b1[KQ];
 #pragma unroll
       for (int n = 0; n < KQ; ++n) {
-        b0[n] = vr[n * 8];
-        b1[n] = vr[4 * LDV + n * 8];
+        b0[n] = to_f32(vr[n * 8]);
+        b1[n] = to_f32(vr[4 * LDV + n * 8]);
       }
       mma3(oacc, a, b0, b1);
     }
     __syncthreads();                                 // slot, slabs and sums consumed
     if (issue < walk.j_end) {
-      float* kn = ring + (k % RAGGED_DEPTH) * SLOT;
+      TP* kn = ring + (k % RAGGED_DEPTH) * SLOT;
       load_tile(kn, LDK, kn + TILE * LDK, LDV, kv, walk, issue, tc);
       issue = walk.next(issue + 1);
     }
@@ -658,8 +753,8 @@ __device__ __forceinline__ void ragged_unit(
       const float o0 = oacc[n][2 * rr];
       const float o1 = oacc[n][2 * rr + 1];
       if (direct) {
-        out[h * hd + col] = __fdiv_rn(o0, den);
-        out[h * hd + col + 1] = __fdiv_rn(o1, den);
+        out[h * hd + col] = from_f32<TQ>(__fdiv_rn(o0, den));
+        out[h * hd + col + 1] = from_f32<TQ>(__fdiv_rn(o1, den));
       } else {
         float* po = part_o + (static_cast<long long>(s) * heads_total + h) * hd + col;
         po[0] = o0;
@@ -735,12 +830,12 @@ ragged_plan_kernel(const int* __restrict__ tile_row, const int* __restrict__ til
 // The ragged kernel: each CTA takes work units (item, head group) from the
 // queue until it is empty.  A unit's result does not depend on which CTA
 // runs it, so the output is the same on every run.
-template <int KQ>
+template <int KQ, typename TQ, typename TP>
 __global__ void __launch_bounds__(2 * QW * 48)
-ragged_kernel(const float* __restrict__ q, const float* __restrict__ pool,
+ragged_kernel(const TQ* __restrict__ q, const TP* __restrict__ pool,
               long long blk_stride, long long tok_stride, const int* __restrict__ tables,
               const int* __restrict__ tile_row, const int* __restrict__ tile_pos,
-              const int* __restrict__ kv_lens, float* __restrict__ out,
+              const int* __restrict__ kv_lens, TQ* __restrict__ out,
               float* __restrict__ part_o, float* __restrict__ part_ml,
               const int* __restrict__ items, int* __restrict__ ctrl, int tiles, int KV, int G,
               int gc, int hd, int bs, int W, int Bs, int M, int window, float scale, int split,
@@ -756,9 +851,9 @@ ragged_kernel(const float* __restrict__ q, const float* __restrict__ pool,
     __syncthreads();
     if (w >= total) break;
     const int item = items[w / nh];
-    ragged_unit<KQ>(q, pool, blk_stride, tok_stride, tables, tile_row, tile_pos, kv_lens, out,
-                    part_o, part_ml, tiles, KV, G, gc, hd, bs, W, Bs, M, window, scale, split,
-                    item % nsplit, item / nsplit, w % nh, smem);
+    ragged_unit<KQ, TQ, TP>(q, pool, blk_stride, tok_stride, tables, tile_row, tile_pos,
+                            kv_lens, out, part_o, part_ml, tiles, KV, G, gc, hd, bs, W, Bs, M,
+                            window, scale, split, item % nsplit, item / nsplit, w % nh, smem);
     __syncthreads();                                 // shared memory free for the next unit
   }
 }
@@ -768,10 +863,12 @@ ragged_kernel(const float* __restrict__ q, const float* __restrict__ pool,
 // sum_s e^(m_s - M) acc_s / sum_s e^(m_s - M) l_s in split order.  Decode:
 // units are slots (qrows 1, a = lengths); ragged: units are tiles (qrows QT,
 // a = tile_row, b = tile_pos, c = kv_lens).  Grid (units, KV); shared
-// memory holds each head row's split weights and denominator.
+// memory holds each head row's split weights and denominator.  The
+// partials are f32; out has q's type.
+template <typename TQ>
 __global__ void __launch_bounds__(MERGE_THREADS)
 merge_kernel(const float* __restrict__ part_o, const float* __restrict__ part_ml,
-             float* __restrict__ out, const int* __restrict__ a, const int* __restrict__ b,
+             TQ* __restrict__ out, const int* __restrict__ a, const int* __restrict__ b,
              const int* __restrict__ c, int ragged, int units, int qrows, int KV, int G, int hd,
              int window, int split) {
   const int u = blockIdx.x;
@@ -822,9 +919,9 @@ merge_kernel(const float* __restrict__ part_o, const float* __restrict__ part_ml
       num.z = fmaf(w[s], o.z, num.z);
       num.w = fmaf(w[s], o.w, num.w);
     }
-    reinterpret_cast<float4*>(out + h * hd)[d4] =
-        make_float4(__fdiv_rn(num.x, w[ns]), __fdiv_rn(num.y, w[ns]), __fdiv_rn(num.z, w[ns]),
-                    __fdiv_rn(num.w, w[ns]));
+    store4(out + h * hd + 4 * d4,
+           make_float4(__fdiv_rn(num.x, w[ns]), __fdiv_rn(num.y, w[ns]), __fdiv_rn(num.z, w[ns]),
+                       __fdiv_rn(num.w, w[ns])));
   }
 }
 
@@ -834,15 +931,17 @@ bool shapes_ok(int hd, int bs, int G, int gc, int split, int nsplit, int M) {
          static_cast<long long>(nsplit) * split >= static_cast<long long>(M) * bs;
 }
 
+template <typename TP>
 size_t decode_smem(int depth, int gc, int hd) {
-  return sizeof(float) * (static_cast<size_t>(gc) * hd + 5 * gc * TILE + 3 * MAX_GC +
-                          static_cast<size_t>(depth) * 2 * TILE * (hd + 4));
+  return sizeof(float) * (static_cast<size_t>(gc) * hd + 5 * gc * TILE + 3 * MAX_GC) +
+         sizeof(TP) * static_cast<size_t>(depth) * 2 * TILE * decode_ld<TP>(hd);
 }
 
+template <typename TP>
 size_t ragged_smem(int mp, int kq) {
-  return sizeof(float) * (static_cast<size_t>(mp) * ragged_ldk(kq) + QW * mp * LDS +
-                          2 * mp * QW +
-                          RAGGED_DEPTH * TILE * (ragged_ldk(kq) + ragged_ldv(kq)));
+  return sizeof(float) * (static_cast<size_t>(mp) * ragged_ldq(kq) + QW * mp * LDS +
+                          2 * mp * QW) +
+         sizeof(TP) * RAGGED_DEPTH * TILE * (ragged_ldk<TP>(kq) + ragged_ldv(kq));
 }
 
 // Launch setup that depends only on the kernel and the device (raising a
@@ -863,15 +962,15 @@ cudaError_t smem_limit_once(const void* fn, size_t smem, std::atomic<bool>* done
   return err;
 }
 
-// The CTAs of ragged_kernel<KQ> resident at once on the current device at
-// mp padded rows (16, 32 or 48): the persistent grid's size.
-template <int KQ>
+// The CTAs of ragged_kernel<KQ, TQ, TP> resident at once on the current
+// device at mp padded rows (16, 32 or 48): the persistent grid's size.
+template <int KQ, typename TQ, typename TP>
 cudaError_t ragged_fill(int mp, long long* fill) {
   static std::atomic<bool> limit_set[MAX_DEVICES];
   static std::atomic<int> cached[MAX_DEVICES][3];      // 0 = not yet known
   constexpr int MAX_MP = (QT * RAGGED_MAX_GC + 15) & ~15;
-  cudaError_t err = smem_limit_once(reinterpret_cast<const void*>(ragged_kernel<KQ>),
-                                    ragged_smem(MAX_MP, KQ), limit_set);
+  cudaError_t err = smem_limit_once(reinterpret_cast<const void*>(ragged_kernel<KQ, TQ, TP>),
+                                    ragged_smem<TP>(MAX_MP, KQ), limit_set);
   if (err != cudaSuccess) return err;
   int dev = 0;
   if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
@@ -886,8 +985,8 @@ cudaError_t ragged_fill(int mp, long long* fill) {
   int sms = 0, per_sm = 0;
   if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
     return err;
-  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, ragged_kernel<KQ>,
-                                                           2 * QW * mp, ragged_smem(mp, KQ))) !=
+  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+           &per_sm, ragged_kernel<KQ, TQ, TP>, 2 * QW * mp, ragged_smem<TP>(mp, KQ))) !=
       cudaSuccess)
     return err;
   const int v = (per_sm > 0 ? per_sm : 1) * sms;
@@ -896,15 +995,31 @@ cudaError_t ragged_fill(int mp, long long* fill) {
   return cudaSuccess;
 }
 
-template <int KQ>
-cudaError_t launch_ragged(const float* q, const float* pool, long long blk_stride,
+template <typename TQ>
+cudaError_t launch_merge(const float* part_o, const float* part_ml, TQ* out, const int* a,
+                         const int* b, const int* c, int ragged, int units, int qrows, int KV,
+                         int G, int hd, int window, int split, int nsplit, cudaStream_t stream) {
+  const size_t smem = sizeof(float) * qrows * G * (nsplit + 1);
+  if (smem > 48 * 1024) {                            // past the default limit (rare)
+    cudaError_t err = cudaFuncSetAttribute(merge_kernel<TQ>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+  }
+  merge_kernel<TQ><<<dim3(units, KV), MERGE_THREADS, smem, stream>>>(
+      part_o, part_ml, out, a, b, c, ragged, units, qrows, KV, G, hd, window, split);
+  return cudaGetLastError();
+}
+
+template <int KQ, typename TQ, typename TP>
+cudaError_t launch_ragged(const TQ* q, const TP* pool, long long blk_stride,
                           long long tok_stride, const int* tables, const int* tr, const int* tp,
-                          const int* kl, float* out, float* po, float* pm, int* plan,
-                          int tiles, int KV, int G, int gc, int hd, int bs, int W, int Bs, int M,
+                          const int* kl, TQ* out, float* po, float* pm, int* plan, int tiles,
+                          int KV, int G, int gc, int hd, int bs, int W, int Bs, int M,
                           int window, float scale, int split, int nsplit, cudaStream_t st) {
   const int mp = (QT * gc + 15) & ~15;
   long long fill = 0;
-  cudaError_t err = ragged_fill<KQ>(mp, &fill);
+  cudaError_t err = ragged_fill<KQ, TQ, TP>(mp, &fill);
   if (err != cudaSuccess) return err;
   int* items = plan + 2;
   ragged_plan_kernel<<<1, PLAN_THREADS, 0, st>>>(tr, tp, kl, tiles, window, split, nsplit,
@@ -912,127 +1027,139 @@ cudaError_t launch_ragged(const float* q, const float* pool, long long blk_strid
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   const long long units = static_cast<long long>(tiles) * nsplit * KV * (G / gc);
   const int grid = static_cast<int>(units < fill ? units : fill);
-  ragged_kernel<KQ><<<grid, 2 * QW * mp, ragged_smem(mp, KQ), st>>>(
+  ragged_kernel<KQ, TQ, TP><<<grid, 2 * QW * mp, ragged_smem<TP>(mp, KQ), st>>>(
       q, pool, blk_stride, tok_stride, tables, tr, tp, kl, out, po, pm, items, plan, tiles, KV,
       G, gc, hd, bs, W, Bs, M, window, scale, split, nsplit);
-  return cudaGetLastError();
+  if ((err = cudaGetLastError()) != cudaSuccess || nsplit == 1) return err;
+  return launch_merge<TQ>(po, pm, out, tr, tp, kl, 1, tiles, QT, KV, G, hd, window, split,
+                          nsplit, st);
 }
 
-int launch_merge(const float* part_o, const float* part_ml, float* out, const int* a,
-                 const int* b, const int* c, int ragged, int units, int qrows, int KV, int G,
-                 int hd, int window, int split, int nsplit, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * qrows * G * (nsplit + 1);
-  if (smem > 48 * 1024) {                            // past the default limit (rare)
-    cudaError_t err = cudaFuncSetAttribute(merge_kernel,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
-  }
-  merge_kernel<<<dim3(units, KV), MERGE_THREADS, smem, stream>>>(
-      part_o, part_ml, out, a, b, c, ragged, units, qrows, KV, G, hd, window, split);
-  return cudaGetLastError();
-}
-
-template <int DEPTH>
-int launch_decode(const float* q, const float* kbase, const float* vbase, long long blk_stride,
-                  long long tok_stride, long long head_stride, const int* tables,
-                  const int* lengths, float* out, float* part_o, float* part_ml, int B, int KV,
-                  int G, int gc, int hd, int bs, int W, int Bs, int M, int window, float scale,
-                  int split, int nsplit, cudaStream_t stream) {
+template <int DEPTH, typename TQ, typename TP>
+cudaError_t launch_decode(const TQ* q, const TP* kbase, const TP* vbase, long long blk_stride,
+                          long long tok_stride, long long head_stride, const int* tables,
+                          const int* lengths, TQ* out, float* part_o, float* part_ml, int B,
+                          int KV, int G, int gc, int hd, int bs, int W, int Bs, int M,
+                          int window, float scale, int split, int nsplit, cudaStream_t stream) {
   static std::atomic<bool> limit_set[MAX_DEVICES];
-  cudaError_t err = smem_limit_once(reinterpret_cast<const void*>(paged_decode_kernel<DEPTH>),
-                                    decode_smem(DEPTH, MAX_GC, MAX_HD), limit_set);
+  cudaError_t err = smem_limit_once(
+      reinterpret_cast<const void*>(paged_decode_kernel<DEPTH, TQ, TP>),
+      decode_smem<TP>(DEPTH, MAX_GC, MAX_HD), limit_set);
   if (err != cudaSuccess) return err;
-  const size_t smem = decode_smem(DEPTH, gc, hd);
-  paged_decode_kernel<DEPTH><<<dim3(nsplit, B, KV * (G / gc)), DEC_THREADS, smem, stream>>>(
-      q, kbase, vbase, blk_stride, tok_stride, head_stride, tables, lengths, out, part_o,
-      part_ml, B, KV, G, gc, hd, bs, W, Bs, M, window, scale, split);
+  const size_t smem = decode_smem<TP>(DEPTH, gc, hd);
+  paged_decode_kernel<DEPTH, TQ, TP>
+      <<<dim3(nsplit, B, KV * (G / gc)), DEC_THREADS, smem, stream>>>(
+          q, kbase, vbase, blk_stride, tok_stride, head_stride, tables, lengths, out, part_o,
+          part_ml, B, KV, G, gc, hd, bs, W, Bs, M, window, scale, split);
   err = cudaGetLastError();
   if (err != cudaSuccess || nsplit == 1) return err;
-  return launch_merge(part_o, part_ml, out, lengths, nullptr, nullptr, 0, B, 1, KV, G, hd,
-                      window, split, nsplit, stream);
+  return launch_merge<TQ>(part_o, part_ml, out, lengths, nullptr, nullptr, 0, B, 1, KV, G, hd,
+                          window, split, nsplit, stream);
+}
+
+template <typename T>
+struct Type {
+  using type = T;
+};
+
+// f(Type<TQ>{}, Type<TP>{}) for the element types the codes name, or
+// cudaErrorInvalidValue for a code that names none: a buffer is never
+// read as another type than its own.
+template <typename F>
+cudaError_t with_types(int q_dtype, int pool_dtype, F&& f) {
+  if (q_dtype == DT_F32 && pool_dtype == DT_F32) return f(Type<float>{}, Type<float>{});
+  if (q_dtype == DT_F32 && pool_dtype == DT_BF16) return f(Type<float>{}, Type<bf16>{});
+  if (q_dtype == DT_BF16 && pool_dtype == DT_F32) return f(Type<bf16>{}, Type<float>{});
+  if (q_dtype == DT_BF16 && pool_dtype == DT_BF16) return f(Type<bf16>{}, Type<bf16>{});
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-extern "C" int paged_decode_launch(int depth, const void* q, const void* kbase, const void* vbase,
-                                   long long blk_stride, long long tok_stride,
-                                   long long head_stride, const void* tables,
-                                   const void* lengths, void* out, void* part_o, void* part_ml,
-                                   int B, int KV, int G, int gc, int hd, int bs, int W, int Bs,
-                                   int M, int window, float scale, int split, int nsplit,
-                                   void* stream) {
+// q_dtype is the code of q's (and out's) element type, pool_dtype the
+// pools'; DT_F32 = 0, DT_BF16 = 1.
+extern "C" int paged_decode_launch(int depth, int q_dtype, int pool_dtype, const void* q,
+                                   const void* kbase, const void* vbase, long long blk_stride,
+                                   long long tok_stride, long long head_stride,
+                                   const void* tables, const void* lengths, void* out,
+                                   void* part_o, void* part_ml, int B, int KV, int G, int gc,
+                                   int hd, int bs, int W, int Bs, int M, int window, float scale,
+                                   int split, int nsplit, void* stream) {
   if (!shapes_ok(hd, bs, G, gc, split, nsplit, M) || B <= 0 || B > 65535 || KV <= 0 ||
       (nsplit > 1 && (part_o == nullptr || part_ml == nullptr)))
     return cudaErrorInvalidValue;
-  const auto* qf = static_cast<const float*>(q);
-  const auto* kf = static_cast<const float*>(kbase);
-  const auto* vf = static_cast<const float*>(vbase);
   const auto* tb = static_cast<const int*>(tables);
   const auto* ln = static_cast<const int*>(lengths);
-  auto* of = static_cast<float*>(out);
   auto* po = static_cast<float*>(part_o);
   auto* pm = static_cast<float*>(part_ml);
   auto st = static_cast<cudaStream_t>(stream);
-  switch (depth) {
-    case 1:
-      return launch_decode<1>(qf, kf, vf, blk_stride, tok_stride, head_stride, tb, ln, of, po,
-                              pm, B, KV, G, gc, hd, bs, W, Bs, M, window, scale, split, nsplit,
-                              st);
-    case 2:
-      return launch_decode<2>(qf, kf, vf, blk_stride, tok_stride, head_stride, tb, ln, of, po,
-                              pm, B, KV, G, gc, hd, bs, W, Bs, M, window, scale, split, nsplit,
-                              st);
-    case 4:
-      return launch_decode<4>(qf, kf, vf, blk_stride, tok_stride, head_stride, tb, ln, of, po,
-                              pm, B, KV, G, gc, hd, bs, W, Bs, M, window, scale, split, nsplit,
-                              st);
-    default:
-      return cudaErrorInvalidValue;
-  }
+  return with_types(q_dtype, pool_dtype, [&](auto tq, auto tp) -> cudaError_t {
+    using TQ = typename decltype(tq)::type;
+    using TP = typename decltype(tp)::type;
+    const auto* qt = static_cast<const TQ*>(q);
+    const auto* kt = static_cast<const TP*>(kbase);
+    const auto* vt = static_cast<const TP*>(vbase);
+    auto* ot = static_cast<TQ*>(out);
+    switch (depth) {
+      case 1:
+        return launch_decode<1>(qt, kt, vt, blk_stride, tok_stride, head_stride, tb, ln, ot, po,
+                                pm, B, KV, G, gc, hd, bs, W, Bs, M, window, scale, split,
+                                nsplit, st);
+      case 2:
+        return launch_decode<2>(qt, kt, vt, blk_stride, tok_stride, head_stride, tb, ln, ot, po,
+                                pm, B, KV, G, gc, hd, bs, W, Bs, M, window, scale, split,
+                                nsplit, st);
+      case 4:
+        return launch_decode<4>(qt, kt, vt, blk_stride, tok_stride, head_stride, tb, ln, ot, po,
+                                pm, B, KV, G, gc, hd, bs, W, Bs, M, window, scale, split,
+                                nsplit, st);
+      default:
+        return cudaErrorInvalidValue;
+    }
+  });
 }
 
-extern "C" int ragged_launch(const void* q, const void* pool, long long blk_stride,
-                             long long tok_stride, const void* tables, const void* tile_row,
-                             const void* tile_pos, const void* kv_lens, void* out, void* part_o,
-                             void* part_ml, void* plan, int tiles, int KV, int G, int gc, int hd,
-                             int bs,
-                             int W, int Bs, int M, int window, float scale, int split,
-                             int nsplit, void* stream) {
+extern "C" int ragged_launch(int q_dtype, int pool_dtype, const void* q, const void* pool,
+                             long long blk_stride, long long tok_stride, const void* tables,
+                             const void* tile_row, const void* tile_pos, const void* kv_lens,
+                             void* out, void* part_o, void* part_ml, void* plan, int tiles,
+                             int KV, int G, int gc, int hd, int bs, int W, int Bs, int M,
+                             int window, float scale, int split, int nsplit, void* stream) {
   if (!shapes_ok(hd, bs, G, gc, split, nsplit, M) || tiles <= 0 || tiles > 65535 || KV <= 0 ||
       gc > RAGGED_MAX_GC || plan == nullptr ||
       (nsplit > 1 && (part_o == nullptr || part_ml == nullptr)))
     return cudaErrorInvalidValue;
   auto st = static_cast<cudaStream_t>(stream);
-  const auto* qf = static_cast<const float*>(q);
-  const auto* pf = static_cast<const float*>(pool);
   const auto* tb = static_cast<const int*>(tables);
   const auto* tr = static_cast<const int*>(tile_row);
   const auto* tp = static_cast<const int*>(tile_pos);
   const auto* kl = static_cast<const int*>(kv_lens);
-  auto* of = static_cast<float*>(out);
   auto* po = static_cast<float*>(part_o);
   auto* pm = static_cast<float*>(part_ml);
   auto* pl = static_cast<int*>(plan);
-  cudaError_t err;
-  switch ((hd + 31) / 32) {
-    case 1:
-      err = launch_ragged<1>(qf, pf, blk_stride, tok_stride, tb, tr, tp, kl, of, po, pm, pl, tiles,
-                             KV, G, gc, hd, bs, W, Bs, M, window, scale, split, nsplit, st);
-      break;
-    case 2:
-      err = launch_ragged<2>(qf, pf, blk_stride, tok_stride, tb, tr, tp, kl, of, po, pm, pl, tiles,
-                             KV, G, gc, hd, bs, W, Bs, M, window, scale, split, nsplit, st);
-      break;
-    case 3:
-      err = launch_ragged<3>(qf, pf, blk_stride, tok_stride, tb, tr, tp, kl, of, po, pm, pl, tiles,
-                             KV, G, gc, hd, bs, W, Bs, M, window, scale, split, nsplit, st);
-      break;
-    default:
-      err = launch_ragged<4>(qf, pf, blk_stride, tok_stride, tb, tr, tp, kl, of, po, pm, pl, tiles,
-                             KV, G, gc, hd, bs, W, Bs, M, window, scale, split, nsplit, st);
-  }
-  if (err != cudaSuccess || nsplit == 1) return err;
-  return launch_merge(po, pm, of, tr, tp, kl, 1, tiles, QT, KV, G, hd, window, split, nsplit,
-                      st);
+  return with_types(q_dtype, pool_dtype, [&](auto tyq, auto typ) -> cudaError_t {
+    using TQ = typename decltype(tyq)::type;
+    using TP = typename decltype(typ)::type;
+    const auto* qt = static_cast<const TQ*>(q);
+    const auto* pt = static_cast<const TP*>(pool);
+    auto* ot = static_cast<TQ*>(out);
+    switch ((hd + 31) / 32) {
+      case 1:
+        return launch_ragged<1>(qt, pt, blk_stride, tok_stride, tb, tr, tp, kl, ot, po, pm, pl,
+                                tiles, KV, G, gc, hd, bs, W, Bs, M, window, scale, split,
+                                nsplit, st);
+      case 2:
+        return launch_ragged<2>(qt, pt, blk_stride, tok_stride, tb, tr, tp, kl, ot, po, pm, pl,
+                                tiles, KV, G, gc, hd, bs, W, Bs, M, window, scale, split,
+                                nsplit, st);
+      case 3:
+        return launch_ragged<3>(qt, pt, blk_stride, tok_stride, tb, tr, tp, kl, ot, po, pm, pl,
+                                tiles, KV, G, gc, hd, bs, W, Bs, M, window, scale, split,
+                                nsplit, st);
+      default:
+        return launch_ragged<4>(qt, pt, blk_stride, tok_stride, tb, tr, tp, kl, ot, po, pm, pl,
+                                tiles, KV, G, gc, hd, bs, W, Bs, M, window, scale, split,
+                                nsplit, st);
+    }
+  });
 }

@@ -12,9 +12,13 @@ Each wrapper takes the layouts of its TPU counterpart in
     tiles of :data:`QT` query rows.
 
 Tables are the ``(W, Bs, M)`` shard stack (slot ``b`` at shard ``b % W``,
-row ``b // W``).  On a CPU tensor a wrapper runs the plain version from
-``ref.py``; on a CUDA tensor it launches the kernel on the current stream
-or raises.  :data:`LAUNCHES` counts wrapper calls that launched a kernel.
+row ``b // W``).  q and the pool are each float32 or bfloat16
+(:data:`DTYPE_CODES`), independently; the kernels compute in float32
+and the output has q's dtype, as in the TPU kernels.  On a CPU tensor a
+wrapper runs the plain version from ``ref.py``; on a CUDA tensor it
+launches the kernel on the current stream or raises (on a dtype it does
+not take too: no cast, no plain run).  :data:`LAUNCHES` counts wrapper
+calls that launched a kernel.
 
 Both kernels split the key axis (``split.py``): the wrapper sizes the
 split count and the partial-result scratch from shapes alone (it never
@@ -42,6 +46,11 @@ QT = 8
 #: kernel wrapper calls since the last :func:`reset_launches` (each call
 #: may launch two or three kernels, see above)
 LAUNCHES = {"paged_decode": 0, "ragged": 0}
+
+#: the element types the kernels take, for q (and the output) and for the
+#: pool independently, and each one's code across the C boundary
+#: (``DT_F32``, ``DT_BF16`` in the .cu)
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 _SOURCES = (Path(__file__).parent / "csrc" / "paged_attention.cu",)
 _MAX_HD = 128
@@ -72,11 +81,11 @@ def _lib() -> ctypes.CDLL:
     p, ll, i, f = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, \
         ctypes.c_float
     lib.paged_decode_launch.argtypes = [
-        i, p, p, p, ll, ll, ll, p, p, p, p, p,
+        i, i, i, p, p, p, ll, ll, ll, p, p, p, p, p,
         i, i, i, i, i, i, i, i, i, i, f, i, i, p]
     lib.paged_decode_launch.restype = i
     lib.ragged_launch.argtypes = [
-        p, p, ll, ll, p, p, p, p, p, p, p, p,
+        i, i, p, p, ll, ll, p, p, p, p, p, p, p, p,
         i, i, i, i, i, i, i, i, i, i, f, i, i, p]
     lib.ragged_launch.restype = i
     return lib
@@ -87,12 +96,14 @@ def _heads_per_cta(G: int, cap: int) -> int:
     return max(d for d in range(1, min(G, cap) + 1) if G % d == 0)
 
 
-def _check(name: str, t: torch.Tensor, dtype: torch.dtype, device) -> None:
+def _check(name: str, t: torch.Tensor, dtypes, device) -> None:
+    """Device, dtype (one of ``dtypes``, those the kernel takes) and
+    contiguity of a kernel input."""
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if t.dtype != dtype:
+    if t.dtype not in dtypes:
         raise ValueError(f"{name} has dtype {t.dtype}, the kernel takes "
-                         f"{dtype}")
+                         f"{' or '.join(map(str, dtypes))}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
 
@@ -136,8 +147,8 @@ def _stream(device) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
 
 
-def _decode_launch(q, k_ptr, v_ptr, blk_stride, tok_stride, head_stride,
-                   tables, lengths, *, bs, window, depth):
+def _decode_launch(q, pool_dtype, k_ptr, v_ptr, blk_stride, tok_stride,
+                   head_stride, tables, lengths, *, bs, window, depth):
     B, KV, G, hd = q.shape
     W, Bs, M = tables.shape
     gc = _heads_per_cta(G, _DECODE_GC)
@@ -147,7 +158,8 @@ def _decode_launch(q, k_ptr, v_ptr, blk_stride, tok_stride, head_stride,
     nsplit = _split.num_splits(M * bs, _split.DECODE_SPLIT)
     scratch, ptrs = _scratch(out, nsplit)
     code = _lib().paged_decode_launch(
-        depth, q.data_ptr(), k_ptr, v_ptr, blk_stride, tok_stride,
+        depth, DTYPE_CODES[q.dtype], DTYPE_CODES[pool_dtype], q.data_ptr(),
+        k_ptr, v_ptr, blk_stride, tok_stride,
         head_stride, tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
         *ptrs, B, KV, G, gc, hd, bs, W, Bs, M, window or 0,
         hd ** -0.5, _split.DECODE_SPLIT, nsplit, _stream(q.device))
@@ -163,9 +175,9 @@ def _check_decode(q, tables, lengths, hd, bs):
         raise ValueError(f"shard stack covers {W * Bs} slots < batch {B}")
     if lengths.shape != (B,):
         raise ValueError(f"lengths shape {tuple(lengths.shape)} != ({B},)")
-    _check("q", q, torch.float32, q.device)
-    _check("tables", tables, torch.int32, q.device)
-    _check("lengths", lengths, torch.int32, q.device)
+    _check("q", q, DTYPE_CODES, q.device)
+    _check("tables", tables, (torch.int32,), q.device)
+    _check("lengths", lengths, (torch.int32,), q.device)
     _check_geometry(hd, bs)
 
 
@@ -186,11 +198,11 @@ def paged_attention_fwd(q: torch.Tensor, k_pool: torch.Tensor,
             window=window)
         return o.reshape(B, KV, G, hd)
     _check_decode(q, shard_tables, lengths, hd, bs)
-    _check("k_pool", k_pool, torch.float32, q.device)
-    _check("v_pool", v_pool, torch.float32, q.device)
+    _check("k_pool", k_pool, DTYPE_CODES, q.device)
+    _check("v_pool", v_pool, (k_pool.dtype,), q.device)
     return _decode_launch(
-        q, k_pool.data_ptr(), v_pool.data_ptr(), bs * KV * hd, KV * hd, hd,
-        shard_tables, lengths, bs=bs, window=window, depth=1)
+        q, k_pool.dtype, k_pool.data_ptr(), v_pool.data_ptr(), bs * KV * hd,
+        KV * hd, hd, shard_tables, lengths, bs=bs, window=window, depth=1)
 
 
 def paged_attention_fused_fwd(q: torch.Tensor, kv_pool: torch.Tensor,
@@ -216,12 +228,12 @@ def paged_attention_fused_fwd(q: torch.Tensor, kv_pool: torch.Tensor,
             window=window)
         return o.reshape(B, KV, G, hd)
     _check_decode(q, shard_tables, lengths, hd, bs)
-    _check("kv_pool", kv_pool, torch.float32, q.device)
+    _check("kv_pool", kv_pool, DTYPE_CODES, q.device)
     base = kv_pool.data_ptr()
     return _decode_launch(
-        q, base, base + hd * kv_pool.element_size(), bs * KV2 * hd,
-        KV2 * hd, 2 * hd, shard_tables, lengths, bs=bs, window=window,
-        depth=buffer_depth)
+        q, kv_pool.dtype, base, base + hd * kv_pool.element_size(),
+        bs * KV2 * hd, KV2 * hd, 2 * hd, shard_tables, lengths, bs=bs,
+        window=window, depth=buffer_depth)
 
 
 def ragged_fused_fwd(q: torch.Tensor, kv_pool: torch.Tensor,
@@ -263,9 +275,9 @@ def ragged_fused_fwd(q: torch.Tensor, kv_pool: torch.Tensor,
         return o.reshape(T, KV, G, hd)
     for name, t in (("tables", shard_tables), ("tile_row", tile_row),
                     ("tile_pos", tile_pos), ("kv_lens", kv_lens)):
-        _check(name, t, torch.int32, q.device)
-    _check("q", q, torch.float32, q.device)
-    _check("kv_pool", kv_pool, torch.float32, q.device)
+        _check(name, t, (torch.int32,), q.device)
+    _check("q", q, DTYPE_CODES, q.device)
+    _check("kv_pool", kv_pool, DTYPE_CODES, q.device)
     _check_geometry(hd, bs)
     out = torch.empty_like(q)
     if tiles == 0:
@@ -277,7 +289,8 @@ def ragged_fused_fwd(q: torch.Tensor, kv_pool: torch.Tensor,
     # the kernel's work list: (tile, split) items and two counters
     plan = torch.empty(tiles * nsplit + 2, dtype=torch.int32, device=q.device)
     code = _lib().ragged_launch(
-        q.data_ptr(), kv_pool.data_ptr(), bs * KV2 * hd, KV2 * hd,
+        DTYPE_CODES[q.dtype], DTYPE_CODES[kv_pool.dtype], q.data_ptr(),
+        kv_pool.data_ptr(), bs * KV2 * hd, KV2 * hd,
         shard_tables.data_ptr(), tile_row.data_ptr(), tile_pos.data_ptr(),
         kv_lens.data_ptr(), out.data_ptr(), *ptrs, plan.data_ptr(), tiles,
         KV, G, gc, hd, bs, W, Bs, M, window or 0, hd ** -0.5, split, nsplit,

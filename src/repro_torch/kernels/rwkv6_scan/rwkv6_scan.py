@@ -86,7 +86,7 @@ def rwkv6_scan_fwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                          (r, k, v, w)), u, S0)
         return y.transpose(1, 2), s_last
     for name, t in (("u", u), ("S0", S0)):
-        _check(name, t, torch.float32, r.device)
+        _check(name, t, (torch.float32,), r.device)
         if t.data_ptr() % 16:
             raise ValueError(f"{name} is not 16-byte aligned")
     for name, t in (("r", r), ("k", k), ("v", v), ("w", w)):

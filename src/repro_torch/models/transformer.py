@@ -469,7 +469,7 @@ def _paged_attn(q, kv_pool, tables, lengths, *, page_impl, window,
         from repro_torch.kernels.paged_attention import autotune
         from repro_torch.kernels.paged_attention import ops as pa_ops
         _, bs, KV2, hd = kv_pool.shape
-        tuned = autotune.get_tuning(KV2 // 2, hd, bs)
+        tuned = autotune.get_tuning(KV2 // 2, hd, bs, dtype=kv_pool.dtype)
         return pa_ops.paged_attention(q, kv_pool, tables, lengths,
                                       window=window,
                                       buffer_depth=tuned.buffer_depth)

@@ -1029,7 +1029,8 @@ class Engine:
             from repro_torch.kernels.paged_attention import autotune as pa_at
             tuned = pa_at.get_tuning(self.cfg.n_kv_heads,
                                      self.cfg.head_dim,
-                                     self.cache.block_size)
+                                     self.cache.block_size,
+                                     dtype=self.config.dtype)
             d["kernel"] = {
                 "dma_bytes": self._kernel_dma_bytes,
                 "kernel_calls": self._kernel_calls,

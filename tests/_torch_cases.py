@@ -79,6 +79,18 @@ RAGGED = [dict(W=1, window=None), dict(W=2, window=None),
           dict(W=4, window=None), dict(W=2, window=50)]
 
 
+#: the (q, pool) element types the paged-attention kernels take besides
+#: (float32, float32), by torch dtype name: the output has q's
+BF16_PAIRS = [("float32", "bfloat16"), ("bfloat16", "bfloat16"),
+              ("bfloat16", "float32")]
+
+#: head_dim 36: a multiple of 4 but not of 8, so a bf16 row's V half and
+#: odd heads sit 8 bytes off 16 (the kernels copy such rows 8 bytes at a
+#: time)
+PAGED_HD36 = [dict(W=1, hd=36), dict(W=2, hd=36, window=200)]
+RAGGED_HD36 = [dict(W=1, window=None, hd=36), dict(W=2, window=50, hd=36)]
+
+
 def paged_split_case(seed, *, G, KV, hd, W, window=None, bs=128, M=20):
     """Decode inputs whose key axis spans many splits of
     ``DECODE_SPLIT`` keys (M * bs = 2560 keys): lengths of split - 1,

@@ -29,8 +29,9 @@ from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.mla_attention import ref as tmref  # noqa: E402
 from repro_torch.kernels.mla_attention import split as tmsplit  # noqa: E402
 from repro_torch.kernels.rwkv6_scan import ref as trkref  # noqa: E402
-from _torch_cases import (FLASH, MAMBA, MLA, MLA_SPLITS, PAGED,  # noqa: E402
-                          PAGED_SPLITS, RAGGED, RAGGED_SPLITS, RWKV6,
+from _torch_cases import (BF16_PAIRS, FLASH, MAMBA, MLA,  # noqa: E402
+                          MLA_SPLITS, PAGED, PAGED_HD36, PAGED_SPLITS,
+                          RAGGED, RAGGED_HD36, RAGGED_SPLITS, RWKV6,
                           RWKV6_CHUNKED, flash_case, mamba_case, mla_case,
                           mla_split_case, paged_case, paged_split_case,
                           ragged_case, ragged_split_case, rand, rwkv6_case,
@@ -144,6 +145,148 @@ def test_ragged_kernel_splits_match_plain_on_card(cuda, case):
     assert torch.equal(got, again)
     close(got.cpu()[real], plain[real].numpy())
     assert not got.cpu()[~real].any()
+
+
+# ------------------------------------------------ bf16 pools and queries
+# The kernels upcast every element to f32 where they read it and compute
+# in f32, as the TPU kernels do, so a call in any (q, pool) pair of
+# element types equals the f32 kernel on the upcast inputs, rounded once
+# to q's type: bit for bit, no tolerance.
+PAGED_DTYPE_CASES = ([("paged", c) for c in PAGED]
+                     + [("split", c) for c in PAGED_SPLITS]
+                     + [("paged", c) for c in PAGED_HD36])
+RAGGED_DTYPE_CASES = ([("ragged", c) for c in RAGGED]
+                      + [("split", c) for c in RAGGED_SPLITS]
+                      + [("ragged", c) for c in RAGGED_HD36])
+
+
+def _decode_inputs(kind, case, cuda):
+    c = (paged_split_case(26, **case) if kind == "split"
+         else paged_case(26, **case))
+    B, H, hd = c["q"].shape
+    KV = c["kv"].shape[2] // 2
+    return (t(c["q"], cuda).reshape(B, KV, H // KV, hd), t(c["kv"], cuda),
+            t(c["stack"], cuda), t(c["lengths"], cuda), c["window"])
+
+
+def _ragged_inputs(kind, case, cuda):
+    """q (T, H, hd), pool, stack, tile_row, tile_pos, kv_lens (one per slot:
+    ``ops.ragged_paged_attention`` pads them to the stack's slots), window."""
+    c = (ragged_split_case(27, **case) if kind == "split"
+         else ragged_case(27, **case))
+    d = c["d"]
+    return (t(c["q"], cuda), t(c["kv"], cuda), t(c["stack"], cuda),
+            t(d["tile_row"], cuda), t(d["tile_pos"], cuda),
+            t(d["kv_lens"], cuda), c["window"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q_dtype,pool_dtype", BF16_PAIRS)
+@pytest.mark.parametrize("kind,case", PAGED_DTYPE_CASES, ids=str)
+def test_decode_kernel_in_bf16_is_the_f32_kernel_rounded_on_card(
+        cuda, kind, case, q_dtype, pool_dtype):
+    """Fused at depths 1/2/4 (bit-identical) and over split pools: the
+    output has q's dtype and equals the f32 kernel on the upcast inputs
+    rounded to it."""
+    qd, pd = getattr(torch, q_dtype), getattr(torch, pool_dtype)
+    q, kv, stack, lengths, window = _decode_inputs(kind, case, cuda)
+    q, kv = q.to(qd), kv.to(pd)
+    kp, vp = kv[:, :, 0::2].contiguous(), kv[:, :, 1::2].contiguous()
+    before = tpa.LAUNCHES["paged_decode"]
+    outs = [tpa.paged_attention_fused_fwd(q, kv, stack, lengths,
+                                          window=window, buffer_depth=d)
+            for d in (1, 2, 4)]
+    split = tpa.paged_attention_fwd(q, kp, vp, stack, lengths, window=window)
+    want = tpa.paged_attention_fused_fwd(q.float(), kv.float(), stack,
+                                         lengths, window=window).to(qd)
+    want_split = tpa.paged_attention_fwd(q.float(), kp.float(), vp.float(),
+                                         stack, lengths,
+                                         window=window).to(qd)
+    torch.cuda.synchronize()
+    assert tpa.LAUNCHES["paged_decode"] == before + 6
+    for got in (*outs, split):
+        assert got.dtype == qd and torch.isfinite(got).all()
+    assert all(torch.equal(outs[0], o) for o in outs[1:])
+    assert torch.equal(outs[0], want)
+    assert torch.equal(split, want_split)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q_dtype,pool_dtype", BF16_PAIRS)
+@pytest.mark.parametrize("kind,case", RAGGED_DTYPE_CASES, ids=str)
+def test_ragged_kernel_in_bf16_is_the_f32_kernel_rounded_on_card(
+        cuda, kind, case, q_dtype, pool_dtype):
+    """Every row, padding included: the output has q's dtype and equals
+    the f32 kernel on the upcast inputs rounded to it."""
+    qd, pd = getattr(torch, q_dtype), getattr(torch, pool_dtype)
+    q, kv, stack, trow, tpos, kvl, window = _ragged_inputs(kind, case, cuda)
+    q, kv = q.to(qd), kv.to(pd)
+    got = _launched(tpa, "ragged", lambda: tops.ragged_paged_attention(
+        q, kv, stack, trow, tpos, kvl, window=window))
+    want = tops.ragged_paged_attention(q.float(), kv.float(), stack, trow,
+                                       tpos, kvl, window=window).to(qd)
+    torch.cuda.synchronize()
+    assert got.dtype == qd and torch.isfinite(got).all()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bad", ["float16", "float64"])
+@pytest.mark.parametrize("which", ["q", "pool"])
+def test_kernels_refuse_other_dtypes_on_card(cuda, bad, which):
+    """f16 and f64 raise ValueError naming what the kernels take: no cast,
+    no plain run, no launch."""
+    bd = getattr(torch, bad)
+    q, kv, stack, lengths, _ = _decode_inputs("paged", PAGED[0], cuda)
+    rq, rkv, rstack, trow, tpos, kvl, _ = _ragged_inputs("ragged",
+                                                         RAGGED[0], cuda)
+    if which == "q":
+        q, rq = q.to(bd), rq.to(bd)
+    else:
+        kv, rkv = kv.to(bd), rkv.to(bd)
+    kp, vp = kv[:, :, 0::2].contiguous(), kv[:, :, 1::2].contiguous()
+    before = dict(tpa.LAUNCHES)
+    calls = (lambda: tpa.paged_attention_fused_fwd(q, kv, stack, lengths),
+             lambda: tpa.paged_attention_fwd(q, kp, vp, stack, lengths),
+             lambda: tops.ragged_paged_attention(rq, rkv, rstack, trow, tpos,
+                                                 kvl))
+    for call in calls:
+        with pytest.raises(ValueError, match="float32 or torch.bfloat16"):
+            call()
+    assert dict(tpa.LAUNCHES) == before
+
+
+@pytest.mark.cuda
+def test_split_pools_of_two_dtypes_are_refused_on_card(cuda):
+    q, kv, stack, lengths, _ = _decode_inputs("paged", PAGED[0], cuda)
+    kp, vp = kv[:, :, 0::2].contiguous(), kv[:, :, 1::2].contiguous()
+    with pytest.raises(ValueError, match="v_pool has dtype"):
+        tpa.paged_attention_fwd(q, kp, vp.to(torch.bfloat16), stack, lengths)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", ["q", "pool"])
+def test_entry_points_refuse_an_unknown_dtype_code_on_card(cuda, which,
+                                                          monkeypatch):
+    """``paged_decode_launch`` and ``ragged_launch`` return an error for a
+    dtype code they do not know (here bf16's code replaced by 7), and the
+    wrappers raise it: a buffer is never read as another type."""
+    q, kv, stack, lengths, _ = _decode_inputs("paged", PAGED[0], cuda)
+    rq, rkv, rstack, trow, tpos, kvl, _ = _ragged_inputs("ragged",
+                                                         RAGGED[0], cuda)
+    if which == "q":
+        q, rq = q.bfloat16(), rq.bfloat16()
+    else:
+        kv, rkv = kv.bfloat16(), rkv.bfloat16()
+    monkeypatch.setitem(tpa.DTYPE_CODES, torch.bfloat16, 7)
+    before = dict(tpa.LAUNCHES)
+    with pytest.raises(RuntimeError, match="paged_decode_kernel launch "
+                                           "failed: CUDA error"):
+        tpa.paged_attention_fused_fwd(q, kv, stack, lengths)
+    with pytest.raises(RuntimeError, match="ragged_kernel launch failed: "
+                                           "CUDA error"):
+        tops.ragged_paged_attention(rq, rkv, rstack, trow, tpos, kvl)
+    assert dict(tpa.LAUNCHES) == before
 
 
 @pytest.mark.cuda
@@ -313,7 +456,7 @@ def test_wrappers_raise_when_the_library_fails_to_load(cuda, monkeypatch):
     def broken(sources):
         raise RuntimeError("nvcc failed (test)")
     monkeypatch.setattr(_build, "load", broken)
-    for mod in (tmk, trk):
+    for mod in (tmk, trk, tpa):
         mod._lib.cache_clear()
     try:
         m = mla_case(22, **MLA[0])
@@ -327,9 +470,23 @@ def test_wrappers_raise_when_the_library_fails_to_load(cuda, monkeypatch):
         with pytest.raises(RuntimeError, match="nvcc failed"):
             trkops.rwkv6_scan(*rargs)
         assert (tmk.LAUNCHES["mla_ctx"], trk.LAUNCHES["rwkv6_scan"]) == before
+        # the paged kernels, on bf16 pools and queries as on f32 ones
+        q, kv, stack, lengths, _ = _decode_inputs("paged", PAGED[0], cuda)
+        rq, rkv, rstack, trow, tpos, kvl, _ = _ragged_inputs(
+            "ragged", RAGGED[0], cuda)
+        paged = dict(tpa.LAUNCHES)
+        for qd, pd in [("float32", "float32"), *BF16_PAIRS]:
+            qd, pd = getattr(torch, qd), getattr(torch, pd)
+            with pytest.raises(RuntimeError, match="nvcc failed"):
+                tpa.paged_attention_fused_fwd(q.to(qd), kv.to(pd), stack,
+                                              lengths)
+            with pytest.raises(RuntimeError, match="nvcc failed"):
+                tops.ragged_paged_attention(rq.to(qd), rkv.to(pd), rstack,
+                                            trow, tpos, kvl)
+        assert dict(tpa.LAUNCHES) == paged
     finally:
         monkeypatch.undo()
-        for mod in (tmk, trk):
+        for mod in (tmk, trk, tpa):
             mod._lib.cache_clear()
 
 
@@ -544,6 +701,23 @@ def test_autotune_records_a_depth_on_card(cuda):
                 t(c["lengths"], cuda))
         tuned = tops.paged_attention(*args, buffer_depth=tuning.buffer_depth)
         assert torch.equal(tuned, tops.paged_attention(*args, buffer_depth=2))
+    finally:
+        ttune.clear()
+
+
+@pytest.mark.cuda
+def test_autotune_records_a_bf16_depth_on_its_own_key_on_card(cuda):
+    """``autotune(dtype=bfloat16)`` times a bf16 pool and records under
+    the bf16 key; the f32 key keeps its default until tuned itself."""
+    from repro_torch.kernels.paged_attention import autotune as ttune
+    try:
+        tuning = ttune.autotune(2, 16, 128, 4, batch=5, group=2, reps=5,
+                                dtype=torch.bfloat16)
+        assert sorted(tuning.ms) == list(ttune.BUFFER_DEPTHS)
+        assert ttune.get_tuning(2, 16, 128, dtype=torch.bfloat16) == tuning
+        assert ttune.get_tuning(2, 16, 128).ms is None
+        assert ttune.tuning_key(2, 16, 128) != ttune.tuning_key(
+            2, 16, 128, dtype=torch.bfloat16)
     finally:
         ttune.clear()
 
