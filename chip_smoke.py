@@ -29,10 +29,20 @@ of which fails the script:
      and 2 for P.V, and ``bf16_bound_bf16tc_ms`` the bf16 tensor-core
      peak);
    - flash attention at Jamba's attention widths (causal, S=4096, H=32,
-     KV=8, hd=128) and h2o-danube-3-4b's (window 4096, S=6144, hd=120);
+     KV=8, hd=128) and h2o-danube-3-4b's (window 4096, S=6144, hd=120),
+     then in the three (q, k/v) pairs of f32 and bf16: each output has q's
+     dtype and equals the f32 kernel on the upcast inputs rounded to it,
+     bit for bit, and is within one bf16 ulp (bf16 output) or 2e-5 x
+     max(1, max|want|) (f32 output) of its plain version; timed again
+     with q, k and v in bf16 (``bf16_*`` fields of row 5);
    - at DeepSeek-V2 shapes (H=128, rank=512, rope=64, bs=128, B=8, M=16)
      the absorbed-MLA paged decode kernel, with W in {1, 4}, holes and a
-     slot of length 0;
+     slot of length 0, then in the three (queries, pools) pairs: the f32
+     context equals the f32 kernel on the upcast inputs, bit for bit;
+     timed again in the decode path's pair, f32 queries over bf16 pools
+     (``bf16_*`` fields of row 6, whose bound counts 2 TF32 passes for
+     Q.K^T, one operand being f32, and 2 for P.V); the f32 hashes also
+     cover flash (Jamba, danube, hd 36) and MLA (W 1 and 4);
    - the Mamba selective scan at Jamba's widths (B=2, S=2000, DI=8192,
      N=16; B and C column views of the x_proj output, as the model makes
      them) and the RWKV-6 WKV scan at RWKV-6-7B's (B=2, S=2000, 64 heads
@@ -72,10 +82,13 @@ of which fails the script:
    with f32 weights (f32 queries and logits) over a bf16 pool, chunked
    path, under the f32 rule;
 5. serve DeepSeek-V2 at its published widths, cut to 4 layers (layer 0
-   dense, 1-3 MoE; random f32 weights), through monolithic prefill and
-   paged MLA decode (the MLA kernel) against ``page_impl="ref"``, check
-   the MLA kernel ran once per layer per decode step, and print the
-   stream time its calls spanned;
+   dense, 1-3 MoE; random weights), through monolithic prefill and paged
+   MLA decode (the MLA kernel) against ``page_impl="ref"``, the kernel
+   run teacher-forced (the oracle runs first): in f32 under the f32
+   near-tie rule, then with bf16 weights over a bf16 latent pool
+   (``EngineConfig(dtype=bfloat16)``; the queries stay f32) under the
+   bf16 rule; check the MLA kernel ran once per layer per decode step in
+   each, and print tokens/s and the stream time its calls spanned;
 6. Jamba-v0.1 at its published widths cut to one 8-layer period, then
    RWKV-6-7B whole (random f32 weights): ``prefill(impl="kernel")`` of 2
    prompts of 1000 tokens and 16 greedy ``decode_step``s against the
@@ -84,7 +97,10 @@ of which fails the script:
    Jamba ``attn_layer(impl="kernel")`` (flash attention) on its attention
    layer; each path's launches are counted on their own, and the stream
    time the scan op's calls spanned in prefill and in ``loss_fn`` is
-   printed;
+   printed; Jamba's attention layer again with bf16 weights and input,
+   and h2o-danube-3-4b's layer 0 at its widths in bf16 on (1, 6144,
+   3840) (window 4096, hd 120), each ``attn_layer(impl="kernel")`` (one
+   flash launch) within 3e-2 x max(1, max|want|) of ``impl="chunked"``;
 7. whisper-small whole (12 decoder + 12 encoder layers over 1500 frames;
    random f32 weights and frames): ``prefill(enc_frames=...)`` of 2
    prompts of 200 tokens and 16 greedy ``decode_step``s through the paged
@@ -116,7 +132,7 @@ of which fails the script:
    sequences of 300-2500 tokens, and the SP absorbed-MLA context at
    DeepSeek-V2's widths, against the single-device kernels and their
    plain versions (2e-5), with each rank's ms per call; (b) granite-3-8b
-   at its published widths cut to 8 layers, ``prefill(mesh=)`` of 2 x
+   at its published widths cut to 4 layers, ``prefill(mesh=)`` of 2 x
    1000 tokens and 16 greedy ``decode_step(page_impl="sp")`` steps, whose
    tokens must equal the single-process ``page_impl="ref"`` oracle run
    here first (but at near-ties) on both ranks, launching no kernel; (c)
@@ -205,13 +221,13 @@ of which fails the script:
    and whose resident state must be within 2% of the measured; (e1)'s
    training step, prefill and decode replayed the same way as rank 0 of
    3 fake ranks; (b)
-   granite-3-8b cut to 10 of 40 layers x train_4k on the 256-rank fake
+   granite-3-8b cut to 4 of 40 layers x train_4k on the 256-rank fake
    production mesh (meta tensors; its attention tensor-parallel with
    the 8 KV heads whole on every rank), its record line and useful-FLOP
    share printed.
 
-Prints the card's name and power limit, tokens/s per run, the script's
-wall time, one
+Prints the card's name and power limit, tokens/s per run, one wall-time
+line per phase, the script's wall time, one
 ``{"kernels": [...]}`` JSON line (one entry per TPU kernel of the
 reference) and, last, ``{"ok": true, "device": {...}}``.  Exits non-zero,
 printing no result, without a CUDA device or without the rest of the
@@ -340,15 +356,28 @@ def bound(nbytes: float, flops: float) -> tuple[float, str]:
     return (max(t_b, t_f) * 1e3, "bytes" if t_b >= t_f else "operations")
 
 
-def bound_bf16(nbytes: float, flops: float) -> tuple[float, str, float]:
-    """The bound of attention over bf16 q and pool computed exactly in
-    f32: ``flops`` split evenly between Q.K^T and P.V.  A bf16 value is
-    exact in TF32, so Q.K^T needs one TF32 tensor-core pass and P.V two
-    (P's high and low TF32 halves against an exact V): 1.5 passes a
-    product.  Returns (ms, what bounds it, the bound at the bf16
-    tensor-core peak, which would round P to bf16)."""
-    t_b, t_f = nbytes / PEAK_BYTES_S, 1.5 * flops / PEAK_TF32_S
-    tc_ms = max(t_b, flops / PEAK_BF16_S) * 1e3
+def tf32_passes(a_bf16: bool, b_bf16: bool) -> int:
+    """TF32 tensor-core passes of an exact f32 product of two operands: a
+    bf16 value is exact in TF32 (one part), an f32 value is two (its high
+    and low TF32 halves), and the cross term of two low halves is
+    dropped, as 3xTF32 does: 1 pass for bf16 x bf16, 2 for one f32
+    operand, 3 for two."""
+    return 3 - a_bf16 - b_bf16
+
+
+def bound_bf16(nbytes: float, qk_flops: float, pv_flops: float, *,
+               q_bf16: bool, kv_bf16: bool) -> tuple[float, str, float]:
+    """The bound of attention computed exactly in f32 over inputs of which
+    q and/or the keys and values are bf16: Q.K^T's ``qk_flops`` at
+    ``tf32_passes(q, k)`` passes, P.V's ``pv_flops`` at ``tf32_passes(P,
+    v)`` (P is f32: 2 passes over a bf16 V, 3 over an f32 one), and
+    ``nbytes`` counted at each input's element size by the caller.
+    Returns (ms, what bounds it, the bound at the bf16 tensor-core peak,
+    which would round q and P to bf16)."""
+    t_b = nbytes / PEAK_BYTES_S
+    t_f = (tf32_passes(q_bf16, kv_bf16) * qk_flops
+           + tf32_passes(False, kv_bf16) * pv_flops) / PEAK_TF32_S
+    tc_ms = max(t_b, (qk_flops + pv_flops) / PEAK_BF16_S) * 1e3
     return (max(t_b, t_f) * 1e3, "bytes" if t_b >= t_f else "operations",
             tc_ms)
 
@@ -524,20 +553,27 @@ HASH_DECODE = (dict(W=1, holes=True, window=None),
 HASH_RAGGED = (dict(window=None), dict(window=700),
                dict(window=None, kv=2, g=2, hd=64),
                dict(window=300, kv=2, g=4, hd=96))
+# flash at Jamba's (causal) and danube's (window) widths and at hd 36 (rows
+# of 8-byte bf16 copies); MLA at DeepSeek-V2's widths, 8 splits a slot
+HASH_FLASH = (dict(B=1, S=4096, H=32, KV=8, hd=128, window=None),
+              dict(B=1, S=6144, H=32, KV=8, hd=120, window=4096),
+              dict(B=2, S=1000, H=4, KV=2, hd=36, window=None))
+HASH_MLA = (1, 4)
 
 
-def pair_name(qn: str, pn: str) -> str:
+def pair_name(qn: str, pn: str, other: str = "pool") -> str:
     short = {"float32": "f32", "bfloat16": "bf16"}
-    return f"q {short[qn]} / pool {short[pn]}"
+    return f"q {short[qn]} / {other} {short[pn]}"
 
 
-def plain_err(torch, got, plain, what: str) -> float:
+def plain_err(torch, got, plain, what: str, scale: float = 1.0) -> float:
     """Max abs error of a kernel output against its plain version at the
-    same dtypes, gated at TOL for an f32 output and one bf16 ulp for a
-    bf16 one."""
+    same dtypes, gated at TOL x ``scale`` for an f32 output and one bf16
+    ulp for a bf16 one."""
     err = (got.float() - plain.float()).abs()
     if got.dtype == torch.float32:
-        bad = not math.isfinite(err.max().item()) or err.max().item() > TOL
+        bad = (not math.isfinite(err.max().item())
+               or err.max().item() > TOL * scale)
     else:
         lim = BF16_TOL["atol"] + BF16_TOL["rtol"] * plain.float().abs()
         bad = not bool(torch.isfinite(err).all()) or bool((err > lim).any())
@@ -548,13 +584,16 @@ def plain_err(torch, got, plain, what: str) -> float:
 
 
 def f32_hashes(torch, seed: int) -> dict:
-    """sha256 of the f32 output of each paged kernel on seeded cases:
+    """sha256 of the f32 output of each attention kernel on seeded cases:
     decode fused (depth 1) and over split pools in the HASH_DECODE cases,
-    ragged in the HASH_RAGGED cases.  The same
+    ragged in the HASH_RAGGED cases, flash (causal) in the HASH_FLASH
+    cases and MLA at DeepSeek-V2's widths with W in HASH_MLA.  The same
     function run against another checkout's package
     (``tools/paged_f32_hashes.py --root DIR``) says whether its f32
     kernels give the same bits."""
     import hashlib
+    from repro_torch.kernels.flash_attention import flash_attention as fak
+    from repro_torch.kernels.mla_attention import mla_attention as mk
     from repro_torch.kernels.paged_attention import paged_attention as pa
     gen = torch.Generator(device=DEVICE).manual_seed(seed + 101)
     outs = {}
@@ -578,6 +617,17 @@ def f32_hashes(torch, seed: int) -> dict:
             c["q"], c["kv_pool"], stack_tables(torch, c["tables"], 1),
             c["tile_row"], c["tile_pos"], c["kv_lens"],
             window=case["window"])
+    for case in HASH_FLASH:
+        q, k, v = flash_inputs(torch, gen, **case)
+        outs[f"flash {label(case)}"] = fak.flash_attention_fwd(
+            *(x.transpose(1, 2).contiguous() for x in (q, k, v)),
+            causal=True, window=case["window"])
+        del q, k, v
+    for W in HASH_MLA:
+        c = mla_case(torch, gen, W=W)
+        outs[f"mla W={W}"] = mk.mla_paged_ctx_fwd(
+            c["q_lat"], c["q_rope"], c["c"], c["kr"], c["stack"],
+            c["lengths"], scale=MLA_SCALE)
     torch.cuda.synchronize()
     return {k: hashlib.sha256(v.cpu().numpy().tobytes()).hexdigest()
             for k, v in outs.items()}
@@ -683,7 +733,8 @@ def kernel_phase(torch, seed: int) -> list[dict]:
     qb, pb = q.bfloat16(), pool.bfloat16()
     kb, vb = k_pool.bfloat16(), v_pool.bfloat16()
     _, nbytes16, _ = decode_work(c, pool_es=2, q_es=2)
-    b16_ms, b16_by, tc16_ms = bound_bf16(nbytes16, flops)
+    b16_ms, b16_by, tc16_ms = bound_bf16(nbytes16, flops / 2, flops / 2,
+                                         q_bf16=True, kv_bf16=True)
     plain16_ms = time_ms(torch, lambda: ref.paged_decode_attention_fused_ref(
         qb.reshape(B, KV * G, HD), pb, stack, lengths))
     lib16_ms = time_ms(torch, sdpa_decode(torch, dict(c, q=qb, kv_pool=pb)))
@@ -824,7 +875,8 @@ def kernel_phase(torch, seed: int) -> list[dict]:
     # bf16 inputs let the tensor cores do in 1.5 TF32 passes, not 3
     c16 = dict(c, q=c["q"].bfloat16(), kv_pool=c["kv_pool"].bfloat16())
     nbytes16, _ = ragged_work(c, pool_es=2, q_es=2)
-    b16_ms, b16_by, tc16_ms = bound_bf16(nbytes16, flops)
+    b16_ms, b16_by, tc16_ms = bound_bf16(nbytes16, flops / 2, flops / 2,
+                                         q_bf16=True, kv_bf16=True)
     def run16():
         return pa.ragged_fused_fwd(c16["q"], c16["kv_pool"], stack,
                                    c["tile_row"], c["tile_pos"],
@@ -975,17 +1027,18 @@ def mla_case(torch, gen, *, W):
         tables=tables, stack=stack_tables(torch, tables, W), lengths=lengths)
 
 
-def mla_work(c):
-    """(visible tokens, bytes, flops) this case's data needs: each visible
-    latent row read once, the queries read, the context written."""
+def mla_work(c, pool_es: int = 4, q_es: int = 4):
+    """(visible tokens, bytes, Q.K^T flops, P.V flops) this case's data
+    needs: each visible latent row read once (elements of ``pool_es``
+    bytes), the queries read (``q_es``), the f32 context written."""
     tables = c["tables"].cpu().numpy()
     tokens = sum(1 for b, n in enumerate(c["lengths"].cpu().tolist())
                  for pos in range(n) if tables[b, pos // BS] >= 0)
-    nbytes = (tokens * (RANK + ROPE) * 4
-              + MLA_B * MLA_H * (2 * RANK + ROPE) * 4
+    nbytes = (tokens * (RANK + ROPE) * pool_es
+              + MLA_B * MLA_H * ((RANK + ROPE) * q_es + RANK * 4)
               + tables.size * 4 + MLA_B * 4)
-    flops = tokens * MLA_H * (2 * (RANK + ROPE) + 2 * RANK)
-    return tokens, nbytes, flops
+    return (tokens, nbytes, tokens * MLA_H * 2 * (RANK + ROPE),
+            tokens * MLA_H * 2 * RANK)
 
 
 def sdpa_mla(torch, c):
@@ -1008,11 +1061,16 @@ def sdpa_mla(torch, c):
 
 
 def mla_kernel_phase(torch, seed: int) -> dict:
+    """The MLA kernel at DeepSeek-V2's widths against its plain version,
+    in f32 and in the three (queries, pools) pairs of f32 and bf16 (each
+    the f32 kernel on the upcast inputs, bit for bit), timed in f32 and
+    in the decode path's pair (f32 queries over bf16 pools)."""
     from repro_torch.kernels.mla_attention import mla_attention as mk
     from repro_torch.kernels.mla_attention import ref as mref
     from repro_torch.kernels.mla_attention import split as msplit
     gen = torch.Generator(device=DEVICE).manual_seed(seed + 1)
     err = 0.0
+    pair_err = {pair_name(*p): 0.0 for p in BF16_PAIRS}
     for W in (1, 4):
         c = mla_case(torch, gen, W=W)
         args = (c["q_lat"], c["q_rope"], c["c"], c["kr"], c["stack"],
@@ -1030,10 +1088,29 @@ def mla_kernel_phase(torch, seed: int) -> dict:
         err = max(err, e)
         print(f"mla W={W} holes=True zero-length slot: max abs err vs plain "
               f"{e:.3g}")
+        for qn, pn in BF16_PAIRS:
+            qd, pd = getattr(torch, qn), getattr(torch, pn)
+            what = f"mla {pair_name(qn, pn)} W={W}"
+            a16 = (c["q_lat"].to(qd), c["q_rope"].to(qd), c["c"].to(pd),
+                   c["kr"].to(pd), c["stack"], c["lengths"])
+            got = mk.mla_paged_ctx_fwd(*a16, scale=MLA_SCALE)
+            want = mk.mla_paged_ctx_fwd(*(x.float() for x in a16[:4]),
+                                        *a16[4:], scale=MLA_SCALE)
+            plain = mref.mla_paged_ctx_ref(*a16, scale=MLA_SCALE)
+            torch.cuda.synchronize()
+            if got.dtype != torch.float32 or not torch.equal(got, want):
+                fail(f"{what}: not the f32 kernel on the upcast inputs")
+            e = plain_err(torch, got, plain, what)
+            key = pair_name(qn, pn)
+            pair_err[key] = max(pair_err[key], e)
+            print(f"{what}: == the f32 kernel on the upcast inputs (f32 "
+                  f"context); max abs err vs plain {e:.3g}")
+            del a16, got, want, plain
     c = mla_case(torch, gen, W=1)
     args = (c["q_lat"], c["q_rope"], c["c"], c["kr"], c["stack"],
             c["lengths"])
-    tokens, nbytes, flops = mla_work(c)
+    tokens, nbytes, qk, pv = mla_work(c)
+    flops = qk + pv
     b_ms, b_by = bound(nbytes, flops)
     def run():
         return mk.mla_paged_ctx_fwd(*args, scale=MLA_SCALE)
@@ -1052,10 +1129,38 @@ def mla_kernel_phase(torch, seed: int) -> dict:
           f"ms; {tokens} visible latent rows, {flops / g_ms / 1e9:.2f} "
           f"TFLOP/s; split-K {nsplit} splits of {msplit.MLA_SPLIT} tokens, "
           f"scratch {msplit.scratch_bytes(c['q_lat'].shape, nsplit)} bytes")
+    # the decode path's pair: f32 queries (absorbed through W_UK in f32)
+    # over bf16 pools; Q.K^T takes 2 TF32 passes (one f32 operand), P.V 2
+    args16 = (c["q_lat"], c["q_rope"], c["c"].bfloat16(), c["kr"].bfloat16(),
+              c["stack"], c["lengths"])
+    _, nbytes16, _, _ = mla_work(c, pool_es=2, q_es=4)
+    b16_ms, b16_by, tc16_ms = bound_bf16(nbytes16, qk, pv, q_bf16=False,
+                                         kv_bf16=True)
+    def run16():
+        return mk.mla_paged_ctx_fwd(*args16, scale=MLA_SCALE)
+    ms16, g16_ms = time_ms(torch, run16), graph_ms(torch, run16)
+    plain16_ms = time_ms(torch, lambda: mref.mla_paged_ctx_ref(
+        *args16, scale=MLA_SCALE))
+    # SDPA takes one dtype: q rounded to bf16 as well
+    lib16_ms = time_ms(torch, sdpa_mla(torch, dict(
+        c, q_lat=c["q_lat"].bfloat16(), q_rope=c["q_rope"].bfloat16(),
+        c=args16[2], kr=args16[3])))
+    print(f"mla q f32 / pool bf16: {ms16:.4f} ms per eager call, "
+          f"{g16_ms:.4f} ms as a graph replay ({nbytes16 / g16_ms / 1e6:.1f} "
+          f"GB/s, {flops / g16_ms / 1e9:.2f} TFLOP/s); bound {b16_ms:.4f} ms "
+          f"by {b16_by} (2 TF32 passes for Q.K^T, 2 for P.V; "
+          f"{b16_ms / g16_ms:.1%} of it as a replay), bf16 tensor-core peak "
+          f"{tc16_ms:.4f} ms; plain {plain16_ms:.4f} ms, sdpa bf16 "
+          f"{lib16_ms:.4f} ms")
     return dict(name="mla_ctx_kernel", route="cuda", source=MLA_CU,
                 replaces=f"{MLA_PY}:86", launches=0, max_abs_err=err, ms=ms,
                 graph_ms=g_ms, plain_ms=plain_ms, bound_ms=b_ms,
-                bound_by=b_by, bound_3xtf32_ms=tc_ms, library_ms=lib_ms)
+                bound_by=b_by, bound_3xtf32_ms=tc_ms, library_ms=lib_ms,
+                bf16_pair=pair_name("float32", "bfloat16"),
+                bf16_max_abs_err=pair_err, bf16_launches=0, bf16_ms=ms16,
+                bf16_graph_ms=g16_ms, bf16_plain_ms=plain16_ms,
+                bf16_bound_ms=b16_ms, bf16_bound_by=b16_by,
+                bf16_bound_bf16tc_ms=tc16_ms, bf16_library_ms=lib16_ms)
 
 
 # ------------------------------------------ scan and flash kernel phases
@@ -1076,6 +1181,14 @@ FLASH_CASES = (dict(name="jamba causal", B=1, S=4096, H=32, KV=8, hd=128,
                     window=None),
                dict(name="danube window", B=1, S=6144, H=32, KV=8, hd=120,
                     window=4096))
+
+
+def flash_inputs(torch, gen, *, B, S, H, KV, hd, window=None, name=None):
+    """Random f32 q (B, S, H, hd), k and v (B, S, KV, hd) on the card, in
+    the model's layout."""
+    return (torch.randn(B, S, H, hd, generator=gen, device=DEVICE),
+            torch.randn(B, S, KV, hd, generator=gen, device=DEVICE),
+            torch.randn(B, S, KV, hd, generator=gen, device=DEVICE))
 
 
 def scaled_err(got, want) -> tuple[float, float]:
@@ -1201,19 +1314,21 @@ def scan_kernel_phase(torch, seed: int) -> list[dict]:
 def flash_kernel_phase(torch, seed: int) -> dict:
     """Flash attention at Jamba's (causal) and danube's (window) widths
     against its plain version and one SDPA call (a yardstick the port
-    never calls); the Jamba case is the row's time."""
+    never calls), in f32 and in the three (q, k/v) pairs of f32 and bf16
+    (each the f32 kernel on the upcast inputs rounded to q's dtype, bit
+    for bit), timed in f32 and with q, k and v in bf16; the Jamba case is
+    the row's time."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import flash_attention as fak
     from repro_torch.kernels.flash_attention import ops as faops
     from repro_torch.kernels.flash_attention import ref as faref
     gen = torch.Generator(device=DEVICE).manual_seed(seed + 4)
     err, row = 0.0, None
+    pair_err = {pair_name(*p, "k/v"): 0.0 for p in BF16_PAIRS}
     for c in FLASH_CASES:
         B, S, H, KV, hd, W = (c[k] for k in ("B", "S", "H", "KV", "hd",
                                               "window"))
-        q = torch.randn(B, S, H, hd, generator=gen, device=DEVICE)
-        k = torch.randn(B, S, KV, hd, generator=gen, device=DEVICE)
-        v = torch.randn(B, S, KV, hd, generator=gen, device=DEVICE)
+        q, k, v = flash_inputs(torch, gen, **c)
         got = faops.flash_attention(q, k, v, causal=True, window=W)
         want = faref.flash_attention_ref(q, k, v, causal=True, window=W)
         torch.cuda.synchronize()
@@ -1222,6 +1337,25 @@ def flash_kernel_phase(torch, seed: int) -> dict:
             fail(f"flash {c['name']}: max abs err {e} > {TOL} x {sc:.3g}")
         err = max(err, e)
         del want
+        for qn, kn in BF16_PAIRS:
+            qd, kd = getattr(torch, qn), getattr(torch, kn)
+            what = f"flash {c['name']} {pair_name(qn, kn, 'k/v')}"
+            qt, kt, vt = q.to(qd), k.to(kd), v.to(kd)
+            got16 = faops.flash_attention(qt, kt, vt, causal=True, window=W)
+            want16 = faops.flash_attention(qt.float(), kt.float(), vt.float(),
+                                           causal=True, window=W).to(qd)
+            plain16 = faref.flash_attention_ref(qt, kt, vt, causal=True,
+                                                window=W)
+            torch.cuda.synchronize()
+            if got16.dtype != qd or not torch.equal(got16, want16):
+                fail(f"{what}: not the f32 kernel on the upcast inputs "
+                     f"rounded to q's dtype")
+            e16 = plain_err(torch, got16, plain16, what, scale=sc)
+            key = pair_name(qn, kn, "k/v")
+            pair_err[key] = max(pair_err[key], e16)
+            print(f"{what}: == the f32 kernel on the upcast inputs rounded "
+                  f"to q's dtype; max abs err vs plain {e16:.3g}")
+            del qt, kt, vt, got16, want16, plain16
         qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (q, k, v))
 
         def kernel():
@@ -1255,18 +1389,49 @@ def flash_kernel_phase(torch, seed: int) -> dict:
               f"on (B, S, H, hd) {op_ms:.4f} ms; plain {plain_ms:.4f} ms, "
               f"sdpa {lib_ms:.4f} ms; tiles of {fak.BLOCK_Q} query rows x "
               f"{fak.BLOCK_K} keys, a ring of {fak.RING_STAGES}")
+        # q, k and v in bf16: half the bytes, 1 TF32 pass for Q.K^T and 2
+        # for P.V
+        q16, k16, v16 = q.bfloat16(), k.bfloat16(), v.bfloat16()
+        qh16, kh16, vh16 = (t.transpose(1, 2).contiguous()
+                            for t in (q16, k16, v16))
+
+        def kernel16():
+            return fak.flash_attention_fwd(qh16, kh16, vh16, causal=True,
+                                           window=W)
+        ms16, g16_ms = time_ms(torch, kernel16), graph_ms(torch, kernel16)
+        op16_ms = time_ms(torch, lambda: faops.flash_attention(
+            q16, k16, v16, causal=True, window=W))
+        plain16_ms = time_ms(torch, lambda: faref.flash_attention_ref(
+            q16, k16, v16, causal=True, window=W), reps=5, warmup=1)
+        lib16_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
+            qh16, kh16, vh16, enable_gqa=True, **sdpa))
+        b16_ms, b16_by, tc16_ms = bound_bf16(nbytes / 2, flops / 2,
+                                             flops / 2, q_bf16=True,
+                                             kv_bf16=True)
+        print(f"flash {c['name']} bf16 (q, k and v): kernel {ms16:.4f} ms "
+              f"per eager call, {g16_ms:.4f} ms as a graph replay "
+              f"({flops / g16_ms / 1e9:.2f} TFLOP/s); bound {b16_ms:.4f} ms "
+              f"by {b16_by} ({b16_ms / g16_ms:.1%} of it as a replay), bf16 "
+              f"tensor-core peak {tc16_ms:.4f} ms; ops.flash_attention "
+              f"{op16_ms:.4f} ms; plain {plain16_ms:.4f} ms, sdpa bf16 "
+              f"{lib16_ms:.4f} ms")
         timing = dict(ms=ms, graph_ms=g_ms, op_ms=op_ms, plain_ms=plain_ms,
                       bound_ms=b_ms, bound_by=b_by, bound_3xtf32_ms=tc_ms,
-                      library_ms=lib_ms)
+                      library_ms=lib_ms, bf16_ms=ms16, bf16_graph_ms=g16_ms,
+                      bf16_op_ms=op16_ms, bf16_plain_ms=plain16_ms,
+                      bf16_bound_ms=b16_ms, bf16_bound_by=b16_by,
+                      bf16_bound_bf16tc_ms=tc16_ms,
+                      bf16_library_ms=lib16_ms)
         if row is None:
             row = dict(name="flash_fwd_kernel", route="cuda", source=FA_CU,
-                       replaces=f"{FA_PY}:93", launches=0, **timing,
-                       variants=[])
+                       replaces=f"{FA_PY}:93", launches=0, bf16_launches=0,
+                       **timing, variants=[])
         else:
             row["variants"].append(dict(name=c["name"], **timing))
-        del q, k, v, qh, kh, vh, got
+        del q, k, v, qh, kh, vh, got, q16, k16, v16, qh16, kh16, vh16
         torch.cuda.empty_cache()
     row["max_abs_err"] = err
+    row["bf16_max_abs_err"] = pair_err
     return row
 
 
@@ -1625,75 +1790,95 @@ def bf16_engine_phase(torch, layers: int, seed: int, f32_runs: dict) -> dict:
 
 
 # DeepSeek-V2 cut to 4 layers: layer 0 dense, 1-3 MoE (13.3 B params,
-# 53 GB in f32 — the most that leaves room on an 80 GB card)
+# 53 GB in f32 — the most that leaves room on an 80 GB card; 26.6 GB in
+# bf16)
 DS_LAYERS = 4
 DS_PROMPT_LENS = (200, 1500, 777, 1029, 451, 1234)
 
 
-def deepseek_phase(torch, seed: int) -> int:
+def deepseek_phase(torch, seed: int, dtype) -> tuple[int, float, float]:
     """Serve DeepSeek-V2 (MLA + MoE) through monolithic prefill and paged
-    MLA decode, kernel against the ``page_impl="ref"`` oracle; returns the
-    MLA kernel's launches on the kernel run."""
+    MLA decode with ``dtype`` params over a ``dtype`` latent pool, the
+    kernel run teacher-forced against the ``page_impl="ref"`` oracle (run
+    first) under the near-tie rule of ``dtype``; returns the MLA kernel's
+    launches on the kernel run and the two runs' tokens/s."""
     from repro_torch.configs import get_config
     from repro_torch.kernels.mla_attention import ops as mla_ops
     from repro_torch.models import moe as moe_mod
     from repro_torch.models import transformer as tfm
 
     L = DS_LAYERS
+    name = str(dtype).removeprefix("torch.")
+    rule = "f32" if dtype == torch.float32 else "bf16"
     cfg = get_config("deepseek-v2-236b").with_(
         n_layers=L, mixers=("mla",) * L, ffns=("dense",) + ("moe",) * (L - 1))
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     gen = torch.Generator(device=DEVICE).manual_seed(seed + 2)
-    params = tfm.init_params(cfg, generator=gen, device=DEVICE,
-                             dtype=torch.float32)
+    params = tfm.init_params(cfg, generator=gen, device=DEVICE, dtype=dtype)
     torch.cuda.synchronize()
     n_params = tfm.param_count(params)
+    es = torch.empty((), dtype=dtype).element_size()
     print(f"deepseek-v2-236b: {L} of 60 layers, d_model {cfg.d_model}, "
           f"{cfg.n_heads} heads, kv_lora {cfg.mla.kv_lora_rank}, "
           f"{cfg.moe.num_experts} experts top-{cfg.moe.top_k}, "
-          f"{n_params / 1e9:.3f} B params ({n_params * 4 / 1e9:.1f} GB f32), "
-          f"made in {time.perf_counter() - t0:.1f} s")
+          f"{n_params / 1e9:.3f} B params ({n_params * es / 1e9:.1f} GB "
+          f"{name}), made in {time.perf_counter() - t0:.1f} s")
     kw = dict(prompt_lens=DS_PROMPT_LENS, seed=seed, num_blocks=128,
-              max_seq_len=2048)
+              max_seq_len=2048, dtype=dtype)
+    tops: dict = {}
+    ref_toks, _, _, ref_secs, margins, ref_spent = serve(
+        torch, cfg, params, page_impl="ref", tops=tops, **kw)
+    picks: dict = {}
     reset_launches()
     with timed_calls(torch, mla_ops, "mla_paged_ctx_fwd") as calls:
         toks, snap, decode_steps, secs, _, spent = serve(
-            torch, cfg, params, page_impl="kernel", **kw)
+            torch, cfg, params, page_impl="kernel", force=ref_toks,
+            picks=picks, **kw)
     counts = launch_counts()
     want = L * decode_steps
+    what = f"deepseek-v2 {name}"
     if counts["mla_ctx"] != want or any(
             v for k, v in counts.items() if k != "mla_ctx"):
-        fail(f"deepseek-v2 launches {counts}, expected mla_ctx = {L} "
-             f"layers x {decode_steps} decode steps = {want}")
-    ref_toks, _, _, ref_secs, margins, ref_spent = serve(
-        torch, cfg, params, page_impl="ref", **kw)
-    check_tokens(toks, ref_toks, margins, "deepseek-v2")
+        fail(f"{what} launches {counts}, expected mla_ctx = {L} layers x "
+             f"{decode_steps} decode steps = {want}")
+    if toks != ref_toks:
+        fail(f"{what}: the forced run did not serve the oracle's tokens")
+    check_picks(picks, ref_toks, margins, tops, what, rule)
     n = sum(len(t) for t in toks.values())
-    print(f"engine deepseek-v2: {n} tokens, kernel {n / secs:.2f} tokens/s "
+    print(f"engine {what}: {n} tokens, kernel {n / secs:.2f} tokens/s "
           f"({secs:.2f} s), oracle {n / ref_secs:.2f} tokens/s "
           f"({ref_secs:.2f} s); mla_ctx launches {counts['mla_ctx']} = {L} x "
           f"{decode_steps} decode steps; {snap['engine.prefill_traces']} "
-          f"prefill shapes; tokens match the oracle")
-    print(f"engine deepseek-v2 kernel run: "
+          f"prefill shapes; tokens match the oracle ({rule} near-tie rule, "
+          f"teacher-forced); card {card_line()}")
+    print(f"engine {what} kernel run: "
           f"{span_line(calls, 'mla_paged_ctx_fwd')}")
-    for name, sp, total in (("kernel", spent, secs),
-                            ("oracle", ref_spent, ref_secs)):
+    for run, sp, total in (("kernel", spent, secs),
+                           ("oracle", ref_spent, ref_secs)):
         split = ", ".join(f"{k} {v:.3f} s" for k, v in sp.items() if v)
-        print(f"engine deepseek-v2 {name} run, device time spanned: {split}, "
+        print(f"engine {what} {run} run, device time spanned: {split}, "
               f"rest {total - sum(sp.values()):.3f} s")
-    # the reference's dispatch runs every expert at capacity >= 4 per step
-    ffn = tfm.layer_params(params, cfg, 1)["ffn"]
-    x = torch.randn(8, 1, cfg.d_model, generator=gen, device=DEVICE)
-    moe_ms = time_ms(torch, lambda: moe_mod.moe_ffn(ffn, x, cfg), reps=10)
-    mo = cfg.moe
-    w_bytes = 3 * mo.num_experts * cfg.d_model * mo.d_expert * 4
-    print(f"moe_ffn at decode shape (8 tokens, {mo.num_experts} experts x "
-          f"capacity {moe_mod.capacity_for(8, mo.top_k, mo.num_experts)}): "
-          f"{moe_ms:.3f} ms, {w_bytes / 1e9:.2f} GB of routed-expert "
-          f"weights read, {w_bytes / moe_ms / 1e9:.2f} TB/s; peak memory "
+    if dtype == torch.float32:
+        # the reference's dispatch runs every expert at capacity >= 4 per
+        # step
+        ffn = tfm.layer_params(params, cfg, 1)["ffn"]
+        x = torch.randn(8, 1, cfg.d_model, generator=gen, device=DEVICE)
+        moe_ms = time_ms(torch, lambda: moe_mod.moe_ffn(ffn, x, cfg),
+                         reps=10)
+        mo = cfg.moe
+        w_bytes = 3 * mo.num_experts * cfg.d_model * mo.d_expert * 4
+        print(f"moe_ffn at decode shape (8 tokens, {mo.num_experts} experts "
+              f"x capacity "
+              f"{moe_mod.capacity_for(8, mo.top_k, mo.num_experts)}): "
+              f"{moe_ms:.3f} ms, {w_bytes / 1e9:.2f} GB of routed-expert "
+              f"weights read, {w_bytes / moe_ms / 1e9:.2f} TB/s")
+    print(f"deepseek-v2 {name}: peak memory "
           f"{torch.cuda.max_memory_allocated() / 1e9:.1f} GB")
-    return counts["mla_ctx"]
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts["mla_ctx"], n / secs, n / ref_secs
 
 
 # ------------------------------------------------- hybrid forward phases
@@ -1705,6 +1890,9 @@ HYBRID_B, HYBRID_PROMPT, HYBRID_NEW = 2, 1000, 16
 LOSS_SHAPE = (2, 1024)
 LOSS_RTOL = 1e-4
 ATTN_TOL = 1e-4      # attn_layer adds o @ wo: a 4096-long f32 sum per output
+# bf16 params and activations: the reference's bf16 flash-kernel tolerance
+# (tests/test_kernels.py:49), scaled by max(1, max|want|)
+ATTN_BF16_TOL = 3e-2
 
 
 def hybrid_config(name: str):
@@ -1764,13 +1952,60 @@ def expect_launches(counts: dict, want: dict, what: str) -> None:
         fail(f"{what}: kernel launches {got}, expected {want}")
 
 
+def attn_bf16_check(torch, name: str, layer: int, lp: dict, x, pos,
+                    cfg) -> int:
+    """``attn_layer(impl="kernel")`` on bf16 params and activations (one
+    flash launch, q, k and v in bf16) against ``impl="chunked"`` at the
+    same dtype, within ATTN_BF16_TOL x max(1, max|want|); returns the
+    flash launches (1)."""
+    from repro_torch.models import attention as attn_mod
+    reset_launches()
+    got = attn_mod.attn_layer(lp, x, pos, cfg, impl="kernel")
+    torch.cuda.synchronize()
+    expect_launches(launch_counts(), {"flash_attention": 1},
+                    f"{name} attn_layer bf16")
+    want = attn_mod.attn_layer(lp, x, pos, cfg, impl="chunked")
+    if got.dtype != torch.bfloat16 or not torch.isfinite(got).all():
+        fail(f"{name} attn_layer bf16: dtype {got.dtype} or not finite")
+    e, sc = scaled_err(got.float(), want.float())
+    if not math.isfinite(e) or e > ATTN_BF16_TOL * sc:
+        fail(f"{name} attn_layer bf16 layer {layer}: max abs err {e} > "
+             f"{ATTN_BF16_TOL} x {sc:.3g}")
+    print(f"{name} attn_layer(impl='kernel') layer {layer} in bf16 on "
+          f"{tuple(x.shape)} (window {cfg.attn.window}): max abs err vs "
+          f"chunked {e:.3g} (limit {ATTN_BF16_TOL * sc:.3g}), one flash "
+          f"launch")
+    return 1
+
+
+def danube_attn_phase(torch, seed: int) -> int:
+    """h2o-danube-3-4b's layer 0 at its published widths (32 heads, 8 KV
+    heads of 120, window 4096) in bf16 on (1, 6144, 3840): see
+    :func:`attn_bf16_check`; returns the flash launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import attention as attn_mod
+    cfg = get_config("h2o-danube-3-4b")
+    gen = torch.Generator(device=DEVICE).manual_seed(seed + 6)
+    lp = attn_mod.init_attn(cfg, generator=gen, device=DEVICE,
+                            dtype=torch.bfloat16)
+    S = FLASH_CASES[1]["S"]
+    x = torch.randn(1, S, cfg.d_model, generator=gen,
+                    device=DEVICE).bfloat16()
+    pos = torch.arange(S, device=DEVICE)[None]
+    n = attn_bf16_check(torch, "h2o-danube-3-4b", 0, lp, x, pos, cfg)
+    del lp, x
+    torch.cuda.empty_cache()
+    return n
+
+
 def hybrid_phase(torch, name: str, seed: int) -> dict:
     """Forward of a hybrid family through the kernels against the
     ``impl="chunked"`` / ``page_impl="ref"`` oracle: prefill and greedy
     decode (tokens equal but for near-ties), ``loss_fn`` (relative 1e-4),
     and for Jamba ``attn_layer(impl="kernel")`` (flash attention) on layer
-    4 against ``impl="chunked"``.  Returns each kernel's launches on the
-    kernel runs."""
+    4 against ``impl="chunked"``, in f32 and in bf16.  Returns each
+    kernel's launches on the kernel runs (the bf16 flash launch also
+    under "flash_attention bf16")."""
     import importlib
 
     import numpy as np
@@ -1867,6 +2102,11 @@ def hybrid_phase(torch, name: str, seed: int) -> dict:
             print(f"{name} attn_layer(impl='kernel') layer {i} on (1, {S}, "
                   f"{cfg.d_model}): max abs err vs chunked {e:.3g}, one "
                   f"flash launch")
+            n16 = attn_bf16_check(
+                torch, name, i, {k: v.bfloat16() for k, v in lp.items()},
+                x.bfloat16(), pos, cfg)
+            launches["flash_attention"] += n16
+            launches["flash_attention bf16"] = n16
     print(f"{name}: peak memory "
           f"{torch.cuda.max_memory_allocated() / 1e9:.1f} GB")
     del params
@@ -2236,7 +2476,10 @@ def training_phase(torch, seed: int) -> dict:
 
 # phase 10: two ranks on the one GPU over gloo
 MESH_RANKS = 2
-MESH_LAYERS = 8
+# granite's depth in (b) and (d): (d)'s (2, 1) decode all-gathers every
+# layer's blocks over gloo a step (6.4 GB at 8 layers, about 100 s for its
+# 16 steps), the script's longest path, so it runs 4
+MESH_LAYERS = 4
 MESH_PROMPT = (2, 1000)
 MESH_TIMEOUT = 600          # seconds for both ranks, weights and checks
 MESH_DIR = ROOT / "build" / "mesh_phase"
@@ -2298,8 +2541,8 @@ SERVE_MESHES = ((2, 1), (1, 2))
 #: a granite rank's resident memory before prefill, less the f32 leaves
 #: param_specs keeps whole on the mesh, at most this share of the leaves
 #: it splits: on (2, 1) the tied embedding, P("model", None), is whole on
-#: both data ranks (0.113 of the 8-layer model's weights), so the whole
-#: model's share would be 0.5 + 0.113 / 2 plus the state
+#: both data ranks (about 0.20 of the 4-layer model's weights), so the
+#: whole model's share would be 0.5 + 0.20 / 2 plus the state
 SERVE_RESIDENT = 0.55
 SERVE_MIXER_MESH = (1, 2)
 #: the scan kernels each rank launches in a mixer's prefill(impl="kernel")
@@ -3341,9 +3584,9 @@ DRYRUN_TIMEOUT = 600            # seconds for (a)'s nine runs
 #: (b): one production cell on the 256-rank fake mesh, started beside (a)
 #: once every timed phase has ended, its depth cut to DRYRUN_CELL_LAYERS
 #: (every op of every microbatch runs on the host: all 40 layers took
-#: 271-375 s)
+#: 271-375 s, 10 layers 100-133 s, past (a)'s 58-74 s)
 DRYRUN_CELL = ("granite-3-8b", "train_4k")
-DRYRUN_CELL_LAYERS = 10
+DRYRUN_CELL_LAYERS = 4
 DRYRUN_CELL_TIMEOUT = 800       # seconds from the phase's start
 
 
@@ -3565,6 +3808,19 @@ def dryrun_phase(measured: dict, served: dict, heads: dict) -> None:
           f"(b); card {card_line()}")
 
 
+def phase_clock(start: float):
+    """A callable that prints one wall-time line per phase: the seconds
+    since the previous call (or ``start``) and since ``start``."""
+    last = [start]
+
+    def done(name: str) -> None:
+        now = time.perf_counter()
+        print(f"phase {name}: {now - last[0]:.1f} s (wall {now - start:.1f} "
+              f"s)")
+        last[0] = now
+    return done
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--layers", type=int, default=40,
@@ -3612,42 +3868,70 @@ def main() -> int:
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}")
 
+    clock = phase_clock(start)
     t0 = time.perf_counter()
     libs = _build.build_all()
     print(f"built {', '.join(lib.name for lib in libs)} in "
           f"{time.perf_counter() - t0:.1f} s (one nvcc per source, in "
           f"parallel)")
+    clock("1 build")
     # one line per TPU kernel, in the order of PERF.md's table
     kernels = kernel_phase(torch, args.seed)
     head_shape_phase(torch, args.seed, kernels[2], kernels[3])
+    clock("2 paged kernels")
     kernels.append(flash_kernel_phase(torch, args.seed))
     kernels.append(mla_kernel_phase(torch, args.seed))
     kernels += scan_kernel_phase(torch, args.seed)
+    clock("2 flash, MLA and scan kernels")
     if args.skip_engine:                     # no main-path run: no result
         print(f"card: {card_line()}")
         return 0
     depths = tuner_phase(torch)
+    clock("3 tuner")
     f32_runs = engine_phase(torch, args.layers, args.seed)
     gc.collect()                             # granite's weights go first
     torch.cuda.empty_cache()
+    clock("4 granite f32")
     bf16_runs = bf16_engine_phase(torch, args.layers, args.seed, f32_runs)
+    clock("4 granite bf16")
     launches = {kernel: n for kernel, n, _, _ in f32_runs.values()}
-    launches["mla_ctx"] = deepseek_phase(torch, args.seed)
-    gc.collect()
-    torch.cuda.empty_cache()
+    ds32, ds32_tps, ds32_ref = deepseek_phase(torch, args.seed,
+                                              torch.float32)
+    clock("5 deepseek-v2 f32")
+    ds16, ds16_tps, ds16_ref = deepseek_phase(torch, args.seed,
+                                              torch.bfloat16)
+    print(f"deepseek-v2 {DS_LAYERS} layers: bf16 {ds16_tps:.2f} tokens/s "
+          f"(oracle {ds16_ref:.2f}), f32 {ds32_tps:.2f} tokens/s (oracle "
+          f"{ds32_ref:.2f}); card {card_line()}")
+    launches["mla_ctx"] = ds32 + ds16
+    kernels[5]["bf16_launches"] = ds16
+    clock("5 deepseek-v2 bf16")
     for name in HYBRID_LAYERS:
         for k, n in hybrid_phase(torch, name, args.seed).items():
             launches[k] = launches.get(k, 0) + n
+        clock(f"6 {name}")
+    danube = danube_attn_phase(torch, args.seed)
+    launches["flash_attention"] += danube
+    kernels[4]["bf16_launches"] = launches.pop("flash_attention bf16") + \
+        danube
+    clock("6 h2o-danube-3-4b attn_layer bf16")
     whisper_decode = encdec_phase(torch, args.seed)
+    clock("7 whisper-small")
     for k, n in vision_phase(torch, args.seed).items():
         launches[k] += n
+    clock("8 internvl2")
     oracle = training_phase(torch, args.seed)
+    clock("9 training")
     scans, served = mesh_phase(torch, args.seed)
     for k, n in scans.items():               # phase 10 (d)'s, both ranks
         launches[k] += n
+    clock("10 serving on a mesh")
     measured = train_mesh_phase(torch, args.seed, oracle)
+    clock("11 training on a mesh")
     heads = heads_phase(torch, args.seed)
+    clock("10/11 (e) uneven heads")
     dryrun_phase(measured, served, heads)
+    clock("12 dry run")
     # the paged decode launches go to the row of the depth each model ran
     # (its key's tuned depth: row 2 at depth 1, row 3 at 2 and 4); the
     # split kernel (row 1) gets none.  The bf16 engine phase's launches

@@ -2,7 +2,8 @@
 
 Run from the root of a checkout on a machine with a CUDA device::
 
-    PYTHONPATH=src python -m repro_torch.kernels.flash_attention.bench
+    PYTHONPATH=src python -m repro_torch.kernels.flash_attention.bench \
+        [--dtype f32|bf16] [--q-dtype f32|bf16]
 
 It first compiles ``csrc/flash_attention.cu`` with ``-Xptxas -v`` and
 prints each kernel's registers and spills.  Then it times
@@ -15,23 +16,27 @@ prints each kernel's registers and spills.  Then it times
 * ``ops.flash_attention`` as the model calls it, on (B, S, H, hd)
   tensors (Jamba, causal, S 4096): the op's layout work and the kernel.
 
-Each case is timed two ways with CUDA events (median of 20): one eager
-call, host work included, and one replay of a CUDA graph of the call,
-the device time of its launches; with the achieved TFLOP/s (4·hd flops a
-visible (query, key) pair) of the replay against the f32 CUDA-core peak
-(67) and the 3xTF32 tensor-core peak (495 / 3).  The last line is one
-JSON object of the times.
+``--dtype`` is k's and v's element type and ``--q-dtype`` q's (and the
+output's), each f32 unless given; the inputs are drawn in f32 from the
+same seed and rounded to them.  Each case is timed two ways with CUDA
+events (median of 20): one eager call, host work included, and one
+replay of a CUDA graph of the call, the device time of its launches;
+with the achieved TFLOP/s (4·hd flops a visible (query, key) pair) of
+the replay against the f32 CUDA-core peak (67) and the 3xTF32
+tensor-core peak (495 / 3).  The last line is one JSON object of the
+times and the two dtypes.
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 
 import torch
 
 from repro_torch.kernels.flash_attention import flash_attention as fak
 from repro_torch.kernels.flash_attention import ops
-from repro_torch.kernels.paged_attention.bench import (graph_ms,
+from repro_torch.kernels.paged_attention.bench import (DTYPES, graph_ms,
                                                        ptxas_report, time_ms)
 
 SEED = 0
@@ -55,15 +60,24 @@ def flops(B, S, H, hd, causal, window) -> float:
 
 
 def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--dtype", choices=DTYPES, default="f32",
+                    help="k's and v's element type")
+    ap.add_argument("--q-dtype", choices=DTYPES, default="f32",
+                    help="q's (and the output's) element type")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("bench: needs a CUDA device")
     print(ptxas_report(fak.SOURCE))
+    qd, kd = DTYPES[args.q_dtype], DTYPES[args.dtype]
     gen = torch.Generator(device="cuda").manual_seed(SEED)
-    res = {}
+    res = {"q_dtype": args.q_dtype, "dtype": args.dtype}
     for name, (B, S, H, KV, hd, causal, window) in CASES.items():
-        def randn(*sh):
-            return torch.randn(*sh, generator=gen, device="cuda")
-        q, k, v = randn(B, H, S, hd), randn(B, KV, S, hd), randn(B, KV, S, hd)
+        def randn(*sh, dtype):
+            return torch.randn(*sh, generator=gen, device="cuda").to(dtype)
+        q, k, v = (randn(B, H, S, hd, dtype=qd),
+                   randn(B, KV, S, hd, dtype=kd),
+                   randn(B, KV, S, hd, dtype=kd))
 
         def fn(q=q, k=k, v=v, causal=causal, window=window):
             return fak.flash_attention_fwd(q, k, v, causal=causal,
@@ -76,8 +90,8 @@ def main() -> int:
         res[name + "_share_3xtf32"] = tf / PEAK_3XTF32
         del q, k, v
     B, S, H, KV, hd, _, _ = CASES["jamba_causal_S4096"]
-    q, k, v = (torch.randn(B, S, n, hd, generator=gen, device="cuda")
-               for n in (H, KV, KV))
+    q, k, v = (torch.randn(B, S, n, hd, generator=gen, device="cuda").to(d)
+               for n, d in ((H, qd), (KV, kd), (KV, kd)))
 
     def op():
         return ops.flash_attention(q, k, v, causal=True)

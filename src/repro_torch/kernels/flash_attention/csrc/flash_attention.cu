@@ -60,8 +60,9 @@
 //     tiles (causal, window, sk_valid) are never loaded, keys past
 //     sk_valid read zeros, and causal tiles run heaviest first.
 //   * q, k, v and out are read and written through their (batch, head,
-//     row) strides (last stride 1, rows 16-byte aligned), so the model's
-//     (B, S, H, hd) tensors need no transposed copy.  The head dimension
+//     row) strides (last stride 1, rows aligned to a copy chunk:
+//     chunk_elems), so the model's (B, S, H, hd) tensors need no
+//     transposed copy.  The head dimension
 //     is padded to a multiple of 16 (HDP; Q and K pads read as zeros),
 //     instantiated for HDP in {16, 32, 48, 64, 96, 128}.
 // Measured (bench.py, same card): about 50 TFLOP/s at Jamba causal S 4096
@@ -72,13 +73,36 @@
 // a block, 4-12% slower.
 // Left: wgmma (tf32 takes K-major B only: PV needs V transposed in shared
 // memory) and TMA.
+//
+// Element types.  q (and the output, which has q's type) and k/v (one type
+// for both) are each float or bf16, independently, as in the TPU kernel,
+// which reads any float, computes in f32 and writes q.dtype
+// (kernels/csrc/bf16.cuh).  Q becomes f32 where it is staged; K and V stay
+// in their own type in the ring and each element becomes an f32 where a
+// fragment reads it.  Every multiply and add after that is the f32
+// kernel's in its order (tiles and the ring unchanged), and the one
+// rounding is the output store, so a call on bf16 inputs gives exactly the
+// f32 kernel's result on the upcast inputs rounded to q's type.  bf16 K
+// rows copy in 16-byte chunks of 8 elements, or 8-byte chunks of 4 where
+// hd is not a multiple of 8 (their rows sit 8 bytes off 16), and are
+// padded to 16 mod 64 elements (8 mod 32 words), so the 8-byte fragment
+// reads of each half warp hit 32 banks.  bf16 V pair rows interleave the
+// two keys by dim pairs (key 2r's dims d, d + 1, then key 2r + 1's), one
+// 4-byte copy a pair: one 8-byte read is still the B fragments of two
+// n-tiles; rows are padded to 2 HDP + 16 elements (8 or 24 mod 32 words),
+// conflict-free as well.  A bf16 value is exact in TF32, so its small part
+// is 0 and two of the three products add nothing; they are kept, so the
+// bf16 schedule is the f32 one.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "../../csrc/bf16.cuh"
 #include "../../csrc/tf32x3.cuh"
 
 namespace {
+
+using namespace elem;
 
 constexpr int NW = 8;             // warps per block, 16 query rows each
 constexpr int BQ = NW * 16;       // query rows per block
@@ -90,25 +114,30 @@ constexpr int MAX_HD = 128;
 constexpr float NEG_INF = -1e30f;
 constexpr float LOG2E = 1.4426950408889634f;
 
+template <typename TQ, typename TKV>
 struct Params {
-  const float* q;
-  const float* k;
-  const float* v;
-  float* o;
+  const TQ* q;
+  const TKV* k;
+  const TKV* v;
+  TQ* o;
   long long q_b, q_h, q_s, k_b, k_h, k_s, v_b, v_h, v_s, o_b, o_h, o_s;
   int H, KV, Sq, Sk, hd, sk_valid, q_offset, causal, window;
   float sl2;                      // scale * log2(e)
 };
 
 // Shared memory: Q in fragment order (BQ x HDP floats), then the ring of
-// K tiles (BK rows of LDK floats) and V tiles stored by key pairs (BK / 2
-// rows of LDV2 floats: V[2r][d], V[2r + 1][d] side by side).
-template <int HDP>
+// K tiles (BK rows of LDK elements of TKV) and V tiles stored by key pairs
+// (BK / 2 rows of LDV2 elements: f32 V[2r][d], V[2r + 1][d] side by side;
+// bf16 V[2r][d], V[2r][d + 1], V[2r + 1][d], V[2r + 1][d + 1] for even d).
+template <int HDP, typename TKV>
 struct Geom {
-  static constexpr int LDK = (HDP + 31) / 32 * 32 + 16;  // K rows: 16 mod 32
-  static constexpr int LDV2 = 2 * HDP + 8;               // V pair rows: 8 mod 32
+  static constexpr bool F32 = sizeof(TKV) == 4;
+  // K rows: f32 16 mod 32 words; bf16 16 mod 64 elements
+  static constexpr int LDK = F32 ? (HDP + 31) / 32 * 32 + 16 : (HDP + 63) / 64 * 64 + 16;
+  // V pair rows: f32 8 mod 32 words; bf16 2 HDP + 16 elements
+  static constexpr int LDV2 = F32 ? 2 * HDP + 8 : 2 * HDP + 16;
   static constexpr int KT = BK * LDK, VT = BK / 2 * LDV2;
-  static constexpr size_t SMEM = sizeof(float) * (BQ * HDP + STAGES * (KT + VT));
+  static constexpr size_t SMEM = sizeof(float) * BQ * HDP + sizeof(TKV) * STAGES * (KT + VT);
 };
 
 __device__ __forceinline__ float ex2(float x) {
@@ -117,14 +146,21 @@ __device__ __forceinline__ float ex2(float x) {
   return r;
 }
 
-__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
                    static_cast<unsigned>(__cvta_generic_to_shared(dst))),
                "l"(src)
                : "memory");
 }
 
-__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+__device__ __forceinline__ void cp_async8(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(
+                   static_cast<unsigned>(__cvta_generic_to_shared(dst))),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
                    static_cast<unsigned>(__cvta_generic_to_shared(dst))),
                "l"(src)
@@ -139,25 +175,35 @@ __device__ __forceinline__ void cp_wait() {
 }
 
 // rows [row0, row0 + n) of a (rows, hd) matrix of row stride `stride` into
-// shared rows of LD floats, columns [0, hd); rows at or past `end` read
+// shared rows of LD elements, columns [0, hd); rows at or past `end` read
 // zeros.
-template <int LD>
-__device__ __forceinline__ void load_rows(float* dst, const float* src, long long stride,
-                                          int row0, int n, int end, int hd) {
-  const int hd4 = hd >> 2;
-  for (int i = threadIdx.x; i < n * hd4; i += NT) {
-    const int r = i / hd4, c = (i - r * hd4) * 4;
-    float* d = dst + r * LD + c;
-    if (row0 + r < end)
-      cp_async16(d, src + static_cast<long long>(row0 + r) * stride + c);
-    else
-      *reinterpret_cast<float4*>(d) = make_float4(0.f, 0.f, 0.f, 0.f);
+template <int LD, typename T>
+__device__ __forceinline__ void load_rows(T* dst, const T* src, long long stride, int row0,
+                                          int n, int end, int hd) {
+  const int ch = chunk_elems<T>(hd);
+  const int hdc = hd / ch;
+  const bool wide = ch * sizeof(T) == 16;
+  for (int i = threadIdx.x; i < n * hdc; i += NT) {
+    const int r = i / hdc, c = (i - r * hdc) * ch;
+    T* d = dst + r * LD + c;
+    if (row0 + r < end) {
+      const T* s = src + static_cast<long long>(row0 + r) * stride + c;
+      if (wide)
+        cp_async16(d, s);
+      else
+        cp_async8(d, s);
+    } else if (wide) {
+      *reinterpret_cast<uint4*>(d) = make_uint4(0u, 0u, 0u, 0u);
+    } else {
+      *reinterpret_cast<uint2*>(d) = make_uint2(0u, 0u);
+    }
   }
 }
 
-// keys [row0, row0 + BK) of a (rows, hd) V into pair rows of LDV2 floats
-// (key r's dim d at (r / 2) * LDV2 + 2 * d + r % 2), one float a copy;
-// keys at or past `end` read zeros.
+// keys [row0, row0 + BK) of a (rows, hd) V into pair rows of LDV2 elements,
+// keys at or past `end` read zeros.  f32: key r's dim d at (r / 2) * LDV2 +
+// 2 * d + r % 2, one element a 4-byte copy.  bf16: key r's dims 2p, 2p + 1
+// at (r / 2) * LDV2 + 4 * p + 2 * (r % 2), one dim pair a 4-byte copy.
 template <int LDV2>
 __device__ __forceinline__ void load_v_pairs(float* dst, const float* src, long long stride,
                                              int row0, int end, int hd) {
@@ -170,6 +216,30 @@ __device__ __forceinline__ void load_v_pairs(float* dst, const float* src, long 
     else
       for (int c = lane; c < hd; c += 32) d[2 * c] = 0.f;
   }
+}
+
+template <int LDV2>
+__device__ __forceinline__ void load_v_pairs(bf16* dst, const bf16* src, long long stride,
+                                             int row0, int end, int hd) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int pairs = hd >> 1;
+  for (int r = warp; r < BK; r += NW) {
+    bf16* d = dst + (r >> 1) * LDV2 + 2 * (r & 1);
+    const bf16* s = src + static_cast<long long>(row0 + r) * stride;
+    if (row0 + r < end)
+      for (int p = lane; p < pairs; p += 32) cp_async4(d + 4 * p, s + 2 * p);
+    else
+      for (int p = lane; p < pairs; p += 32) *reinterpret_cast<uint32_t*>(d + 4 * p) = 0u;
+  }
+}
+
+// The B fragments of n-tiles 2mm and 2mm + 1 at pair row r of a V tile:
+// {V[2r][d], V[2r + 1][d], V[2r][d + 1], V[2r + 1][d + 1]} as floats, from
+// one 16-byte (f32) or 8-byte (bf16) read at p.
+__device__ __forceinline__ float4 v_frags(const float* p) { return load4(p); }
+__device__ __forceinline__ float4 v_frags(const bf16* p) {
+  const float4 t = load4(p);
+  return make_float4(t.x, t.z, t.y, t.w);
 }
 
 // x = big + small: big is x with its 13 low mantissa bits cleared (a TF32
@@ -227,24 +297,24 @@ __device__ __forceinline__ void mma_tiles(float (&c)[NO][4], const FragA& a,
   }
 }
 
-template <int HDP>
-__global__ void __launch_bounds__(NT, 1) flash_fwd_kernel(const Params p) {
-  using G = Geom<HDP>;
+template <int HDP, typename TQ, typename TKV>
+__global__ void __launch_bounds__(NT, 1) flash_fwd_kernel(const Params<TQ, TKV> p) {
+  using G = Geom<HDP, TKV>;
   constexpr int LDK = G::LDK, LDV2 = G::LDV2;
   constexpr int NP = HDP / 16;    // 16-dim groups: k-step pairs of QK^T
   constexpr int NO = 2 * NP;      // output n-tiles
-  extern __shared__ __align__(16) float smem[];
-  float* sQ = smem;                           // [warp][kp][lane][8]
-  float* sK = sQ + BQ * HDP;                  // STAGES x KT
-  float* sV = sK + STAGES * G::KT;            // STAGES x VT
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* sQ = reinterpret_cast<float*>(smem_raw);              // [warp][kp][lane][8]
+  TKV* sK = reinterpret_cast<TKV*>(sQ + BQ * HDP);             // STAGES x KT
+  TKV* sV = sK + STAGES * G::KT;                               // STAGES x VT
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, qd = lane & 3;
   const int qi = gridDim.x - 1 - blockIdx.x;  // heaviest causal tiles first
   const int h = blockIdx.y, b = blockIdx.z;
   const int kvh = h / (p.H / p.KV);
-  const float* qb = p.q + b * p.q_b + h * p.q_h;
-  const float* kb = p.k + b * p.k_b + kvh * p.k_h;
-  const float* vb = p.v + b * p.v_b + kvh * p.v_h;
+  const TQ* qb = p.q + b * p.q_b + h * p.q_h;
+  const TKV* kb = p.k + b * p.k_b + kvh * p.k_h;
+  const TKV* vb = p.v + b * p.v_b + kvh * p.v_h;
   const int hd = p.hd;
   const int q0 = qi * BQ;                     // first row of the tile
   const int pos0 = q0 + p.q_offset;           // its position
@@ -267,7 +337,7 @@ __global__ void __launch_bounds__(NT, 1) flash_fwd_kernel(const Params p) {
     const int pad = HDP - hd;
     for (int i = tid; i < STAGES * BK * pad; i += NT) {
       const int r = i / pad;
-      sK[(r / BK) * G::KT + (r % BK) * LDK + hd + i - r * pad] = 0.f;
+      sK[(r / BK) * G::KT + (r % BK) * LDK + hd + i - r * pad] = from_f32<TKV>(0.f);
     }
   }
   // Q once, in the order of the QK^T A fragments: for the k-step pair kp,
@@ -281,10 +351,8 @@ __global__ void __launch_bounds__(NT, 1) flash_fwd_kernel(const Params p) {
       const int dim = 16 * kp + 4 * qd;
       float4 a = make_float4(0.f, 0.f, 0.f, 0.f), c = a;
       if (dim < hd) {
-        if (ra < p.Sq)
-          a = *reinterpret_cast<const float4*>(qb + static_cast<long long>(ra) * p.q_s + dim);
-        if (ra + 8 < p.Sq)
-          c = *reinterpret_cast<const float4*>(qb + static_cast<long long>(ra + 8) * p.q_s + dim);
+        if (ra < p.Sq) a = load4(qb + static_cast<long long>(ra) * p.q_s + dim);
+        if (ra + 8 < p.Sq) c = load4(qb + static_cast<long long>(ra + 8) * p.q_s + dim);
       }
       float4* f = reinterpret_cast<float4*>(sQ + ((warp * NP + kp) * 32 + lane) * 8);
       f[0] = make_float4(a.x, c.x, a.y, c.y);
@@ -319,8 +387,8 @@ __global__ void __launch_bounds__(NT, 1) flash_fwd_kernel(const Params p) {
     if (!skip) {
       const bool full = k0 + BK <= kv_end && (!p.causal || k0 + BK - 1 <= wr0) &&
                         (p.window == 0 || wr1 - k0 < p.window);
-      const float* kt = sK + (it % STAGES) * G::KT;
-      const float* vt = sV + (it % STAGES) * G::VT;
+      const TKV* kt = sK + (it % STAGES) * G::KT;
+      const TKV* vt = sV + (it % STAGES) * G::VT;
 
       // S = Q K^T: 16 rows x BK keys, NJ n-tiles
       float s[NJ][4];
@@ -335,8 +403,7 @@ __global__ void __launch_bounds__(NT, 1) flash_fwd_kernel(const Params p) {
         float kx[NJ], ky[NJ], kz[NJ], kw[NJ];
 #pragma unroll
         for (int j = 0; j < NJ; ++j) {
-          const float4 kk =
-              *reinterpret_cast<const float4*>(kt + (8 * j + g) * LDK + 16 * kp + 4 * qd);
+          const float4 kk = load4(kt + (8 * j + g) * LDK + 16 * kp + 4 * qd);
           kx[j] = kk.x, ky[j] = kk.y, kz[j] = kk.z, kw[j] = kk.w;
         }
         FragA a;
@@ -406,11 +473,11 @@ __global__ void __launch_bounds__(NT, 1) flash_fwd_kernel(const Params p) {
         a.set(pa);
         // keys 8j + 2q, 8j + 2q + 1 at dims 16mm + 2g, + 1: the B
         // fragments of n-tiles 2mm and 2mm + 1 in one 16-byte read
-        const float* v2 = vt + (4 * j + qd) * LDV2 + 4 * g;
+        const TKV* v2 = vt + (4 * j + qd) * LDV2 + 4 * g;
         float b0[NO], b1[NO];
 #pragma unroll
         for (int mm = 0; mm < NP; ++mm) {
-          const float4 x = *reinterpret_cast<const float4*>(v2 + 32 * mm);
+          const float4 x = v_frags(v2 + 32 * mm);
           b0[2 * mm] = x.x, b1[2 * mm] = x.y;
           b0[2 * mm + 1] = x.z, b1[2 * mm + 1] = x.w;
         }
@@ -428,51 +495,55 @@ __global__ void __launch_bounds__(NT, 1) flash_fwd_kernel(const Params p) {
     l[1] += __shfl_xor_sync(0xffffffffu, l[1], off);
   }
   const float den0 = fmaxf(l[0], 1e-30f), den1 = fmaxf(l[1], 1e-30f);
-  float* ob = p.o + b * p.o_b + h * p.o_h;
+  TQ* ob = p.o + b * p.o_b + h * p.o_h;
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
     const int row = wrow + g + 8 * half;
     if (row >= p.Sq) continue;
     const float den = half ? den1 : den0;
-    float* orow = ob + static_cast<long long>(row) * p.o_s;
+    TQ* orow = ob + static_cast<long long>(row) * p.o_s;
 #pragma unroll
     for (int mm = 0; mm < NP; ++mm) {
       const int dim = 16 * mm + 4 * qd;
-      if (dim < hd)
-        *reinterpret_cast<float4*>(orow + dim) =
-            make_float4(o[2 * mm][2 * half] / den, o[2 * mm + 1][2 * half] / den,
-                        o[2 * mm][2 * half + 1] / den, o[2 * mm + 1][2 * half + 1] / den);
+      if (dim < hd)             // the one rounding, to q's type
+        store4(orow + dim,
+               make_float4(o[2 * mm][2 * half] / den, o[2 * mm + 1][2 * half] / den,
+                           o[2 * mm][2 * half + 1] / den, o[2 * mm + 1][2 * half + 1] / den));
     }
   }
 }
 
-template <int HDP>
-int launch(const Params& p, int B, cudaStream_t stream) {
+template <int HDP, typename TQ, typename TKV>
+cudaError_t launch(const Params<TQ, TKV>& p, int B, cudaStream_t stream) {
   static bool attr_set[64] = {};
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
   if (dev < 0 || dev >= 64) return cudaErrorInvalidDevice;
   if (!attr_set[dev]) {                       // once per device
-    err = cudaFuncSetAttribute(flash_fwd_kernel<HDP>,
+    err = cudaFuncSetAttribute(flash_fwd_kernel<HDP, TQ, TKV>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(Geom<HDP>::SMEM));
+                               static_cast<int>(Geom<HDP, TKV>::SMEM));
     if (err != cudaSuccess) return err;
     attr_set[dev] = true;
   }
   const dim3 grid((p.Sq + BQ - 1) / BQ, p.H, B);
-  flash_fwd_kernel<HDP><<<grid, NT, Geom<HDP>::SMEM, stream>>>(p);
+  flash_fwd_kernel<HDP, TQ, TKV><<<grid, NT, Geom<HDP, TKV>::SMEM, stream>>>(p);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// q, out: (B, H, Sq, hd); k, v: (B, KV, Sk, hd); f32, each read or written
-// through its (batch, head, row) strides in floats, last stride 1, pointers
-// and strides 16-byte aligned; hd a multiple of 4 up to 128; H a multiple of
-// KV; sk_valid <= Sk; window 0 = none.
-extern "C" int flash_attention_launch(const void* q, const void* k, const void* v, void* out,
-                                      int B, int H, int KV, int Sq, int Sk, int hd,
+// q, out: (B, H, Sq, hd); k, v: (B, KV, Sk, hd).  q_dtype is the code of
+// q's (and out's) element type, kv_dtype that of k and v (DT_F32 = 0,
+// DT_BF16 = 1).  Each is read or written through its (batch, head, row)
+// strides in elements, last stride 1, pointers and strides a multiple of
+// chunk_elems (16 bytes; 8 for bf16 where hd is not a multiple of 8); hd a
+// multiple of 4 up to 128; H a multiple of KV; sk_valid <= Sk; window 0 =
+// none.
+extern "C" int flash_attention_launch(int q_dtype, int kv_dtype, const void* q, const void* k,
+                                      const void* v, void* out, int B, int H, int KV, int Sq,
+                                      int Sk, int hd,
                                       int sk_valid, int q_offset, int causal, int window,
                                       float scale, long long q_b, long long q_h, long long q_s,
                                       long long k_b, long long k_h, long long k_s,
@@ -482,15 +553,20 @@ extern "C" int flash_attention_launch(const void* q, const void* k, const void* 
   if (B <= 0 || B > 65535 || H <= 0 || H > 65535 || KV <= 0 || H % KV || Sq <= 0 ||
       Sk < 0 || hd <= 0 || hd % 4 || hd > MAX_HD || sk_valid > Sk || window < 0)
     return cudaErrorInvalidValue;
-  const Params p{static_cast<const float*>(q), static_cast<const float*>(k),
-                 static_cast<const float*>(v), static_cast<float*>(out),
-                 q_b, q_h, q_s, k_b, k_h, k_s, v_b, v_h, v_s, o_b, o_h, o_s,
-                 H, KV, Sq, Sk, hd, sk_valid, q_offset, causal, window, scale * LOG2E};
   auto s = static_cast<cudaStream_t>(stream);
-  if (hd <= 16) return launch<16>(p, B, s);
-  if (hd <= 32) return launch<32>(p, B, s);
-  if (hd <= 48) return launch<48>(p, B, s);
-  if (hd <= 64) return launch<64>(p, B, s);
-  if (hd <= 96) return launch<96>(p, B, s);
-  return launch<128>(p, B, s);
+  return elem::with_types(q_dtype, kv_dtype, [&](auto tq, auto tkv) -> cudaError_t {
+    using TQ = typename decltype(tq)::type;
+    using TKV = typename decltype(tkv)::type;
+    const Params<TQ, TKV> p{static_cast<const TQ*>(q), static_cast<const TKV*>(k),
+                            static_cast<const TKV*>(v), static_cast<TQ*>(out),
+                            q_b, q_h, q_s, k_b, k_h, k_s, v_b, v_h, v_s, o_b, o_h, o_s,
+                            H, KV, Sq, Sk, hd, sk_valid, q_offset, causal, window,
+                            scale * LOG2E};
+    if (hd <= 16) return launch<16>(p, B, s);
+    if (hd <= 32) return launch<32>(p, B, s);
+    if (hd <= 48) return launch<48>(p, B, s);
+    if (hd <= 64) return launch<64>(p, B, s);
+    if (hd <= 96) return launch<96>(p, B, s);
+    return launch<128>(p, B, s);
+  });
 }

@@ -8,8 +8,12 @@ so the lengths need not be multiples of a block, and reads q, k, v and
 writes the output through their strides (``ops.flash_attention`` hands
 it transposed views of the model's (B, S, H, hd) tensors).  On a CPU
 tensor it runs the plain version from ``ref.py``; on a CUDA tensor it
-launches the kernel on the current stream or raises.  Forward only: inputs that
-require grad are refused.  :data:`LAUNCHES` counts kernel launches.
+launches the kernel on the current stream or raises (on a dtype it does
+not take too: no cast, no plain run).  q, and k and v together, are each
+float32 or bfloat16 (``paged_attention.DTYPE_CODES``), independently;
+the kernel computes in float32 and the output has q's dtype, as in the
+TPU kernel.  Forward only: inputs that require grad are refused.
+:data:`LAUNCHES` counts kernel launches.
 """
 
 from __future__ import annotations
@@ -22,7 +26,7 @@ import torch
 
 from repro_torch.kernels.flash_attention import ref
 from repro_torch.kernels.paged_attention.paged_attention import (
-    _forward_only, _raise_on, _stream)
+    DTYPE_CODES, _check, _forward_only, _raise_on, _stream)
 
 #: kernel launches since the last :func:`reset_launches`
 LAUNCHES = {"flash_attention": 0}
@@ -44,21 +48,30 @@ def _lib() -> ctypes.CDLL:
     from repro_torch.kernels import _build
     lib = _build.load((SOURCE,))
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.flash_attention_launch.argtypes = ([p] * 4 + [i] * 10 + [f]
+    lib.flash_attention_launch.argtypes = ([i, i] + [p] * 4 + [i] * 10 + [f]
                                            + [ctypes.c_longlong] * 12 + [p])
     lib.flash_attention_launch.restype = i
     return lib
 
 
+def _chunk(t: torch.Tensor) -> int:
+    """Elements of the kernel's row copies of ``t`` (``chunk_elems`` in
+    ``kernels/csrc/bf16.cuh``): 16 bytes, or 8 for bf16 rows whose
+    head_dim is not a multiple of 8."""
+    return 4 if t.element_size() == 4 or t.shape[-1] % 8 else 8
+
+
 def _strides(t: torch.Tensor):
     """(batch, head, row) strides of a (B, H, S, hd) tensor as the kernel
     reads it (0 for a dimension of size 1), or None unless its last stride
-    is 1 and its rows are 16-byte aligned."""
-    if t.stride(-1) != 1 or t.data_ptr() % 16:
+    is 1 and its start and strides are whole copy chunks
+    (:func:`_chunk`)."""
+    ch = _chunk(t)
+    if t.stride(-1) != 1 or t.data_ptr() % (ch * t.element_size()):
         return None
     st = tuple(0 if n == 1 else s
                for n, s in zip(t.shape[:3], t.stride()[:3]))
-    return None if any(s % 4 for s in st) else st
+    return None if any(s % ch for s in st) else st
 
 
 def _readable(t: torch.Tensor) -> torch.Tensor:
@@ -73,15 +86,17 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         causal: bool = True, window: int | None = None,
                         q_offset: int = 0,
                         sk_valid: int | None = None) -> torch.Tensor:
-    """q: (B, H, Sq, hd); k, v: (B, KV, Sk, hd), f32, any strides →
-    (B, H, Sq, hd) f32 in q's memory layout.
+    """q: (B, H, Sq, hd); k, v: (B, KV, Sk, hd), any strides → (B, H, Sq,
+    hd) of q's dtype in q's memory layout.  q, and k and v together, are
+    each float32 or bfloat16.
 
     Keys at or past ``sk_valid`` (default: all ``Sk``) are padding and
     never seen; query row i sits at position ``i + q_offset``.  A row
     that sees no key gives 0.  The kernel reads q, k and v in place when
-    their last stride is 1 and their rows are 16-byte aligned (so a
-    transposed view of a (B, S, H, hd) tensor costs no copy); any other
-    input is copied first."""
+    their last stride is 1 and their rows are aligned to its copies
+    (16 bytes; 8 for bf16 rows of a head_dim that is not a multiple of
+    8), so a transposed view of a (B, S, H, hd) tensor costs no copy; any
+    other input is copied first."""
     B, H, Sq, hd = q.shape
     _, KV, Sk, _ = k.shape
     if (k.shape != (B, KV, Sk, hd) or v.shape != k.shape or KV == 0
@@ -100,20 +115,20 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             v[:, :, :sk_valid].transpose(1, 2), causal=causal, window=window,
             q_offset=q_offset)
         return o.transpose(1, 2)
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.device != q.device or t.dtype != torch.float32:
-            raise ValueError(f"{name} is {t.dtype} on {t.device}, the "
-                             f"kernel takes torch.float32 on {q.device}")
+    _check("q", q, DTYPE_CODES, q.device, contiguous=False)
+    _check("k", k, DTYPE_CODES, q.device, contiguous=False)
+    _check("v", v, (k.dtype,), q.device, contiguous=False)
     if hd % 4 or hd > _MAX_HD:
         raise ValueError(f"head_dim {hd} unsupported: the kernel takes a "
                          f"multiple of 4 up to {_MAX_HD}")
     q, k, v = _readable(q), _readable(k), _readable(v)
     out = torch.empty_like(q)               # q's strides, a fresh buffer
     code = _lib().flash_attention_launch(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, H, KV,
-        Sq, Sk, hd, sk_valid, q_offset, int(causal), window or 0,
-        hd ** -0.5, *_strides(q), *_strides(k), *_strides(v),
-        *_strides(out), _stream(q.device))
+        DTYPE_CODES[q.dtype], DTYPE_CODES[k.dtype], q.data_ptr(),
+        k.data_ptr(), v.data_ptr(), out.data_ptr(), B, H, KV, Sq, Sk, hd,
+        sk_valid, q_offset, int(causal), window or 0, hd ** -0.5,
+        *_strides(q), *_strides(k), *_strides(v), *_strides(out),
+        _stream(q.device))
     _raise_on(code, "flash_fwd_kernel")
     LAUNCHES["flash_attention"] += 1
     return out

@@ -2,7 +2,8 @@
 
 Run from the root of a checkout on a machine with a CUDA device::
 
-    PYTHONPATH=src python -m repro_torch.kernels.mla_attention.bench
+    PYTHONPATH=src python -m repro_torch.kernels.mla_attention.bench \
+        [--dtype f32|bf16] [--q-dtype f32|bf16]
 
 It first compiles ``csrc/mla_attention.cu`` with ``-Xptxas -v`` and prints
 each kernel's registers and spills.  Then, at DeepSeek-V2's widths (H 128,
@@ -16,21 +17,25 @@ the heads per CTA (the kernel before the split-K redesign) is timed at
 each count in :data:`HEADS_PER_CTA` that it takes (it raises on the
 others, which are skipped); one with a fixed ``HEADS_PER_CTA`` at that.
 
-Each case is timed two ways with CUDA events (median of 20): one eager
-call, host work included, and one replay of a CUDA graph of the call,
-the device time of its launches.  The last line is one JSON object of
-the times.
+``--dtype`` is the pools' element type and ``--q-dtype`` the queries',
+each f32 unless given (the decode path hands the kernel f32 queries);
+the inputs are drawn in f32 from the same seed and rounded to them, and
+the context is f32 either way.  Each case is timed two ways with CUDA
+events (median of 20): one eager call, host work included, and one
+replay of a CUDA graph of the call, the device time of its launches.
+The last line is one JSON object of the times and the two dtypes.
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 from contextlib import nullcontext
 from unittest import mock
 
 import torch
 
-from repro_torch.kernels.paged_attention.bench import (graph_ms,
+from repro_torch.kernels.paged_attention.bench import (DTYPES, graph_ms,
                                                        ptxas_report, time_ms)
 from repro_torch.kernels.mla_attention import mla_attention as mk
 
@@ -41,8 +46,9 @@ SEED = 0
 HEADS_PER_CTA = (4, 8, 16, 32, 64)
 
 
-def skewed_inputs(gen):
-    """chip_smoke.py's MLA timing case (W = 1)."""
+def skewed_inputs(gen, q_dtype=torch.float32, pool_dtype=torch.float32):
+    """chip_smoke.py's MLA timing case (W = 1), queries and pools rounded
+    to their dtypes."""
     dev = "cuda"
     N = B * M + 16
     phys = torch.randperm(N, generator=gen, device=dev)[:B * M]
@@ -53,23 +59,31 @@ def skewed_inputs(gen):
     lengths[-1] = 0
     for b in range(1, B - 1, 2):
         tables[b, [1, 3, 7]] = -1
-    return (torch.randn(B, H, RANK, generator=gen, device=dev),
-            torch.randn(B, H, ROPE, generator=gen, device=dev),
-            torch.randn(N, BS, RANK, generator=gen, device=dev),
-            torch.randn(N, BS, ROPE, generator=gen, device=dev),
+    return (torch.randn(B, H, RANK, generator=gen, device=dev).to(q_dtype),
+            torch.randn(B, H, ROPE, generator=gen, device=dev).to(q_dtype),
+            torch.randn(N, BS, RANK, generator=gen, device=dev).to(pool_dtype),
+            torch.randn(N, BS, ROPE, generator=gen, device=dev).to(pool_dtype),
             tables.reshape(1, B, M).contiguous(), lengths)
 
 
 def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--dtype", choices=DTYPES, default="f32",
+                    help="the pools' element type")
+    ap.add_argument("--q-dtype", choices=DTYPES, default="f32",
+                    help="the queries' element type")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("bench: needs a CUDA device")
     print(ptxas_report(mk.SOURCE))
     gen = torch.Generator(device="cuda").manual_seed(SEED)
-    *head, lengths = skewed_inputs(gen)
+    *head, lengths = skewed_inputs(gen, DTYPES[args.q_dtype],
+                                   DTYPES[args.dtype])
     active = lengths > 0
     mean = int(lengths[active].float().mean().round().item())
     uniform = torch.where(active, torch.full_like(lengths, mean), lengths)
-    res = {"lengths": lengths.tolist(), "mean_length": mean}
+    res = {"q_dtype": args.q_dtype, "dtype": args.dtype,
+           "lengths": lengths.tolist(), "mean_length": mean}
     capped = hasattr(mk, "_MAX_HG")
     for hg in HEADS_PER_CTA if capped else (mk.HEADS_PER_CTA,):
         for name, ln in (("skewed", lengths), ("uniform", uniform)):

@@ -9,8 +9,9 @@
 // in f32.  W_UK (before) and W_UV (after) stay outside, in PyTorch.
 //
 // Bound on this card.  Every visible token is read once per slot (rank +
-// rope floats, 2,304 bytes at DeepSeek-V2 widths) and costs H * (2*(rank +
-// rope) + 2*rank) = 278,528 flops at H = 128: about 121 flops per byte.  On
+// rope elements, 2,304 bytes at DeepSeek-V2 widths in f32, 1,152 in bf16)
+// and costs H * (2*(rank + rope) + 2*rank) = 278,528 flops at H = 128:
+// about 121 flops per f32 byte.  On
 // CUDA cores in f32 the bound is those flops over 67 TFLOP/s; on the tensor
 // cores in 3xTF32 (three TF32 products per f32 product, 495 TFLOP/s) it is
 // max(bytes / 3.35 TB/s, 3 * flops / 495 TFLOP/s).
@@ -65,14 +66,32 @@
 // More heads a block (32 would need 144 registers of query fragments, or
 // 74 KB of shared memory beside the 148 KB ring), wgmma on 64-head tiles
 // and a producer warp with more blocks per SM are later work.
+//
+// Element types.  The queries (q_lat, q_rope) and the pools (c, kr) are
+// each float or bf16, independently, as in the TPU kernel, which reads any
+// float, computes in f32 and writes f32 (kernels/csrc/bf16.cuh).  Query
+// elements become f32 where the fragments are read; pages are bulk-copied
+// into the ring in the pool's own type (a bf16 row part is rank * 2 or
+// rope * 2 bytes, a multiple of 16) and each element becomes an f32 where
+// a B fragment reads it.  Every multiply and add after that is the f32
+// kernel's in its order, the scratch and the merge stay f32, and so does
+// the output: a call on bf16 inputs gives exactly the f32 kernel's result
+// on the upcast inputs.  The bf16 ring's row stride is dk + 8 elements
+// (16-byte aligned row parts; (dk + 8) / 2 words, 4 mod 32 at dk = 576):
+// the score reads then touch 16 words a warp, rows gq at banks 4 gq and
+// 4 gq + 1 with lanes tq = 0, 1 and 2, 3 sharing a word, and the context
+// reads 16 words at banks 8 tq + gq / 2 (+ 4 nt), gq even and odd sharing
+// one: no conflicts, as the f32 ring's dk + 4 floats gives.
 
 #include <cuda_runtime.h>
 
+#include "../../csrc/bf16.cuh"
 #include "../../csrc/bulk_copy.cuh"
 #include "../../csrc/tf32x3.cuh"
 
 namespace {
 
+using namespace elem;
 using namespace tf32x3;
 
 constexpr int TILE = 32;                  // tokens per ring slot
@@ -94,9 +113,17 @@ __device__ __forceinline__ int last_split(int length, int split, int nsplit) {
   return length > 0 ? min((length - 1) / split, nsplit - 1) : 0;
 }
 
+// Row stride (elements) of the ring's [c | kr] rows: f32 dk + 4 (4 mod 32
+// words), bf16 dk + 8 (16-byte aligned row parts); see the head comment.
+template <typename TP>
+__host__ __device__ __forceinline__ int ring_ld(int dk) {
+  return sizeof(TP) == 4 ? dk + 4 : dk + 8;
+}
+
+template <typename TP>
 struct Pages {
-  const float* c;       // (N, bs, rank)
-  const float* kr;      // (N, bs, rope)
+  const TP* c;          // (N, bs, rank)
+  const TP* kr;         // (N, bs, rope)
   const int* trow;      // the split's table entries (shared memory), from page p0
   int p0;
   int bs, rank, rope;
@@ -109,34 +136,38 @@ struct Pages {
     return j;
   }
 
-  // Tile j's [c | kr] rows into dst (TILE rows of ld floats), one bulk
+  // Tile j's [c | kr] rows into dst (TILE rows of ld elements), one bulk
   // copy a row part: thread (part tid / 32, row tid % 32) of the first two
-  // warps copies row's c (part 0) or kr (part 1).
-  __device__ __forceinline__ void load(float* dst, uint64_t* bar, int j, int ld) const {
+  // warps copies row's c (part 0) or kr (part 1).  The announced bytes are
+  // the pool's: a wrong count would leave the wait hanging.
+  __device__ __forceinline__ void load(TP* dst, uint64_t* bar, int j, int ld) const {
+    constexpr unsigned ES = sizeof(TP);
     const int tid = threadIdx.x;
     if (tid >= 2 * TILE) return;
-    if (tid == 0) bulk::expect(bar, 4u * TILE * (rank + rope));
+    if (tid == 0) bulk::expect(bar, ES * TILE * (rank + rope));
     const int t = tid % TILE;
     const long long tok = trow[j / tiles_per_blk - p0] * static_cast<long long>(bs) +
                           (j % tiles_per_blk) * TILE + t;
     if (tid < TILE)
-      bulk::copy(dst + t * ld, c + tok * rank, 4u * rank, bar);
+      bulk::copy(dst + t * ld, c + tok * rank, ES * rank, bar);
     else
-      bulk::copy(dst + t * ld + rank, kr + tok * rope, 4u * rope, bar);
+      bulk::copy(dst + t * ld + rank, kr + tok * rope, ES * rope, bar);
   }
 };
 
 // q_lat, out: (B, H, rank); q_rope: (B, H, rope); part_o: (nsplit, B, H,
 // rank); part_ml: (nsplit, B, H, 2).  Grid (nsplit, ceil(H / HG), B), NT
-// threads; rank and rope multiples of 8.
+// threads; rank and rope multiples of 8.  TQ: the queries' element type,
+// TP: the pools'; out and the scratch are f32.
+template <typename TQ, typename TP>
 __global__ void __launch_bounds__(NT, 1)
-mla_ctx_kernel(const float* __restrict__ q_lat, const float* __restrict__ q_rope,
-               const float* __restrict__ c_pool, const float* __restrict__ rope_pool,
+mla_ctx_kernel(const TQ* __restrict__ q_lat, const TQ* __restrict__ q_rope,
+               const TP* __restrict__ c_pool, const TP* __restrict__ rope_pool,
                const int* __restrict__ tables, const int* __restrict__ lengths,
                float* __restrict__ out, float* __restrict__ part_o,
                float* __restrict__ part_ml, int B, int H, int rank, int rope, int bs, int W,
                int Bs, int M, float scale, int split) {
-  extern __shared__ __align__(16) float smem[];
+  extern __shared__ __align__(16) unsigned char smem_raw[];
   const int s = blockIdx.x;
   const int h0 = blockIdx.y * HG;
   const int b = blockIdx.z;
@@ -151,11 +182,11 @@ mla_ctx_kernel(const float* __restrict__ q_lat, const float* __restrict__ q_rope
   const int gq = lane >> 2;
   const int tq = lane & 3;
   const int dk = rank + rope;
-  const int ld = dk + 4;
+  const int ld = ring_ld<TP>(dk);
   const int ksteps = dk >> 3;
   const int ntiles = rank >> 3;
-  float* ring = smem;                          // 2 x TILE x ld
-  float* spart = ring + 2 * TILE * ld;         // NW x HG x LDP partial scores
+  TP* ring = reinterpret_cast<TP*>(smem_raw);  // 2 x TILE x ld
+  float* spart = reinterpret_cast<float*>(ring + 2 * TILE * ld);   // NW x HG x LDP partials
   float* sfin = spart + NW * HG * LDP;         // HG x LDP scores
   uint64_t* bars = reinterpret_cast<uint64_t*>(sfin + HG * LDP);   // one a ring slot
   if (tid == 0) {
@@ -174,8 +205,8 @@ mla_ctx_kernel(const float* __restrict__ q_lat, const float* __restrict__ q_rope
   __syncthreads();
 
   const int j_vis = min((length + TILE - 1) / TILE, M * tpb);   // tiles with a visible token
-  const Pages pages{c_pool, rope_pool, spage, p0, bs, rank, rope, tpb,
-                    min(j_vis, (s + 1) * tps)};
+  const Pages<TP> pages{c_pool, rope_pool, spage, p0, bs, rank, rope, tpb,
+                        min(j_vis, (s + 1) * tps)};
 
   // this warp's k-steps x = warp + NW * i of the query rows gq, gq + 8
   Frag3 qf[KPW];
@@ -192,7 +223,7 @@ mla_ctx_kernel(const float* __restrict__ q_lat, const float* __restrict__ q_rope
           const int d = x * 8 + tq + (e & 2 ? 4 : 0);
           if (hh < H) {
             const long long row = static_cast<long long>(b) * H + hh;
-            a[e] = d < rank ? q_lat[row * rank + d] : q_rope[row * rope + d - rank];
+            a[e] = to_f32(d < rank ? q_lat[row * rank + d] : q_rope[row * rope + d - rank]);
           }
         }
       }
@@ -217,7 +248,7 @@ mla_ctx_kernel(const float* __restrict__ q_lat, const float* __restrict__ q_rope
     const int jn = pages.next(j + 1);
     if (jn < pages.j_end)
       pages.load(ring + ((it + 1) & 1) * TILE * ld, bars + ((it + 1) & 1), jn, ld);
-    const float* tile = ring + (it & 1) * TILE * ld;
+    const TP* tile = ring + (it & 1) * TILE * ld;
 
     // partial scores over this warp's k-steps: 16 heads x 32 tokens
     {
@@ -233,9 +264,9 @@ mla_ctx_kernel(const float* __restrict__ q_lat, const float* __restrict__ q_rope
         float b0[4], b1[4];
 #pragma unroll
         for (int n = 0; n < 4; ++n) {
-          const float* kp = tile + (n * 8 + gq) * ld + x * 8 + tq;
-          b0[n] = kp[0];
-          b1[n] = kp[4];
+          const TP* kp = tile + (n * 8 + gq) * ld + x * 8 + tq;
+          b0[n] = to_f32(kp[0]);
+          b1[n] = to_f32(kp[4]);
         }
         mma3(sacc, qf[i], b0, b1);
       }
@@ -304,13 +335,13 @@ mla_ctx_kernel(const float* __restrict__ q_lat, const float* __restrict__ q_rope
     for (int x = 0; x < 4; ++x) {
       Frag3 a;
       a.set({p[x][0], p[x][2], p[x][1], p[x][3]});
-      const float* c0 = tile + (x * 8 + 2 * tq) * ld + gq;
+      const TP* c0 = tile + (x * 8 + 2 * tq) * ld + gq;
       float b0[NPW], b1[NPW];
 #pragma unroll
       for (int n = 0; n < NPW; ++n) {
         const int nt = min(warp + NW * n, ntiles - 1);   // clamped: stored only if < ntiles
-        b0[n] = c0[nt * 8];
-        b1[n] = c0[ld + nt * 8];
+        b0[n] = to_f32(c0[nt * 8]);
+        b1[n] = to_f32(c0[ld + nt * 8]);
       }
       mma3(oacc, a, b0, b1);
     }
@@ -380,9 +411,30 @@ mla_merge_kernel(const float* __restrict__ part_o, const float* __restrict__ par
                   __fdiv_rn(num.w, den));
 }
 
+// The ring in the pool's element type, then the f32 score slabs, the
+// barriers and the split's table entries.
+template <typename TP>
 size_t smem_bytes(int rank, int rope) {
-  return sizeof(float) * (2ull * TILE * (rank + rope + 4) + NW * HG * LDP + HG * LDP) +
-         2 * sizeof(uint64_t) + MAX_TPS * sizeof(int);
+  return sizeof(TP) * 2ull * TILE * ring_ld<TP>(rank + rope) +
+         sizeof(float) * (NW * HG * LDP + HG * LDP) + 2 * sizeof(uint64_t) +
+         MAX_TPS * sizeof(int);
+}
+
+template <typename TQ, typename TP>
+cudaError_t launch_ctx(const TQ* q_lat, const TQ* q_rope, const TP* c_pool,
+                       const TP* rope_pool, const int* tables, const int* lengths, float* out,
+                       float* part_o, float* part_ml, int B, int H, int rank, int rope, int bs,
+                       int W, int Bs, int M, float scale, int split, int nsplit,
+                       cudaStream_t st) {
+  const size_t smem = smem_bytes<TP>(rank, rope);
+  cudaError_t err = cudaFuncSetAttribute(mla_ctx_kernel<TQ, TP>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  mla_ctx_kernel<TQ, TP><<<dim3(nsplit, (H + HG - 1) / HG, B), NT, smem, st>>>(
+      q_lat, q_rope, c_pool, rope_pool, tables, lengths, out, part_o, part_ml, B, H, rank,
+      rope, bs, W, Bs, M, scale, split);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -390,35 +442,36 @@ size_t smem_bytes(int rank, int rope) {
 // q_lat, out: (B, H, rank); q_rope: (B, H, rope); c_pool: (N, bs, rank);
 // rope_pool: (N, bs, rope); tables: the (W, Bs, M) shard stack; lengths:
 // (B,); part_o: (nsplit, B, H, rank) and part_ml: (nsplit, B, H, 2) when
-// nsplit > 1 (else unused); all f32 but tables and lengths (int32),
-// contiguous, 16-byte aligned.  rank and rope multiples of 8 up to 512 and
-// 64; bs and split multiples of 32 with nsplit * split >= M * bs.
-extern "C" int mla_ctx_launch(const void* q_lat, const void* q_rope, const void* c_pool,
-                              const void* rope_pool, const void* tables, const void* lengths,
-                              void* out, void* part_o, void* part_ml, int B, int H, int rank,
-                              int rope, int bs, int W, int Bs, int M, float scale, int split,
-                              int nsplit, void* stream) {
+// nsplit > 1 (else unused).  q_dtype is the code of q_lat's and q_rope's
+// element type, pool_dtype that of c_pool's and rope_pool's (DT_F32 = 0,
+// DT_BF16 = 1); out, the scratch (f32), tables and lengths (int32) have
+// one type each.  All contiguous, 16-byte aligned.  rank and rope
+// multiples of 8 up to 512 and 64; bs and split multiples of 32 with
+// nsplit * split >= M * bs.
+extern "C" int mla_ctx_launch(int q_dtype, int pool_dtype, const void* q_lat,
+                              const void* q_rope, const void* c_pool, const void* rope_pool,
+                              const void* tables, const void* lengths, void* out,
+                              void* part_o, void* part_ml, int B, int H, int rank, int rope,
+                              int bs, int W, int Bs, int M, float scale, int split, int nsplit,
+                              void* stream) {
   if (B <= 0 || H <= 0 || rank <= 0 || rank % 8 || rank > MAX_RANK || rope <= 0 || rope % 8 ||
       rope > MAX_ROPE || bs <= 0 || bs % TILE || W <= 0 || Bs <= 0 || M <= 0 || split <= 0 ||
       split % TILE || split > MAX_TPS * TILE || nsplit <= 0 || static_cast<long long>(nsplit) * split < 1LL * M * bs ||
       (nsplit > 1 && (part_o == nullptr || part_ml == nullptr)))
     return cudaErrorInvalidValue;
   auto st = static_cast<cudaStream_t>(stream);
-  const size_t smem = smem_bytes(rank, rope);
-  cudaError_t err = cudaFuncSetAttribute(mla_ctx_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
   auto* o = static_cast<float*>(out);
   auto* po = static_cast<float*>(part_o);
   auto* pm = static_cast<float*>(part_ml);
   const auto* ln = static_cast<const int*>(lengths);
-  mla_ctx_kernel<<<dim3(nsplit, (H + HG - 1) / HG, B), NT, smem, st>>>(
-      static_cast<const float*>(q_lat), static_cast<const float*>(q_rope),
-      static_cast<const float*>(c_pool), static_cast<const float*>(rope_pool),
-      static_cast<const int*>(tables), ln, o, po, pm, B, H, rank, rope, bs, W, Bs, M, scale,
-      split);
-  err = cudaGetLastError();
+  cudaError_t err = elem::with_types(q_dtype, pool_dtype, [&](auto tq, auto tp) -> cudaError_t {
+    using TQ = typename decltype(tq)::type;
+    using TP = typename decltype(tp)::type;
+    return launch_ctx(static_cast<const TQ*>(q_lat), static_cast<const TQ*>(q_rope),
+                      static_cast<const TP*>(c_pool), static_cast<const TP*>(rope_pool),
+                      static_cast<const int*>(tables), ln, o, po, pm, B, H, rank, rope, bs, W,
+                      Bs, M, scale, split, nsplit, st);
+  });
   if (err != cudaSuccess || nsplit == 1) return err;
   mla_merge_kernel<<<dim3(H, B), MERGE_THREADS, 0, st>>>(po, pm, ln, o, B, H, rank, split, nsplit);
   return cudaGetLastError();

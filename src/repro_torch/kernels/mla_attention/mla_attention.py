@@ -6,7 +6,11 @@
 through W_UK, the latent and rope-key pools, and the ``(W, Bs, M)``
 shard stack (slot ``b`` at shard ``b % W``, row ``b // W``).  On a CPU
 tensor it runs the plain version from ``ref.py``; on a CUDA tensor it
-launches the kernel on the current stream or raises.  The kernel splits
+launches the kernel on the current stream or raises (on a dtype it does
+not take too: no cast, no plain run).  The queries and the pools are
+each float32 or bfloat16 (``paged_attention.DTYPE_CODES``),
+independently; the kernel computes in float32 and the context is
+float32, as in the TPU kernel.  The kernel splits
 each slot's pages (``split.py``): the wrapper sizes the split count and
 the partial-result scratch from shapes alone, and a call is the kernel
 and, past one split, its merge.  :data:`LAUNCHES` counts each wrapper
@@ -24,7 +28,7 @@ import torch
 from repro_torch.kernels.mla_attention import ref
 from repro_torch.kernels.mla_attention import split as _split
 from repro_torch.kernels.paged_attention.paged_attention import (
-    _check, _raise_on, _stream)
+    DTYPE_CODES, _check, _raise_on, _stream)
 
 #: kernel launches since the last :func:`reset_launches`
 LAUNCHES = {"mla_ctx": 0}
@@ -47,7 +51,7 @@ def _lib() -> ctypes.CDLL:
     from repro_torch.kernels import _build
     lib = _build.load((SOURCE,))
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.mla_ctx_launch.argtypes = [p] * 9 + [i] * 8 + [f, i, i, p]
+    lib.mla_ctx_launch.argtypes = [i, i] + [p] * 9 + [i] * 8 + [f, i, i, p]
     lib.mla_ctx_launch.restype = i
     return lib
 
@@ -58,8 +62,9 @@ def mla_paged_ctx_fwd(q_lat: torch.Tensor, q_rope: torch.Tensor,
                       scale: float) -> torch.Tensor:
     """q_lat: (B, H, rank); q_rope: (B, H, rope_hd); c_pool: (N, bs, rank);
     rope_pool: (N, bs, rope_hd); tables: (W, Bs, M) int32 shard stack;
-    lengths: (B,) int32 → latent context (B, H, rank) f32.  A slot that
-    sees no token gives 0."""
+    lengths: (B,) int32 → latent context (B, H, rank) f32.  The queries
+    share one dtype and the pools one, each float32 or bfloat16.  A slot
+    that sees no token gives 0."""
     B, H, rank = q_lat.shape
     rope = q_rope.shape[-1]
     N, bs, rank_p = c_pool.shape
@@ -81,11 +86,12 @@ def mla_paged_ctx_fwd(q_lat: torch.Tensor, q_rope: torch.Tensor,
         return ref.mla_paged_ctx_ref(q_lat, q_rope, c_pool, rope_pool,
                                      tables, lengths, scale=scale)
     dev = q_lat.device
-    for name, t in (("q_lat", q_lat), ("q_rope", q_rope), ("c_pool", c_pool),
-                    ("rope_pool", rope_pool)):
-        _check(name, t, (torch.float32,), dev)
-        if t.data_ptr() % 16:                # float4 and 16-byte copies
-            raise ValueError(f"{name} is not 16-byte aligned")
+    # 16-byte aligned for the pages' bulk copies; q_rope takes q_lat's
+    # dtype, rope_pool c_pool's
+    _check("q_lat", q_lat, DTYPE_CODES, dev, align=16)
+    _check("q_rope", q_rope, (q_lat.dtype,), dev, align=16)
+    _check("c_pool", c_pool, DTYPE_CODES, dev, align=16)
+    _check("rope_pool", rope_pool, (c_pool.dtype,), dev, align=16)
     _check("tables", tables, (torch.int32,), dev)
     _check("lengths", lengths, (torch.int32,), dev)
     if rank % 8 or rank > _MAX_RANK or rope % 8 or rope > _MAX_ROPE:
@@ -103,6 +109,7 @@ def mla_paged_ctx_fwd(q_lat: torch.Tensor, q_rope: torch.Tensor,
                 for sh in shapes] if shapes else [])
     ptrs = [t.data_ptr() for t in scratch] or [None, None]
     code = _lib().mla_ctx_launch(
+        DTYPE_CODES[q_lat.dtype], DTYPE_CODES[c_pool.dtype],
         q_lat.data_ptr(), q_rope.data_ptr(), c_pool.data_ptr(),
         rope_pool.data_ptr(), tables.data_ptr(), lengths.data_ptr(),
         out.data_ptr(), *ptrs, B, H, rank, rope, bs, W, Bs, M, scale,

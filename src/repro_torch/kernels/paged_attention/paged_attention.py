@@ -96,16 +96,20 @@ def _heads_per_cta(G: int, cap: int) -> int:
     return max(d for d in range(1, min(G, cap) + 1) if G % d == 0)
 
 
-def _check(name: str, t: torch.Tensor, dtypes, device) -> None:
-    """Device, dtype (one of ``dtypes``, those the kernel takes) and
-    contiguity of a kernel input."""
+def _check(name: str, t: torch.Tensor, dtypes, device, *,
+           contiguous: bool = True, align: int = 0) -> None:
+    """Device, dtype (one of ``dtypes``, those the kernel takes), and
+    unless told otherwise contiguity, of a kernel input; with ``align``,
+    that its data starts on an ``align``-byte boundary."""
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, expected {device}")
     if t.dtype not in dtypes:
         raise ValueError(f"{name} has dtype {t.dtype}, the kernel takes "
                          f"{' or '.join(map(str, dtypes))}")
-    if not t.is_contiguous():
+    if contiguous and not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+    if align and t.data_ptr() % align:
+        raise ValueError(f"{name} is not {align}-byte aligned")
 
 
 def _forward_only(what: str, *tensors: torch.Tensor) -> None:

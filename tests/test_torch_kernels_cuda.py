@@ -230,30 +230,175 @@ def test_ragged_kernel_in_bf16_is_the_f32_kernel_rounded_on_card(
     assert torch.equal(got, want)
 
 
+# flash and MLA: the same rule, with q (and flash's output) and k/v, or
+# the queries and the pools, each f32 or bf16; MLA's context stays f32
+FLASH_DTYPE_CASES = FLASH
+MLA_DTYPE_CASES = ([("mla", c) for c in MLA]
+                   + [("split", c) for c in MLA_SPLITS])
+
+
+def _mla_inputs(kind, case, cuda):
+    """q_lat, q_rope, c_pool, rope_pool, stack, lengths on the card, and
+    the scale."""
+    c = (mla_split_case(28, **case) if kind == "split"
+         else mla_case(28, **case))
+    return ([t(c[k], cuda) for k in ("q_lat", "q_rope", "c", "kr", "stack",
+                                     "lengths")], c["scale"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q_dtype,kv_dtype", BF16_PAIRS)
+@pytest.mark.parametrize("case", FLASH_DTYPE_CASES, ids=str)
+def test_flash_kernel_in_bf16_is_the_f32_kernel_rounded_on_card(
+        cuda, case, q_dtype, kv_dtype):
+    """Through ``ops.flash_attention`` on (B, S, H, hd) tensors: the output
+    has q's dtype and equals the f32 kernel on the upcast inputs rounded
+    to it."""
+    qd, kd = getattr(torch, q_dtype), getattr(torch, kv_dtype)
+    c = flash_case(29, **case)
+    q, k, v = (t(c[n], cuda) for n in "qkv")
+    q, k, v = q.to(qd), k.to(kd), v.to(kd)
+    kw = dict(causal=c["causal"], window=c["window"], q_offset=c["q_offset"])
+    got = _launched(tfa, "flash_attention",
+                    lambda: tfops.flash_attention(q, k, v, **kw))
+    want = tfops.flash_attention(q.float(), k.float(), v.float(),
+                                 **kw).to(qd)
+    torch.cuda.synchronize()
+    assert got.dtype == qd and torch.isfinite(got).all()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q_dtype,pool_dtype", BF16_PAIRS)
+@pytest.mark.parametrize("kind,case", MLA_DTYPE_CASES, ids=str)
+def test_mla_kernel_in_bf16_is_the_f32_kernel_on_card(cuda, kind, case,
+                                                      q_dtype, pool_dtype):
+    """The context is f32 and equals the f32 kernel on the upcast inputs,
+    bit for bit; a slot that sees nothing is exactly 0."""
+    qd, pd = getattr(torch, q_dtype), getattr(torch, pool_dtype)
+    (ql, qr, cp, kr, stack, lengths), scale = _mla_inputs(kind, case, cuda)
+    ql, qr, cp, kr = ql.to(qd), qr.to(qd), cp.to(pd), kr.to(pd)
+    got = _launched(tmk, "mla_ctx", lambda: tmk.mla_paged_ctx_fwd(
+        ql, qr, cp, kr, stack, lengths, scale=scale))
+    want = tmk.mla_paged_ctx_fwd(ql.float(), qr.float(), cp.float(),
+                                 kr.float(), stack, lengths, scale=scale)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32 and torch.isfinite(got).all()
+    assert torch.equal(got, want)
+    assert not got[lengths == 0].any()
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("bad", ["float16", "float64"])
 @pytest.mark.parametrize("which", ["q", "pool"])
 def test_kernels_refuse_other_dtypes_on_card(cuda, bad, which):
     """f16 and f64 raise ValueError naming what the kernels take: no cast,
-    no plain run, no launch."""
+    no plain run, no launch.  The paged kernels, flash (``pool``: k and v)
+    and MLA (``pool``: the latent and rope pools)."""
     bd = getattr(torch, bad)
     q, kv, stack, lengths, _ = _decode_inputs("paged", PAGED[0], cuda)
     rq, rkv, rstack, trow, tpos, kvl, _ = _ragged_inputs("ragged",
                                                          RAGGED[0], cuda)
+    c = flash_case(30, **FLASH[0])
+    fq, fk, fv = (t(c[n], cuda) for n in "qkv")
+    (ql, qr, cp, kr, mstack, mlen), scale = _mla_inputs("mla", MLA[0], cuda)
     if which == "q":
-        q, rq = q.to(bd), rq.to(bd)
+        q, rq, fq, ql, qr = (x.to(bd) for x in (q, rq, fq, ql, qr))
     else:
-        kv, rkv = kv.to(bd), rkv.to(bd)
+        kv, rkv, fk, fv, cp, kr = (x.to(bd) for x in (kv, rkv, fk, fv, cp,
+                                                      kr))
     kp, vp = kv[:, :, 0::2].contiguous(), kv[:, :, 1::2].contiguous()
-    before = dict(tpa.LAUNCHES)
+    before = launch_counts()
     calls = (lambda: tpa.paged_attention_fused_fwd(q, kv, stack, lengths),
              lambda: tpa.paged_attention_fwd(q, kp, vp, stack, lengths),
              lambda: tops.ragged_paged_attention(rq, rkv, rstack, trow, tpos,
-                                                 kvl))
+                                                 kvl),
+             lambda: tfops.flash_attention(fq, fk, fv),
+             lambda: tmk.mla_paged_ctx_fwd(ql, qr, cp, kr, mstack, mlen,
+                                           scale=scale))
     for call in calls:
         with pytest.raises(ValueError, match="float32 or torch.bfloat16"):
             call()
-    assert dict(tpa.LAUNCHES) == before
+    assert launch_counts() == before
+
+
+def launch_counts() -> dict:
+    return {**tpa.LAUNCHES, **tfa.LAUNCHES, **tmk.LAUNCHES}
+
+
+@pytest.mark.cuda
+def test_inputs_of_two_dtypes_are_refused_on_card(cuda):
+    """Flash's k and v share one dtype, as do MLA's queries and its two
+    pools."""
+    c = flash_case(31, **FLASH[0])
+    q, k, v = (t(c[n], cuda) for n in "qkv")
+    (ql, qr, cp, kr, stack, lengths), scale = _mla_inputs("mla", MLA[0],
+                                                          cuda)
+    before = launch_counts()
+    with pytest.raises(ValueError, match="v has dtype"):
+        tfops.flash_attention(q, k, v.bfloat16())
+    with pytest.raises(ValueError, match="rope_pool has dtype"):
+        tmk.mla_paged_ctx_fwd(ql, qr, cp.bfloat16(), kr, stack, lengths,
+                              scale=scale)
+    with pytest.raises(ValueError, match="q_rope has dtype"):
+        tmk.mla_paged_ctx_fwd(ql.bfloat16(), qr, cp, kr, stack, lengths,
+                              scale=scale)
+    assert launch_counts() == before
+
+
+class _Spy:
+    """Stands in for a wrapper's library: records each call of ``name``'s
+    arguments, then makes it."""
+
+    def __init__(self, lib, name):
+        self.lib, self.name, self.calls = lib, name, []
+
+    def __getattr__(self, attr):
+        fn = getattr(self.lib, attr)
+        if attr != self.name:
+            return fn
+
+        def call(*args):
+            self.calls.append(args)
+            return fn(*args)
+        return call
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", [36, 120, 128])
+def test_bf16_inputs_reach_the_kernels_without_a_copy_on_card(cuda, hd,
+                                                              monkeypatch):
+    """Aligned bf16 inputs reach the launch by their own ``data_ptr()``
+    and bf16's dtype code: flash on the transposed views of (B, S, H, hd)
+    tensors (hd 36: rows 8 bytes off 16, copied 8 bytes at a time), MLA
+    on the decode path's (f32 queries, bf16 pools) and on bf16 queries."""
+    bf = tpa.DTYPE_CODES[torch.bfloat16]
+    c = flash_case(32, B=2, Sq=150, Sk=150, H=4, KV=2, hd=hd, causal=True,
+                   window=None)
+    q, k, v = (t(c[n], cuda).bfloat16() for n in "qkv")
+    spy = _Spy(tfa._lib(), "flash_attention_launch")
+    monkeypatch.setattr(tfa, "_lib", lambda: spy)
+    got = _launched(tfa, "flash_attention",
+                    lambda: tfops.flash_attention(q, k, v))
+    (args,) = spy.calls
+    assert args[:2] == (bf, bf)
+    assert args[2:6] == (q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                         got.data_ptr())
+    assert got.dtype == torch.bfloat16 and got.is_contiguous()
+
+    (ql, qr, cp, kr, stack, lengths), scale = _mla_inputs("mla", MLA[4],
+                                                          cuda)
+    cp, kr = cp.bfloat16(), kr.bfloat16()
+    spy = _Spy(tmk._lib(), "mla_ctx_launch")
+    monkeypatch.setattr(tmk, "_lib", lambda: spy)
+    for qd in (torch.float32, torch.bfloat16):
+        qlt, qrt = ql.to(qd), qr.to(qd)
+        _launched(tmk, "mla_ctx", lambda: tmk.mla_paged_ctx_fwd(
+            qlt, qrt, cp, kr, stack, lengths, scale=scale))
+        args = spy.calls[-1]
+        assert args[:2] == (tpa.DTYPE_CODES[qd], bf)
+        assert args[2:6] == (qlt.data_ptr(), qrt.data_ptr(), cp.data_ptr(),
+                             kr.data_ptr())
 
 
 @pytest.mark.cuda

@@ -1,16 +1,20 @@
-"""sha256 of the paged-attention kernels' f32 outputs on seeded cases, for
-one checkout of the repository (``--root``, default the one holding this
+"""sha256 of the attention kernels' f32 outputs on seeded cases, for one
+checkout of the repository (``--root``, default the one holding this
 script), so that two checkouts' f32 kernels can be compared bit for bit
 on the same card:
 
     python tools/paged_f32_hashes.py [--root DIR] [--seed N]
 
 The cases and the hashing are ``chip_smoke.f32_hashes`` of the checkout
-holding this script (the paged decode kernel fused and over split pools
+holding this script: the paged decode kernel fused and over split pools
 at granite-3-8b's heads, whisper-small's and a head of 120; the ragged
-kernel split-K at heads of 128, 64 and 96, with and without a window);
-the kernels are those of ``DIR/src``, built into ``DIR/build``.  Prints the card's name and power limit and one JSON line
-``{"root": ..., "hashes": {case: sha256}}``.  Needs a CUDA device.
+kernel split-K at heads of 128, 64 and 96, with and without a window;
+flash attention at Jamba's widths (causal, S 4096), danube's (window
+4096, S 6144, hd 120) and at hd 36; the MLA kernel at DeepSeek-V2's
+widths with W 1 and 4 (8 splits a slot).  The kernels are those of
+``DIR/src``, built into ``DIR/build``.  Prints the card's name and power
+limit and one JSON line ``{"root": ..., "hashes": {case: sha256}}``.
+Needs a CUDA device.
 """
 
 from __future__ import annotations
