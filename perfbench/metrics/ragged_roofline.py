@@ -1,0 +1,7 @@
+"""The ragged kernel's share of its roofline (``_roofline.share``)."""
+
+from perfbench.metrics._roofline import share
+
+
+def read(rec):
+    return share(rec, "ragged")

@@ -1,0 +1,6 @@
+"""Device time spanned per ``ragged_step`` call (CUDA events)."""
+
+
+def read(rec):
+    calls = rec.tracer.spans["ragged_step"] if rec.tracer else []
+    return rec.tracer.span_ms(calls) / len(calls) if calls else None
