@@ -100,7 +100,10 @@
 #include "../../csrc/bf16.cuh"
 #include "../../csrc/tf32x3.cuh"
 
-namespace {
+// A named namespace, not an anonymous one: a profiler's trace names each
+// kernel by its demangled signature, and "(anonymous namespace)::" opens
+// with a parenthesis that tools cutting the parameter list cut at.
+namespace flash_attention {
 
 using namespace elem;
 
@@ -532,7 +535,9 @@ cudaError_t launch(const Params<TQ, TKV>& p, int B, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-}  // namespace
+}  // namespace flash_attention
+
+using namespace flash_attention;
 
 // q, out: (B, H, Sq, hd); k, v: (B, KV, Sk, hd).  q_dtype is the code of
 // q's (and out's) element type, kv_dtype that of k and v (DT_F32 = 0,

@@ -54,7 +54,10 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-namespace {
+// A named namespace, not an anonymous one: a profiler's trace names each
+// kernel by its demangled signature, and "(anonymous namespace)::" opens
+// with a parenthesis that tools cutting the parameter list cut at.
+namespace mamba_scan {
 
 constexpr int TC = 32;       // time steps per ring stage
 constexpr int STAGES = 3;    // ring stages
@@ -255,7 +258,9 @@ int launch(const Args& a, int B, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-}  // namespace
+}  // namespace mamba_scan
+
+using namespace mamba_scan;
 
 // dt, x: (B, S, DI) and Bm, Cm: (B, S, N), read through their (batch,
 // token) strides in floats (last stride 1); A: (DI, N), h0, h_last:

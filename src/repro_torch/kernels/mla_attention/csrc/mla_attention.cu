@@ -89,7 +89,10 @@
 #include "../../csrc/bulk_copy.cuh"
 #include "../../csrc/tf32x3.cuh"
 
-namespace {
+// A named namespace, not an anonymous one: a profiler's trace names each
+// kernel by its demangled signature, and "(anonymous namespace)::" opens
+// with a parenthesis that tools cutting the parameter list cut at.
+namespace mla_attention {
 
 using namespace elem;
 using namespace tf32x3;
@@ -437,7 +440,9 @@ cudaError_t launch_ctx(const TQ* q_lat, const TQ* q_rope, const TP* c_pool,
   return cudaGetLastError();
 }
 
-}  // namespace
+}  // namespace mla_attention
+
+using namespace mla_attention;
 
 // q_lat, out: (B, H, rank); q_rope: (B, H, rope); c_pool: (N, bs, rank);
 // rope_pool: (N, bs, rope); tables: the (W, Bs, M) shard stack; lengths:

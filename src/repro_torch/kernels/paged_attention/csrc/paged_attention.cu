@@ -95,7 +95,10 @@
 #include "../../csrc/bf16.cuh"
 #include "../../csrc/tf32x3.cuh"
 
-namespace {
+// A named namespace, not an anonymous one: a profiler's trace names each
+// kernel by its demangled signature, and "(anonymous namespace)::" opens
+// with a parenthesis that tools cutting the parameter list cut at.
+namespace paged_attention {
 
 using namespace elem;
 
@@ -1012,7 +1015,9 @@ cudaError_t launch_decode(const TQ* q, const TP* kbase, const TP* vbase, long lo
                           window, split, nsplit, stream);
 }
 
-}  // namespace
+}  // namespace paged_attention
+
+using namespace paged_attention;
 
 // q_dtype is the code of q's (and out's) element type, pool_dtype the
 // pools'; DT_F32 = 0, DT_BF16 = 1.

@@ -66,7 +66,10 @@
 #include "../../csrc/bulk_copy.cuh"
 #include "../../csrc/tf32x3.cuh"
 
-namespace {
+// A named namespace, not an anonymous one: a profiler's trace names each
+// kernel by its demangled signature, and "(anonymous namespace)::" opens
+// with a parenthesis that tools cutting the parameter list cut at.
+namespace rwkv6_scan {
 
 using namespace tf32x3;
 
@@ -453,7 +456,9 @@ int launch(const float* r, const float* k, const float* v, const float* w, const
   return cudaGetLastError();
 }
 
-}  // namespace
+}  // namespace rwkv6_scan
+
+using namespace rwkv6_scan;
 
 // r, k, v, w: element (b, h, t, d) at b*sB + h*sH + t*sT + d (16-byte
 // aligned rows: every stride a multiple of 4); y: likewise with yB, yH,

@@ -35,6 +35,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core import recorder as trace_rec
 from repro_torch.models.layers import init_dense, rms_norm
 
 
@@ -118,6 +119,9 @@ def _dispatch_compute(x: torch.Tensor, gates: torch.Tensor,
     pos_in_e = torch.arange(T * k, device=x.device) - seg_start[sorted_e]
     local_e = sorted_e - first
     mine = (pos_in_e < capacity) & (local_e >= 0) & (local_e < El)
+    rec = trace_rec.ACTIVE
+    if rec is not None:
+        rec.moe_fill(T * k, mine, El * capacity)
     dest = torch.where(mine, local_e * capacity + pos_in_e, 0)
     token_of = order // k                              # source token per slot
     contrib = torch.where(mine[:, None], x[token_of], 0)
@@ -209,7 +213,15 @@ def moe_mix(params: dict, x: torch.Tensor, cfg, *, num_groups: int = 1,
 
 def moe_ffn(params: dict, x: torch.Tensor, cfg, *, num_groups: int = 1,
             dp=None, ep=None):
-    """Pre-norm residual MoE block: (B, S, D) → (x + out, aux)."""
+    """Pre-norm residual MoE block: (B, S, D) → (x + out, aux).  A
+    traced engine step times it as the ``model.moe`` span
+    (``core/recorder.py``)."""
+    rec = trace_rec.ACTIVE
+    if rec is not None:
+        rec.model("model.moe")
     h = rms_norm(x, params["norm"], cfg.norm_eps)
     out, aux = moe_mix(params, h, cfg, num_groups=num_groups, dp=dp, ep=ep)
-    return x + out, aux
+    y = x + out
+    if rec is not None:
+        rec.model(None)
+    return y, aux

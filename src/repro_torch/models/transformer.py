@@ -127,6 +127,7 @@ import functools
 
 import torch
 
+from repro_torch.core import recorder as trace_rec
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import mamba as mamba_mod
 from repro_torch.models import mla as mla_mod
@@ -263,13 +264,18 @@ def _ffn_aux(lp: dict, x: torch.Tensor, cfg: ModelConfig, i: int,
     global stream), expert-parallel under ``tp`` (its experts, whole or
     the rank's blocks, viewed as the rank's blocks); a dense layer's aux
     is 0 (``tp``: tensor-parallel)."""
+    rec = trace_rec.ACTIVE
     if cfg.ffns[i] == "moe":
+        if rec is not None:
+            rec.model(None)           # moe_ffn opens model.moe itself
         ffn = lp["ffn"]
         if tp is not None:
             from repro_torch.distributed.sharding import expert_blocks
             ffn = expert_blocks(ffn, cfg, tp.size, tp.index)
         return moe_mod.moe_ffn(ffn, x, cfg, num_groups=moe_groups, dp=dp,
                                ep=tp)
+    if rec is not None:
+        rec.model("model.ffn")
     return dense_ffn(lp["ffn"], x, cfg.norm_eps, tp), 0.0
 
 
@@ -646,6 +652,9 @@ def decode_step(params, cfg: ModelConfig, state: dict, tokens: torch.Tensor,
 def _decode_step(params, cfg: ModelConfig, state: dict, tokens, *,
                  page_impl, mesh, batch_axes, seq_axes, moe_groups,
                  layout=None):
+    rec = trace_rec.ACTIVE
+    if rec is not None:
+        rec.model("model.embed")
     B = tokens.shape[0]
     st = dict(state)
     pos = st["lengths"]
@@ -670,8 +679,10 @@ def _decode_step(params, cfg: ModelConfig, state: dict, tokens, *,
     sp = dict(page_impl=page_impl, mesh=mesh, batch_axes=batch_axes,
               seq_axes=seq_axes, rows_local=layout is not None)
     for i in range(cfg.n_layers):
-        lp, tp, tp_ffn = _serving_layer(params, cfg, i, layout, "decode", ep)
         mix = cfg.mixers[i]
+        if rec is not None:
+            rec.model(trace_rec.MIXER_RANGE[mix])
+        lp, tp, tp_ffn = _serving_layer(params, cfg, i, layout, "decode", ep)
         if mix == "mamba":
             m = mamba_ids.index(i)
             x, (cs, ss) = mamba_mod.mamba_decode_step(
@@ -708,8 +719,12 @@ def _decode_step(params, cfg: ModelConfig, state: dict, tokens, *,
                 (st["cross_k"][i], st["cross_v"][i]), cfg, tp)[:, 0]
         x = _ffn_aux(lp, x[:, None], cfg, i, moe_groups, tp_ffn, dp)[0][:, 0]
         lp = None                   # drop the layer before the next gathers
+    if rec is not None:
+        rec.model("model.head")
     h = rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = _logits(params, cfg, h, layout)
+    if rec is not None:
+        rec.model(None)
     st["lengths"] = pos + 1
     return logits, st
 
@@ -755,6 +770,9 @@ def prefill(params, cfg: ModelConfig, tokens: torch.Tensor, state: dict, *,
 
 def _prefill(params, cfg: ModelConfig, tokens, state, *, impl, enc_frames,
              patches, moe_groups, mesh, batch_axes, seq_axes, layout=None):
+    rec = trace_rec.ACTIVE
+    if rec is not None:
+        rec.model("model.embed")
     B = tokens.shape[0]
     bs = BLOCK_SIZE
     st = dict(state)
@@ -789,9 +807,11 @@ def _prefill(params, cfg: ModelConfig, tokens, state, *, impl, enc_frames,
     ep = _serving_ep(cfg, mesh) if layout is None else None
     dp = _serving_dp(layout, batch_axes)
     for i in range(cfg.n_layers):
+        mix = cfg.mixers[i]
+        if rec is not None:
+            rec.model(trace_rec.MIXER_RANGE[mix])
         lp, tp, tp_ffn = _serving_layer(params, cfg, i, layout, "prefill",
                                         ep)
-        mix = cfg.mixers[i]
         h = rms_norm(x, lp["mix"]["norm"], cfg.norm_eps)
         if mix == "mla":
             # the cache holds the latents of the layer's input
@@ -825,8 +845,12 @@ def _prefill(params, cfg: ModelConfig, tokens, state, *, impl, enc_frames,
             st["cross_v"][i] = vc
         x = _ffn_aux(lp, x, cfg, i, moe_groups, tp_ffn, dp)[0]
         lp = None                   # drop the layer before the next gathers
+    if rec is not None:
+        rec.model("model.head")
     h = rms_norm(x[:, -1], params["final_norm"], cfg.norm_eps)
     logits = _logits(params, cfg, h, layout)
+    if rec is not None:
+        rec.model(None)
     st["lengths"] = torch.full((B,), S, dtype=torch.int32,
                                device=tokens.device)
     return logits, st
@@ -854,6 +878,9 @@ def prefill_chunk(params, cfg: ModelConfig, tokens: torch.Tensor,
     if C % bs:
         raise ValueError(f"chunk length {C} must be a multiple of "
                          f"BLOCK_SIZE={bs}")
+    rec = trace_rec.ACTIVE
+    if rec is not None:
+        rec.model("model.embed")
     st = dict(state)
     dev = tokens.device
     x = embed(tokens, params["embed"])
@@ -871,6 +898,8 @@ def prefill_chunk(params, cfg: ModelConfig, tokens: torch.Tensor,
     window_rows = tables.clamp(min=0).reshape(-1).long()
     attn_ids = attn_layer_ids(cfg)
     for i in range(cfg.n_layers):
+        if rec is not None:
+            rec.model("model.attn")
         lp = layer_params(params, cfg, i)
         h = rms_norm(x, lp["mix"]["norm"], cfg.norm_eps)
         q, k, v = attn_mod.qkv_proj(lp["mix"], h, cfg, positions)
@@ -885,6 +914,8 @@ def prefill_chunk(params, cfg: ModelConfig, tokens: torch.Tensor,
                                            q_offset=start)
         x = x + o.reshape(B, C, -1) @ lp["mix"]["wo"]
         x = _ffn(lp, x, cfg, i, moe_groups)
+    if rec is not None:
+        rec.model(None)
     return st
 
 
@@ -911,6 +942,9 @@ def ragged_step(params, cfg: ModelConfig, state: dict, tokens: torch.Tensor,
     """
     check_supported(cfg)
     _check_attn_only(cfg, "ragged_step")
+    rec = trace_rec.ACTIVE
+    if rec is not None:
+        rec.model("model.embed")
     T = tokens.shape[0]
     st = dict(state)
     tables = st["tables"]
@@ -935,6 +969,8 @@ def ragged_step(params, cfg: ModelConfig, state: dict, tokens: torch.Tensor,
 
     attn_ids = attn_layer_ids(cfg)
     for i in range(cfg.n_layers):
+        if rec is not None:
+            rec.model("model.attn")
         lp = layer_params(params, cfg, i)
         h = rms_norm(x[None], lp["mix"]["norm"], cfg.norm_eps)
         q, k, v = attn_mod.qkv_proj(lp["mix"], h, cfg, positions)
@@ -943,9 +979,13 @@ def ragged_step(params, cfg: ModelConfig, state: dict, tokens: torch.Tensor,
         o = ragged_attn(q[0], kvp)                       # (T, H, hd)
         x = x + o.reshape(T, -1) @ lp["mix"]["wo"]
         x = _ffn(lp, x[None], cfg, i, moe_groups)[0]
+    if rec is not None:
+        rec.model("model.head")
     h = rms_norm(x, params["final_norm"], cfg.norm_eps)  # (T, D)
     h_last = h[last_index.clamp(min=0).long()]           # (slots, D)
     logits = unembed(h_last[:, None], _unembed_table(params, cfg))[:, 0]
+    if rec is not None:
+        rec.model(None)
     n = st["lengths"].shape[0]
     st["lengths"] = torch.where(last_index >= 0,
                                 kv_lens[:n].to(torch.int32), st["lengths"])

@@ -40,6 +40,7 @@ import zlib
 import numpy as np
 import torch
 
+from repro_torch.core import recorder as trace_rec
 from repro_torch.core.config import validate_translation, validate_worker_count
 from repro_torch.core.eviction import WatermarkEvictor
 from repro_torch.core.events import (FenceIssued, PrefillChunkDone,
@@ -217,7 +218,23 @@ class Engine:
             from repro_torch.kernels.paged_attention.ops import QT
             seg = -(-self.chunk_tokens // QT) * QT
             self._t_cap = config.max_batch * seg
+        # the in-program span recorder (core/recorder.py); None = off
+        self._rec = None
 
+    # -------------------------------------------------------------- tracing
+    def enable_tracing(self) -> trace_rec.SpanRecorder:
+        """Switch the span recorder on (``core/recorder.py``) and return
+        it; its totals join the snapshot as ``trace.*`` while it is on."""
+        if self._rec is None:
+            self._rec = trace_rec.SpanRecorder(self.cache.device)
+            self.cache._rec = self._rec
+            self.metrics.register("trace", self._rec.counters)
+        return self._rec
+
+    def disable_tracing(self) -> None:
+        """Switch the recorder off; the snapshot drops ``trace.*``."""
+        self._rec = self.cache._rec = None
+        self.metrics.unregister("trace")
 
     def _tensor(self, a) -> torch.Tensor:
         return torch.as_tensor(a, device=self.cache.device)
@@ -356,6 +373,8 @@ class Engine:
         return plan
 
     def _admit(self) -> None:
+        if self._rec is not None:
+            self._rec.phase("engine.admit")
         admitted = (self.sched.admit() if self.governor is None
                     else self._governed_admit())
         for r in admitted:
@@ -549,6 +568,9 @@ class Engine:
 
     def _prefill_request(self, r: Request) -> None:
         """Single-sequence prefill into the request's blocks."""
+        rec = self._rec
+        if rec is not None:
+            rec.open("engine.inputs")
         S = len(r.prompt)
         bs = self.cache.block_size
         Sp = max(bs, -(-S // bs) * bs)              # pad to block multiple
@@ -563,8 +585,14 @@ class Engine:
             view[k] = view[k][:, r.slot:r.slot + 1]
         toks = self._tensor(toks)
         self._prefill_sigs.add(_signature([toks, view]))
+        if rec is not None:
+            rec.close()
+            rec.open("engine.launch", {"entry": "prefill", "rids": [r.rid]},
+                     events=True)
         # the pools and slot states are written in place
         logits, _ = tfm.prefill(self.params, self.cfg, toks, view)
+        if rec is not None:
+            rec.close()
         # first generated token comes from position S-1 (prefill is padded;
         # recompute the true last-token logits on the next decode step if
         # padding hid it — for simplicity prompts are block-aligned in
@@ -585,8 +613,13 @@ class Engine:
         seat a more urgent queued request first — bounded, never a
         livelock.
         """
+        rec = self._rec
+        if rec is not None:
+            rec.phase("engine.grow")
         if not self._grow_for_chunk(r):
             return                    # policy deferred this step's growth
+        if rec is not None:
+            rec.phase("engine.inputs")
         S = len(r.prompt)
         start = r.prefill_pos
         C = self.chunk_tokens
@@ -599,8 +632,13 @@ class Engine:
         view["lengths"] = self._tensor(np.zeros((1,), np.int32))
         toks = self._tensor(toks)
         self._chunk_sigs.add(("chunk",) + _signature([toks, view]))
+        if rec is not None:
+            rec.phase("engine.launch", {"entry": "prefill_chunk",
+                                        "rids": [r.rid]}, events=True)
         # the pools are written in place
         tfm.prefill_chunk(self.params, self.cfg, toks, view, start)
+        if rec is not None:
+            rec.phase("engine.emit")
         r.prefill_pos = end
         self.prefill_chunks += 1
         if self.bus.wants(PrefillChunkDone):
@@ -736,6 +774,8 @@ class Engine:
         step before any device work, and again after mid-step allocations
         (chunk/decode-boundary growth can evict an already-faulted
         block)."""
+        if self._rec is not None:
+            self._rec.phase("engine.settle")
         if self._pager_fixpoint() and self._outstanding_faults():
             if self.governor is None:
                 self.demand_pager_gave_up += 1
@@ -744,11 +784,24 @@ class Engine:
 
     # ----------------------------------------------------------------- step
     def step(self) -> int:
-        """One engine iteration; returns tokens generated."""
+        """One engine iteration; returns tokens generated.  A step that
+        finds a ``torch.profiler`` session running switches the recorder
+        on (``core/recorder.py``)."""
+        rec = self._rec
+        if rec is None:
+            if not trace_rec.profiling():
+                return self._step(None)
+            rec = self.enable_tracing()
+        with rec.step(self.steps):
+            return self._step(rec)
+
+    def _step(self, rec) -> int:
         t0 = time.perf_counter()
         self._admit()
         if not self.sched.running:
             return 0
+        if rec is not None:
+            rec.phase("engine.settle")
         self.evictor.maybe_evict()
 
         # demand paging: fault back any swapped-out block the step will
@@ -771,7 +824,7 @@ class Engine:
         # ragged serving: the whole mixed batch — chunk rows and decode
         # rows — goes through one fused-KV kernel call per layer
         if self._ragged:
-            return self._ragged_pass(t0)
+            return self._ragged_pass(t0, rec)
 
         # chunked prefill: at most one fixed-shape chunk per prefill-state
         # slot per step, interleaved with the decode below (a request
@@ -789,12 +842,16 @@ class Engine:
                     self._prefill_chunk_step(r)
                     progressed = True
                 elif r.state == "running":
+                    if rec is not None:
+                        rec.phase("engine.grow")
                     progressed |= self._grow_for_decode(r)
             if progressed:
                 self._settle_residency()
                 if not self.sched.running:
                     return 0
 
+        if rec is not None:
+            rec.phase("engine.grow")
         self._cow_pass()
 
         # decode covers only fully-prefilled slots; a mid-prefill slot is
@@ -813,6 +870,8 @@ class Engine:
         # the incoming token is the last *known* token; it is (re)written at
         # its own position r.length−1 (idempotent for the prompt tail) and
         # the logits predict position r.length.
+        if rec is not None:
+            rec.phase("engine.inputs")
         lengths = np.zeros((self.cache.max_batch,), np.int32)
         tokens = np.zeros((self.cache.max_batch,), np.int32)
         for slot, r in decoders.items():
@@ -822,13 +881,23 @@ class Engine:
         self.cache.update_tables(
             {s: r.mapping for s, r in decoders.items()}, lengths)
 
+        if rec is not None:
+            rec.phase("engine.inputs")
+        toks = self._tensor(tokens)
+        if rec is not None:
+            rec.phase("engine.launch", {"entry": "decode_step", "rids": [
+                r.rid for r in decoders.values()]}, events=True)
         logits, new_state = tfm.decode_step(
-            self.params, self.cfg, dict(self.cache.state),
-            self._tensor(tokens), page_impl=self.page_impl)
+            self.params, self.cfg, dict(self.cache.state), toks,
+            page_impl=self.page_impl)
         self.cache.state = new_state
         self.decode_steps += 1
+        if rec is not None:
+            rec.phase("engine.wait")
         lg = logits.cpu().numpy()
 
+        if rec is not None:
+            rec.phase("engine.emit")
         made = 0
         for slot, r in list(decoders.items()):
             nxt = int(lg[slot].argmax())
@@ -872,7 +941,7 @@ class Engine:
                 self._reserve_settle(
                     r, lambda: self.governor.on_extend(r, 1))
 
-    def _ragged_pass(self, t0: float) -> int:
+    def _ragged_pass(self, t0: float, rec) -> int:
         """One ragged engine iteration: every slot's incoming tokens —
         prefill chunks and single-token decode rows alike — pack into one
         fixed-shape stream served by ONE ragged fused-KV kernel call per
@@ -887,6 +956,8 @@ class Engine:
 
         # growth (chunk reservations + decode write blocks), then restore
         # the residency fixpoint, exactly like the per-slot chunk path
+        if rec is not None:
+            rec.phase("engine.grow")
         chunkable: dict[int, Request] = {}
         progressed = False
         for slot in sorted(self.sched.running):
@@ -903,8 +974,12 @@ class Engine:
             self._settle_residency()
             if not self.sched.running:
                 return 0
+            if rec is not None:
+                rec.phase("engine.grow")
         self._cow_pass()
 
+        if rec is not None:
+            rec.phase("engine.inputs")
         rows = []                     # (slot, request, start, end)
         for slot in sorted(self.sched.running):
             r = self.sched.running[slot]
@@ -931,6 +1006,8 @@ class Engine:
         self.cache.update_tables(
             {slot: r.mapping for slot, r, _, _ in rows}, lengths)
 
+        if rec is not None:
+            rec.phase("engine.inputs")
         d = build_ragged_descriptor(
             [slot for slot, *_ in rows],
             [end - start for _, _, start, end in rows],
@@ -952,10 +1029,18 @@ class Engine:
             d["tile_pos"], d["kv_lens"], d["last_index"])]
         st = dict(self.cache.state)
         self._chunk_sigs.add(("ragged",) + _signature([st, *args]))
+        if rec is not None:
+            rec.ragged_rows(int(real.sum()), self._t_cap)
+            rec.phase("engine.launch", {"entry": "ragged_step", "rids": [
+                r.rid for _, r, _, _ in rows]}, events=True)
         logits, new_state = tfm.ragged_step(self.params, self.cfg, st, *args,
                                             page_impl=self.page_impl)
         self.cache.state = new_state
+        if rec is not None:
+            rec.phase("engine.wait")
         lg = logits.cpu().numpy()
+        if rec is not None:
+            rec.phase("engine.emit")
 
         # host-side kernel accounting: one fused descriptor per resident
         # block per row per attention layer (the split layout would pay

@@ -114,6 +114,9 @@ class PagedKVCache:
         self.state["lengths"] = torch.zeros(max_batch, dtype=torch.int32,
                                             device=self.device)
         self._fence_drains = 0
+        # the engine's span recorder while its tracing is on
+        # (core/recorder.py): fences and drains become spans
+        self._rec = None
         self._full_refreshes = 0        # global fences: every shard re-upload
         self._shard_refreshes = 0       # scoped fences: masked shards only
         self._refreshed_entries = 0     # table entries re-uploaded by fences
@@ -183,8 +186,13 @@ class PagedKVCache:
     def _drain(self) -> None:
         """Wait for in-flight device work (the fence drain); the CPU runs
         eagerly, so there is nothing to wait for there."""
+        rec = self._rec
+        if rec is not None:
+            rec.open("cache.fence.drain")
         if self.device.type == "cuda":
             torch.cuda.current_stream(self.device).synchronize()
+        if rec is not None:
+            rec.close()
 
     def _upload_shard(self, w: int, rows: np.ndarray) -> None:
         """Overwrite device shard ``w`` in place with ``rows`` (padded)."""
@@ -262,6 +270,9 @@ class PagedKVCache:
         valid (their shard epoch did not move), so refreshed bytes scale
         with the fence's mask popcount instead of the worker count.
         """
+        rec = self._rec
+        if rec is not None:
+            rec.open("cache.fence", {"reason": reason, "n_blocks": n_blocks})
         self._drain()
         shards = (range(self.num_shards) if workers is None
                   else self._shards_of(workers))
@@ -328,6 +339,8 @@ class PagedKVCache:
                 reason=reason, shards=tuple(int(s) for s in shards),
                 entries=entries + d_entries, nbytes=nbytes + d_bytes,
                 full=workers is None))
+        if rec is not None:
+            rec.close()
 
     # ------------------------------------------------------------- reshard
     @property
@@ -505,6 +518,8 @@ class PagedKVCache:
         """Per-step table update: upload only the shards whose rows changed
         — each one an in-place copy into the stacked device array; the
         kernels consume the stack directly, so nothing is assembled."""
+        if self._rec is not None:
+            self._rec.phase("engine.tables")
         self._slot_mappings = dict(mappings)
         host = self._host_rows(mappings)
         for w, slots in enumerate(self._shard_slots):
