@@ -23,7 +23,10 @@ from device time.  The :class:`SpanRecorder` here times the host work
     runs, the ranges ``model.embed`` (an entry point's work before its
     first layer), ``model.attn`` (a layer's attention or MLA mixer),
     ``model.scan`` (a Mamba or RWKV-6 mixer), ``model.ffn`` and
-    ``model.head`` inside the entry points, which are not kept.
+    ``model.head`` inside the entry points, and inside a decode step
+    served by ``models/decode_graphs.py`` ``model.graph`` (a piece: its
+    graph's replay) and ``model.attn`` (the paged-decode kernel called
+    between pieces), which are not kept.
 
 The admission, residency and table phases open inside ``_admit``,
 ``_settle_residency`` and ``update_tables``, and the model ranges inside
@@ -41,8 +44,9 @@ kept in memory, the newest :data:`CAPACITY`, and written out on demand
 (:meth:`SpanRecorder.chrome_trace`, :meth:`SpanRecorder.save`).  Running
 totals of every kept engine and cache span, the device time of the
 launches by entry point and of the MoE FFN calls inside them (their event
-pairs, read at a snapshot, which waits for them), and the counters of the ragged step's
-real rows and the MoE dispatch's kept slots, are what
+pairs, read at a snapshot, which waits for them), the counters of the ragged step's
+real rows and the MoE dispatch's kept slots, and those of the decode
+steps served by graph replay and of the graph captures, are what
 :meth:`SpanRecorder.counters` returns; ``Engine.enable_tracing``
 registers them as the ``trace`` namespace of the engine's metrics, so
 they appear in ``metrics.snapshot()`` and the exporter only while the
@@ -140,6 +144,10 @@ TRACE_KINDS = {
     "trace.moe.kept": "counter",
     "trace.moe.rows": "counter",
     "trace.moe.slots": "counter",
+    # decode steps served by replaying the piecewise graphs, and the
+    # captures of those graphs (recaptures included)
+    "trace.decode.captures": "counter",
+    "trace.decode.graph_steps": "counter",
     # ragged step: real token rows and the t_cap rows computed
     "trace.ragged.rows_cap": "counter",
     "trace.ragged.rows_real": "counter",
@@ -235,6 +243,7 @@ class SpanRecorder:
         self._n = dict.fromkeys(COUNTS.values(), 0)
         self.rows_real = self.rows_cap = 0
         self.moe_slots = self.moe_rows = 0
+        self.graph_steps = self.graph_captures = 0
         self._moe_kept = None               # device tensor, read at snapshot
         self._pending: list[Span] = []      # event pairs not yet read
         # entry point -> [launches, their device ms, MoE device ms]
@@ -364,6 +373,14 @@ class SpanRecorder:
         else:
             self._moe_kept.add_(n)
 
+    def decode_graph(self, captured: bool) -> None:
+        """One decode step of the piecewise graphs: one that captured
+        them (and ran eagerly), or one served by their replay."""
+        if captured:
+            self.graph_captures += 1
+        else:
+            self.graph_steps += 1
+
     def counters(self) -> dict:
         """The running totals (the ``trace`` namespace of the metrics); a
         snapshot waits for the MoE kept count."""
@@ -379,6 +396,8 @@ class SpanRecorder:
         kept = 0 if self._moe_kept is None else int(self._moe_kept.item())
         out["moe"] = {"kept": kept, "rows": self.moe_rows,
                       "slots": self.moe_slots}
+        out["decode"] = {"captures": self.graph_captures,
+                         "graph_steps": self.graph_steps}
         out["ragged"] = {"rows_cap": self.rows_cap,
                          "rows_real": self.rows_real}
         out["spans"] = {"dropped": self._kept - len(self.spans),

@@ -612,7 +612,8 @@ def _attn_qkv(lp, h, cfg, positions, tp):
 
 def decode_step(params, cfg: ModelConfig, state: dict, tokens: torch.Tensor,
                 *, page_impl: str = "ref", mesh=None, batch_axes=(),
-                seq_axes=(), moe_groups: int = 1, layout=None):
+                seq_axes=(), moe_groups: int = 1, layout=None,
+                graphs=None):
     """One decode step: tokens (B,) → (logits (B, V) f32, state).
 
     ``state['lengths']`` counts tokens already in the cache; the incoming
@@ -631,6 +632,11 @@ def decode_step(params, cfg: ModelConfig, state: dict, tokens: torch.Tensor,
     logits are the rank's batch rows over ``batch_axes``: B is the
     rank's row count.  ``coll.gather_batch`` gives a caller the whole
     batch.
+
+    ``graphs`` (a ``decode_graphs.DecodeGraphs``, which its caller keeps
+    from step to step) serves the step through its piecewise CUDA graphs
+    where they take the config and ``page_impl`` and there is no mesh;
+    the result is this function's without them.
     """
     check_supported(cfg)
     if layout is not None:
@@ -639,6 +645,9 @@ def decode_step(params, cfg: ModelConfig, state: dict, tokens: torch.Tensor,
         raise ValueError(f"page_impl {page_impl!r} "
                          f"{'needs' if mesh is None else 'does not take'} "
                          f"a mesh; on a mesh use one of {SP_IMPLS}")
+    if (graphs is not None and mesh is None
+            and graphs.takes(cfg, page_impl)):
+        return graphs.step(params, cfg, state, tokens)
     kw = dict(page_impl=page_impl, mesh=mesh, batch_axes=batch_axes,
               seq_axes=seq_axes, moe_groups=moe_groups)
     if layout is None:

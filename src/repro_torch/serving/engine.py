@@ -49,6 +49,7 @@ from repro_torch.core.events import (FenceIssued, PrefillChunkDone,
                                StepCompleted)
 from repro_torch.models import transformer as tfm
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.decode_graphs import DecodeGraphs
 from repro_torch.serving.admission import CapacityError, MemoryGovernor
 from repro_torch.serving.config import EngineConfig
 from repro_torch.serving.kv_cache import PagedKVCache
@@ -220,6 +221,13 @@ class Engine:
             self._t_cap = config.max_batch * seg
         # the in-program span recorder (core/recorder.py); None = off
         self._rec = None
+        # the decode step's piecewise CUDA graphs, captured at the first
+        # decode step (models/decode_graphs.py); None where they do not
+        # apply: off the card, or another mixer, FFN or page_impl
+        self._graphs = None
+        if (torch.device(config.device).type == "cuda"
+                and DecodeGraphs.takes(cfg, config.page_impl)):
+            self._graphs = DecodeGraphs()
 
     # -------------------------------------------------------------- tracing
     def enable_tracing(self) -> trace_rec.SpanRecorder:
@@ -889,7 +897,7 @@ class Engine:
                 r.rid for r in decoders.values()]}, events=True)
         logits, new_state = tfm.decode_step(
             self.params, self.cfg, dict(self.cache.state), toks,
-            page_impl=self.page_impl)
+            page_impl=self.page_impl, graphs=self._graphs)
         self.cache.state = new_state
         self.decode_steps += 1
         if rec is not None:
