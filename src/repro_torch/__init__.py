@@ -12,3 +12,11 @@ Entry points run on ``device="cuda"`` unless the caller passes
 ``device="cpu"``; on the CPU every kernel wrapper runs its plain PyTorch
 version.  Importing this package imports neither JAX nor ``repro``.
 """
+
+from repro_torch.configs import _MODULE_OF as _ARCH_MODULES  # noqa: E402
+
+# Archs the port alone has: ``configs.get_config`` and ``get_smoke``
+# resolve them, but they stay out of ``configs.ARCH_IDS``, which (like the
+# rest of ``configs/__init__.py``, a verbatim copy of the reference's) lists
+# the archs the tests pair with the reference's configs and dry runs.
+_ARCH_MODULES["deepseek-v3-671b"] = "repro_torch.configs.deepseek_v3_671b"

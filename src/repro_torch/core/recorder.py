@@ -19,14 +19,17 @@ from device time.  The :class:`SpanRecorder` here times the host work
   * ``cache.fence`` (``PagedKVCache._device_fence``) with its child
     ``cache.fence.drain`` (the stream ``synchronize``), under whatever
     phase issued the fence.
-  * ``model.moe`` inside ``models/moe.moe_ffn``, and, while a profiler
-    runs, the ranges ``model.embed`` (an entry point's work before its
-    first layer), ``model.attn`` (a layer's attention or MLA mixer),
-    ``model.scan`` (a Mamba or RWKV-6 mixer), ``model.ffn`` and
+  * ``model.moe`` inside ``models/moe.moe_ffn``, with its child
+    ``model.moe.route`` around the router (host time only), and, while a
+    profiler runs, the ranges ``model.embed`` (an entry point's work
+    before its first layer), ``model.attn`` (a layer's attention or MLA
+    mixer), ``model.scan`` (a Mamba or RWKV-6 mixer), ``model.ffn`` and
     ``model.head`` inside the entry points, and inside a decode step
     served by ``models/decode_graphs.py`` ``model.graph`` (a piece: its
-    graph's replay) and ``model.attn`` (the paged-decode kernel called
-    between pieces), which are not kept.
+    graph's replay) and ``model.attn`` (the attention kernel called
+    between pieces), which are not kept.  A replayed step runs no
+    ``model.moe`` span; the graphs hand the recorder its MoE dispatches'
+    slot counts instead.
 
 The admission, residency and table phases open inside ``_admit``,
 ``_settle_residency`` and ``update_tables``, and the model ranges inside
@@ -42,16 +45,17 @@ Each span keeps its name, host start and end (``time.perf_counter_ns``),
 its parent and its args (``rids``: the requests it served).  Spans are
 kept in memory, the newest :data:`CAPACITY`, and written out on demand
 (:meth:`SpanRecorder.chrome_trace`, :meth:`SpanRecorder.save`).  Running
-totals of every kept engine and cache span, the device time of the
-launches by entry point and of the MoE FFN calls inside them (their event
-pairs, read at a snapshot, which waits for them), the counters of the ragged step's
-real rows and the MoE dispatch's kept slots, and those of the decode
-steps served by graph replay and of the graph captures, are what
-:meth:`SpanRecorder.counters` returns; ``Engine.enable_tracing``
-registers them as the ``trace`` namespace of the engine's metrics, so
-they appear in ``metrics.snapshot()`` and the exporter only while the
-recorder is on (:data:`TRACE_SCHEMA`, their kinds in
-:data:`TRACE_KINDS`).
+totals of every kept engine and cache span and of the MoE router's spans,
+the device time of the launches by entry point and of the MoE FFN calls
+inside them (their event pairs, read at a snapshot, which waits for
+them), the counters of the ragged step's real rows and the MoE
+dispatch's slots (those routed to the experts held here, and those
+kept), and those of the decode steps served by graph replay and of the
+graph captures, are what :meth:`SpanRecorder.counters` returns;
+``Engine.enable_tracing`` registers them as the ``trace`` namespace of
+the engine's metrics, so they appear in ``metrics.snapshot()`` and the
+exporter only while the recorder is on (:data:`TRACE_SCHEMA`, their
+kinds in :data:`TRACE_KINDS`).
 
 **Off**, an engine holds no recorder, and each phase boundary costs one
 ``is None`` test: no clock read, no allocation, no device work, no
@@ -116,6 +120,7 @@ SECONDS = {
     "engine.emit": ("engine", "emit_s"),
     "cache.fence": ("cache", "fence_s"),
     "cache.fence.drain": ("cache", "drain_s"),
+    "model.moe.route": ("moe", "route_s"),
 }
 COUNTS = {
     "engine.step": ("engine", "steps"),
@@ -139,8 +144,11 @@ TRACE_KINDS = {
     # time of the MoE FFN calls inside them
     **{f"trace.launch.{e}.{k}": "counter" for e in ENTRIES
        for k in ("calls", "device_s", "moe_s")},
-    # MoE dispatch: routed (token, k) slots, the slots kept under each
-    # expert's capacity, and the E_l x C rows the expert products compute
+    # MoE dispatch: routed (token, k) slots, those routed to the experts
+    # held here (all of them unless the layer holds a share), those kept
+    # under each expert's capacity, and the E_l x C rows the expert
+    # products compute
+    "trace.moe.here": "counter",
     "trace.moe.kept": "counter",
     "trace.moe.rows": "counter",
     "trace.moe.slots": "counter",
@@ -244,7 +252,8 @@ class SpanRecorder:
         self.rows_real = self.rows_cap = 0
         self.moe_slots = self.moe_rows = 0
         self.graph_steps = self.graph_captures = 0
-        self._moe_kept = None               # device tensor, read at snapshot
+        self._moe_kept = None               # device tensors, read at snapshot
+        self._moe_here = None
         self._pending: list[Span] = []      # event pairs not yet read
         # entry point -> [launches, their device ms, MoE device ms]
         self._device = {e: [0, 0.0, 0.0] for e in ENTRIES}
@@ -361,17 +370,20 @@ class SpanRecorder:
         self.rows_real += real
         self.rows_cap += cap
 
-    def moe_fill(self, slots: int, kept: torch.Tensor, rows: int) -> None:
-        """One MoE dispatch: ``slots`` routed, ``kept`` the (device) mask
-        of the slots kept, ``rows`` computed; the kept count stays on the
-        device until a snapshot reads it."""
+    def moe_fill(self, slots: int, kept: torch.Tensor, rows: int,
+                 here: torch.Tensor) -> None:
+        """One MoE dispatch: ``slots`` routed, ``here`` and ``kept`` the
+        (device) masks of the slots routed to the experts held here and
+        of those kept, ``rows`` computed; the two counts stay on the
+        device until a snapshot reads them."""
         self.moe_slots += slots
         self.moe_rows += rows
-        n = kept.sum()
+        n, h = kept.sum(), here.sum()
         if self._moe_kept is None:
-            self._moe_kept = n
+            self._moe_kept, self._moe_here = n, h
         else:
             self._moe_kept.add_(n)
+            self._moe_here.add_(h)
 
     def decode_graph(self, captured: bool) -> None:
         """One decode step of the piecewise graphs: one that captured
@@ -383,8 +395,8 @@ class SpanRecorder:
 
     def counters(self) -> dict:
         """The running totals (the ``trace`` namespace of the metrics); a
-        snapshot waits for the MoE kept count."""
-        out: dict = {"engine": {}, "cache": {}}
+        snapshot waits for the MoE slot counts."""
+        out: dict = {"engine": {}, "cache": {}, "moe": {}}
         for (group, key), ns in self._ns.items():
             out[group][key] = ns / 1e9
         for (group, key), n in self._n.items():
@@ -393,9 +405,12 @@ class SpanRecorder:
         out["launch"] = {e: {"calls": n, "device_s": ms / 1e3,
                              "moe_s": moe_ms / 1e3}
                          for e, (n, ms, moe_ms) in self._device.items()}
-        kept = 0 if self._moe_kept is None else int(self._moe_kept.item())
-        out["moe"] = {"kept": kept, "rows": self.moe_rows,
-                      "slots": self.moe_slots}
+        kept = here = 0
+        if self._moe_kept is not None:
+            kept, here = (int(self._moe_kept.item()),
+                          int(self._moe_here.item()))
+        out["moe"].update(here=here, kept=kept, rows=self.moe_rows,
+                          slots=self.moe_slots)
         out["decode"] = {"captures": self.graph_captures,
                          "graph_steps": self.graph_steps}
         out["ragged"] = {"rows_cap": self.rows_cap,

@@ -23,6 +23,16 @@ ranks' partial outputs are summed over ``model``.  The ranks hold the
 same activations, so no token moves between them: the one collective is
 that SUM, as a tensor-parallel dense FFN issues it.
 
+A :class:`~repro_torch.models.moe_config.GroupRoutedMoE` layer (the
+port's alone: DeepSeek-V3) replaces step 1 by sigmoid, group-limited,
+bias-corrected routing over ``routed_experts`` experts
+(:func:`_route_grouped`) and holds only its ``num_experts`` of them,
+``[held_first, held_first + num_experts)``: one chip's share of an
+expert-parallel layer, run without the exchange.  It routes every token
+over all the experts, computes its own experts' slots (capacity from the
+routed-over count, as the mesh path has it) and the shared experts once;
+what the other experts would add is left out.
+
 Capacity drops make every token's output depend on the whole group, so
 callers route exactly the token stream the reference routes, padding
 included.
@@ -37,6 +47,7 @@ import torch.nn.functional as F
 
 from repro_torch.core import recorder as trace_rec
 from repro_torch.models.layers import init_dense, rms_norm
+from repro_torch.models.moe_config import GroupRoutedMoE
 
 
 def _init_experts(E: int, d_in: int, d_out: int, *, generator, device,
@@ -57,17 +68,27 @@ def init_moe(cfg, *, generator: torch.Generator, device,
     kw = dict(generator=generator, device=device, dtype=dtype)
     p = {"norm": torch.ones(D, device=device, dtype=dtype),
          # routing in f32 whatever the model dtype
-         "router": init_dense(D, E, generator=generator, device=device,
-                              dtype=torch.float32),
-         "w_gate": _init_experts(E, D, de, **kw),
-         "w_up": _init_experts(E, D, de, **kw),
-         "w_down": _init_experts(E, de, D, **kw)}
+         "router": init_dense(D, _routed(mo), generator=generator,
+                              device=device, dtype=torch.float32)}
+    if isinstance(mo, GroupRoutedMoE):
+        # the correction bias, set by load statistics outside the gradient
+        p["router_bias"] = torch.zeros(mo.routed_experts, device=device,
+                                       dtype=torch.float32)
+    p.update(w_gate=_init_experts(E, D, de, **kw),
+             w_up=_init_experts(E, D, de, **kw),
+             w_down=_init_experts(E, de, D, **kw))
     if mo.num_shared:
         ds = de * mo.num_shared
         p["s_gate"] = init_dense(D, ds, **kw)
         p["s_up"] = init_dense(D, ds, **kw)
         p["s_down"] = init_dense(ds, D, **kw)
     return p
+
+
+def _routed(mo) -> int:
+    """The experts the router scores (all of them, held here or not)."""
+    return mo.routed_experts if isinstance(mo, GroupRoutedMoE) \
+        else mo.num_experts
 
 
 def capacity_for(tokens_per_group: int, top_k: int, num_experts: int,
@@ -97,16 +118,38 @@ def _route(router: torch.Tensor, x: torch.Tensor, top_k: int):
     return gates, eidx, E * torch.sum(me * ce)
 
 
+def _route_grouped(router: torch.Tensor, bias: torch.Tensor,
+                   x: torch.Tensor, mo: GroupRoutedMoE):
+    """x: (T, D) → gates (T, k) f32, experts (T, k) int64, aux 0, as
+    DeepSeek-V3's ``Gate`` routes: s = sigmoid(x W_r), c = s + b; a
+    group's score is the sum of its two largest c; outside the best
+    ``top_expert_groups`` groups c is −inf; the experts are the top k of
+    c, their gates s renormalised to sum to one, times ``routed_scale``.
+    The bias balances the load in place of an aux loss."""
+    s = torch.sigmoid(x.float() @ router.float())               # (T, R)
+    T, R = s.shape
+    c = (s + bias.float()).view(T, mo.expert_groups, -1)
+    best = c.topk(2, dim=-1).values.sum(-1).topk(
+        mo.top_expert_groups, dim=-1).indices                  # (T, kg)
+    out = torch.ones(T, mo.expert_groups, dtype=torch.bool,
+                     device=x.device).scatter_(1, best, False)
+    c = c.masked_fill(out[..., None], float("-inf")).view(T, R)
+    eidx = c.topk(mo.top_k, dim=-1).indices
+    gates = s.gather(1, eidx)
+    gates = gates / gates.sum(-1, keepdim=True) * mo.routed_scale
+    return gates, eidx, s.new_zeros(())
+
+
 def _dispatch_compute(x: torch.Tensor, gates: torch.Tensor,
                       eidx: torch.Tensor, w_gate, w_up, w_down,
                       capacity: int, num_experts: int,
                       first: int = 0) -> torch.Tensor:
     """x: (T, D); gates/eidx: (T, k) → (T, D) f32 output of the experts
-    ``[first, first + E_l)`` (``E_l = w_gate.shape[0]``, all
-    ``num_experts`` of them unless expert-parallel).  A slot routed to
-    another expert, or dropped, adds a zero row at row 0 and contributes
-    0: each kept destination gets one row plus zeros, so the sum is
-    exact."""
+    ``[first, first + E_l)`` (``E_l = w_gate.shape[0]``) of the
+    ``num_experts`` routed over (all of them unless expert-parallel or a
+    held share).  A slot routed to another expert, or dropped, adds a
+    zero row at row 0 and contributes 0: each kept destination gets one
+    row plus zeros, so the sum is exact."""
     T, D = x.shape
     k = eidx.shape[1]
     E, El = num_experts, w_gate.shape[0]
@@ -118,10 +161,11 @@ def _dispatch_compute(x: torch.Tensor, gates: torch.Tensor,
     seg_start = torch.cumsum(counts, 0) - counts
     pos_in_e = torch.arange(T * k, device=x.device) - seg_start[sorted_e]
     local_e = sorted_e - first
-    mine = (pos_in_e < capacity) & (local_e >= 0) & (local_e < El)
+    here = (local_e >= 0) & (local_e < El)
+    mine = here & (pos_in_e < capacity)
     rec = trace_rec.ACTIVE
     if rec is not None:
-        rec.moe_fill(T * k, mine, El * capacity)
+        rec.moe_fill(T * k, mine, El * capacity, here)
     dest = torch.where(mine, local_e * capacity + pos_in_e, 0)
     token_of = order // k                              # source token per slot
     contrib = torch.where(mine[:, None], x[token_of], 0)
@@ -170,19 +214,29 @@ def moe_mix(params: dict, x: torch.Tensor, cfg, *, num_groups: int = 1,
     G = num_groups
     while T % G:
         G -= 1
-    E = mo.num_experts
-    cap = capacity_for(T // G, mo.top_k, E, capacity_factor)
+    E, R = mo.num_experts, _routed(mo)
+    cap = capacity_for(T // G, mo.top_k, R, capacity_factor)
     gathered = n > 1 and G % n != 0
     xs = dp.gather_rows(xf) if gathered else xf
-    first = 0
+    grouped = isinstance(mo, GroupRoutedMoE)
+    first = mo.held_first if grouped else 0
     if ep is not None:
         if params["w_gate"].shape[0] * ep.size != E:
             raise ValueError(
                 f"expert-parallel over {ep.size} ranks needs {E // ep.size} "
                 f"experts a rank, got {params['w_gate'].shape[0]}")
-        first = ep.index * params["w_gate"].shape[0]
-    routed = [_route(params["router"], xt, mo.top_k)
-              for xt in xs.reshape(-1, T // G, D)]
+        first += ep.index * params["w_gate"].shape[0]
+    rec = trace_rec.ACTIVE
+    if rec is not None:
+        rec.open("model.moe.route")
+    if grouped:
+        routed = [_route_grouped(params["router"], params["router_bias"], xt,
+                                 mo) for xt in xs.reshape(-1, T // G, D)]
+    else:
+        routed = [_route(params["router"], xt, mo.top_k)
+                  for xt in xs.reshape(-1, T // G, D)]
+    if rec is not None:
+        rec.close()
     gates = torch.stack([g for g, _, _ in routed])
     xd = xs
     if ep is not None:                    # the partial path's inputs
@@ -192,7 +246,7 @@ def moe_mix(params: dict, x: torch.Tensor, cfg, *, num_groups: int = 1,
     dt = x.dtype if ep is None else torch.float32
     out = torch.cat([
         _dispatch_compute(xt, g, e, params["w_gate"], params["w_up"],
-                          params["w_down"], cap, E, first).to(dt)
+                          params["w_down"], cap, R, first).to(dt)
         for xt, g, (_, e, _) in zip(xd.reshape(-1, T // G, D), gates,
                                     routed)])
     rows = slice(dp.index * B * S, (dp.index + 1) * B * S) if gathered \
@@ -214,8 +268,8 @@ def moe_mix(params: dict, x: torch.Tensor, cfg, *, num_groups: int = 1,
 def moe_ffn(params: dict, x: torch.Tensor, cfg, *, num_groups: int = 1,
             dp=None, ep=None):
     """Pre-norm residual MoE block: (B, S, D) → (x + out, aux).  A
-    traced engine step times it as the ``model.moe`` span
-    (``core/recorder.py``)."""
+    traced engine step times it as the ``model.moe`` span, its router's
+    host time as the child ``model.moe.route`` (``core/recorder.py``)."""
     rec = trace_rec.ACTIVE
     if rec is not None:
         rec.model("model.moe")

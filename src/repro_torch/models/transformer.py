@@ -647,7 +647,7 @@ def decode_step(params, cfg: ModelConfig, state: dict, tokens: torch.Tensor,
                          f"a mesh; on a mesh use one of {SP_IMPLS}")
     if (graphs is not None and mesh is None
             and graphs.takes(cfg, page_impl)):
-        return graphs.step(params, cfg, state, tokens)
+        return graphs.step(params, cfg, state, tokens, moe_groups)
     kw = dict(page_impl=page_impl, mesh=mesh, batch_axes=batch_axes,
               seq_axes=seq_axes, moe_groups=moe_groups)
     if layout is None:

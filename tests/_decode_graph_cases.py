@@ -9,26 +9,29 @@ import numpy as np
 import torch
 
 from repro_torch.models import transformer as tfm
+from repro_torch.models.decode_graphs import POOLS
 from _torch_cases import shard_stack
 
 M, W = 4, 2          # table columns (512 tokens), shards of the stack
 
 
 def state(cfg, dtype, seed, B=4, device="cpu"):
-    """Slot b on blocks [b*M, (b+1)*M) of a pool with 8 spare blocks and
+    """Slot b on blocks [b*M, (b+1)*M) of pools (the config's: the fused
+    KV pool, or the MLA latent and rope pools) with 8 spare blocks and
     random contents, lengths below 400 (slot 2 short), tables as the
     (W, B/W, M) stack."""
     rng = np.random.RandomState(seed)
     g = torch.Generator(device=device).manual_seed(seed)
     N = B * M + 8
     spec = tfm.cache_spec(cfg, B, M * tfm.BLOCK_SIZE, N, dtype)
-    kv = torch.randn(spec["kv"][0], generator=g, device=device).to(dtype)
+    st = {k: torch.randn(spec[k][0], generator=g, device=device).to(dtype)
+          for k in POOLS if k in spec}
     mono = np.arange(B * M, dtype=np.int32).reshape(B, M)
     lengths = rng.randint(100, 400, B).astype(np.int32)
     lengths[2] = 5
-    return {"kv": kv, "tables": torch.from_numpy(shard_stack(mono, W)).to(
-                device),
-            "lengths": torch.from_numpy(lengths).to(device)}
+    st["tables"] = torch.from_numpy(shard_stack(mono, W)).to(device)
+    st["lengths"] = torch.from_numpy(lengths).to(device)
+    return st
 
 
 def edit(st: dict, step: int) -> None:
@@ -36,7 +39,7 @@ def edit(st: dict, step: int) -> None:
     ``update_tables`` uploads a shard) or by a new stack (as a reshard
     makes one)."""
     tabs = st["tables"]
-    N = st["kv"].shape[1]
+    N = next(st[k] for k in POOLS if k in st).shape[1]
     if step == 2:        # slot 3 frees its last block; slot 0 gets it
         tabs[3 % W, 3 // W, M - 1] = -1
         tabs[0 % W, 0 // W, 1] = 3 * M + M - 1

@@ -3,8 +3,9 @@ CPU, where the pieces run eagerly over their static buffers: the logits
 and the KV pool are bit for bit those of ``transformer._decode_step``
 over 8 steps whose tables change between steps as an engine changes
 them (a freed block remapped to another slot, a row at -1 for a slot
-mid-prefill, a reallocated table stack); every config, ``page_impl`` or
-mesh the pieces do not take runs ``_decode_step``; an engine serving
+mid-prefill, a reallocated table stack), for attention and MLA
+decoders with dense and MoE FFNs; every config, ``page_impl`` or mesh
+the pieces do not take runs ``_decode_step``; an engine serving
 through the pieces makes the tokens it makes without them; and the
 ``decode_graph_pct`` reader.  The capture and replay themselves run on
 the card (``tests/test_torch_decode_graphs_cuda.py``)."""
@@ -22,17 +23,24 @@ torch.set_num_threads(1)
 
 from repro_torch.configs import get_smoke  # noqa: E402
 from repro_torch.models import transformer as tfm  # noqa: E402
-from repro_torch.models.decode_graphs import DecodeGraphs  # noqa: E402
+from repro_torch.models.decode_graphs import POOLS, DecodeGraphs  # noqa: E402
 from repro_torch.serving.config import EngineConfig  # noqa: E402
 from repro_torch.serving.engine import Engine  # noqa: E402
 from _decode_graph_cases import edit, state  # noqa: E402
 
 B = 4
 STEPS = 8
-#: (arch, params and pool dtype): granite in both dtypes, and the dense
-#: attention variants the pieces also take (qkv biases, a window)
+#: (arch, params and pool dtype): granite in both dtypes, the dense
+#: attention variants the pieces also take (qkv biases, a window), and
+#: the MoE and MLA decoders: GQA with softmax-routed experts, MLA with
+#: them (DeepSeek-V2) and with group-limited sigmoid routing over a held
+#: share (DeepSeek-V3)
 CASES = [("granite-3-8b", torch.float32), ("granite-3-8b", torch.bfloat16),
-         ("qwen2.5-14b", torch.float32), ("h2o-danube-3-4b", torch.float32)]
+         ("qwen2.5-14b", torch.float32), ("h2o-danube-3-4b", torch.float32),
+         ("deepseek-moe-16b", torch.float32),
+         ("deepseek-v2-236b", torch.float32),
+         ("deepseek-v3-671b", torch.float32),
+         ("deepseek-v3-671b", torch.bfloat16)]
 
 
 def _params(cfg, dtype):
@@ -58,7 +66,9 @@ def test_pieces_are_the_decode_step_bit_for_bit(arch, dtype):
                                        page_impl="kernel", graphs=graphs)
         assert lg_p.dtype == torch.float32
         assert torch.equal(lg_p, lg_e), f"logits differ at step {step}"
-        assert torch.equal(pieces["kv"], eager["kv"]), f"pool at {step}"
+        for k in POOLS:
+            if k in eager:
+                assert torch.equal(pieces[k], eager[k]), f"{k} at {step}"
         assert torch.equal(pieces["lengths"], eager["lengths"])
     assert graphs.steps == STEPS
     assert graphs.captures == 0           # no graphs off the card
@@ -89,8 +99,8 @@ def test_a_new_key_rebuilds_the_pieces():
 #: (arch, page_impl, whether the pieces take it)
 TAKES = [("granite-3-8b", "kernel", True), ("granite-3-8b", "ref", False),
          ("qwen2.5-14b", "kernel", True), ("h2o-danube-3-4b", "kernel", True),
-         ("deepseek-v2-236b", "kernel", False),
-         ("deepseek-moe-16b", "kernel", False),
+         ("deepseek-v2-236b", "kernel", True),
+         ("deepseek-moe-16b", "kernel", True),
          ("jamba-v0.1-52b", "kernel", False), ("rwkv6-7b", "kernel", False),
          ("whisper-small", "kernel", False)]
 
@@ -102,8 +112,8 @@ def test_which_configs_the_pieces_take(arch, page_impl, want):
 
 
 @pytest.mark.parametrize("arch,page_impl", [
-    ("deepseek-v2-236b", "kernel"), ("deepseek-moe-16b", "kernel"),
-    ("granite-3-8b", "ref")])
+    ("deepseek-v2-236b", "ref"), ("deepseek-moe-16b", "ref"),
+    ("granite-3-8b", "ref"), ("jamba-v0.1-52b", "kernel")])
 def test_other_steps_run_the_eager_decode_step(arch, page_impl):
     cfg = get_smoke(arch)
     params = _params(cfg, torch.float32)
@@ -159,6 +169,70 @@ def test_an_engine_serving_through_the_pieces_makes_the_same_tokens(path):
     assert _serve(piecewise) == _serve(plain)
     assert piecewise._graphs.steps == plain.decode_steps > 0
     assert torch.equal(piecewise.cache.state["kv"], plain.cache.state["kv"])
+
+
+@pytest.mark.parametrize("arch", ["deepseek-v2-236b", "deepseek-v3-671b"])
+def test_an_mla_moe_engine_through_the_pieces_makes_the_same_tokens(arch):
+    cfg = get_smoke(arch)
+    params = _params(cfg, torch.float32)
+    conf = EngineConfig(device="cpu", num_blocks=12, max_batch=3,
+                        max_seq_len=512, page_impl="kernel")
+    plain, piecewise = Engine(cfg, params, config=conf), \
+        Engine(cfg, params, config=conf)
+    piecewise._graphs = DecodeGraphs()
+    for eng in (plain, piecewise):
+        eng.enable_tracing()
+    assert _serve(piecewise) == _serve(plain)
+    assert piecewise._graphs.steps == plain.decode_steps > 0
+    for k in ("mla_c", "mla_rope"):
+        assert torch.equal(piecewise.cache.state[k], plain.cache.state[k])
+    snaps = [eng.metrics.snapshot() for eng in (plain, piecewise)]
+    for key in ("trace.moe.here", "trace.moe.kept", "trace.moe.slots",
+                "trace.moe.rows"):
+        assert snaps[1][key] == snaps[0][key] > 0, key
+
+
+class _Seen:
+    def moe_fill(self, slots, kept, rows, here):
+        self.args = (slots, int(kept), rows, int(here))
+
+
+def _handed(counts):
+    seen = _Seen()
+    counts.hand_to(seen)
+    return seen.args
+
+
+def test_the_captured_counts_are_the_dispatches_counts(monkeypatch):
+    """What :class:`_Counts` hands on after a step is the sum, over the
+    step's MoE dispatches, of what each hands on alone: the first
+    dispatch writes the static counts, the others add."""
+    from repro_torch.core import recorder as trace_rec
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models.decode_graphs import _Counts
+    cfg = get_smoke("deepseek-v3-671b")
+    params = _params(cfg, torch.float32)
+    x = torch.randn(B, 1, cfg.d_model,
+                    generator=torch.Generator().manual_seed(4))
+
+    def ffn(i, step):
+        moe_mod.moe_ffn(tfm.layer_params(params, cfg, i)["ffn"],
+                        x * (i + step), cfg)
+    counts = _Counts("cpu")
+    for step in range(2):
+        counts.slots = counts.rows = 0          # a new step's replay
+        monkeypatch.setattr(trace_rec, "ACTIVE", counts)
+        for i in (2, 3):
+            ffn(i, step)
+        both = _handed(counts)
+        got = [0, 0, 0, 0]
+        for i in (2, 3):
+            alone = _Counts("cpu")
+            monkeypatch.setattr(trace_rec, "ACTIVE", alone)
+            ffn(i, step)
+            got = [g + a for g, a in zip(got, _handed(alone))]
+        assert list(both) == got
+        assert got[0] == 2 * B * cfg.moe.top_k and 0 < got[3] <= got[0]
 
 
 class _Window:

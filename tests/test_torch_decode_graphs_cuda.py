@@ -4,8 +4,9 @@ whose tables change between steps (``_decode_graph_cases.edit``) the
 replayed step makes the eager ``_decode_step``'s tokens (the largest
 |logit difference| is printed: the kernels and shapes are the same); a
 reshard's new stack shape captures once more and no other step does; an
-engine's ``trace.decode.graph_steps`` counts the replays, and stays 0
-in an MLA and MoE engine, which decodes eagerly; and under
+engine's ``trace.decode.graph_steps`` counts the replays, and an MLA and
+MoE engine's replays make the eager engine's tokens and hand the
+recorder the same MoE slot counts (``trace.moe.*``); and under
 replay the profiler still finds every paged-decode kernel launched inside
 ``ops.paged_attention_fused_fwd``, where the benchmark credits it.  These
 skip without a CUDA device; on a machine with one run them with
@@ -22,7 +23,7 @@ torch = pytest.importorskip("torch")
 from repro_torch.configs import get_config, get_smoke  # noqa: E402
 from repro_torch.models import attention as attn_mod  # noqa: E402
 from repro_torch.models import transformer as tfm  # noqa: E402
-from repro_torch.models.decode_graphs import DecodeGraphs  # noqa: E402
+from repro_torch.models.decode_graphs import POOLS, DecodeGraphs  # noqa: E402
 from repro_torch.serving.config import EngineConfig  # noqa: E402
 from repro_torch.serving.engine import Engine  # noqa: E402
 from _decode_graph_cases import M, edit, state  # noqa: E402
@@ -41,10 +42,17 @@ def cuda():
 
 
 def _config(name):
-    """The granite smoke config, or granite-3-8b at its published widths
-    cut to 2 layers."""
-    if name == "smoke":
-        return get_smoke("granite-3-8b")
+    """The granite smoke config, DeepSeek-V2's or -V3's, granite-3-8b at
+    its published widths cut to 2 layers, or DeepSeek-V3 at its
+    published widths cut to one dense and one MoE layer."""
+    smoke = {"smoke": "granite-3-8b", "v2-smoke": "deepseek-v2-236b",
+             "v3-smoke": "deepseek-v3-671b"}
+    if name in smoke:
+        return get_smoke(smoke[name])
+    if name == "v3-2l":
+        full = get_config("deepseek-v3-671b")
+        return full.with_(n_layers=2, mixers=full.mixers[:2],
+                          ffns=("dense", "moe"))
     full = get_config("granite-3-8b")
     return full.with_(n_layers=2, mixers=full.mixers[:2],
                       ffns=full.ffns[:2])
@@ -56,7 +64,8 @@ def _params(cfg, dtype, dev):
 
 
 CASES = [("smoke", torch.float32, 4), ("smoke", torch.bfloat16, 4),
-         ("granite-2l", torch.bfloat16, 32)]
+         ("granite-2l", torch.bfloat16, 32), ("v2-smoke", torch.float32, 4),
+         ("v3-smoke", torch.float32, 4), ("v3-2l", torch.bfloat16, 64)]
 
 
 @pytest.mark.cuda
@@ -81,7 +90,8 @@ def test_replayed_steps_make_the_eager_tokens_on_card(cuda, name, dtype, B):
             tok_e = lg_e.argmax(-1).to(torch.int32)
             tok_r = lg_r.argmax(-1).to(torch.int32)
             assert torch.equal(tok_r, tok_e), f"tokens differ at {step}"
-    pool = (replay["kv"].float() - eager["kv"].float()).abs().max().item()
+    pool = max((replay[k].float() - eager[k].float()).abs().max().item()
+               for k in POOLS if k in eager)
     print(f"\n{name} {dtype} B {B}: {STEPS} steps, largest |dlogit| "
           f"{worst:.3g}, largest |dpool| {pool:.3g}")
     assert graphs.captures == 1 and graphs.steps == STEPS
@@ -150,17 +160,31 @@ def test_the_engine_counts_its_replays_on_card(cuda):
 
 
 @pytest.mark.cuda
-def test_an_mla_moe_engine_decodes_eagerly_on_card(cuda):
-    cfg = get_smoke("deepseek-v2-236b")
-    eng = _engine(_params(cfg, torch.float32, cuda), cfg, cuda)
-    assert eng._graphs is None
-    eng.enable_tracing()
-    _submit(eng, n=4)
-    eng.run()
-    snap = eng.metrics.snapshot()
-    assert snap["trace.launch.decode_step.calls"] == eng.decode_steps > 0
-    assert snap["trace.decode.graph_steps"] == 0
-    assert snap["trace.decode.captures"] == 0
+@pytest.mark.parametrize("name", ["v2-smoke", "v3-smoke"])
+def test_an_mla_moe_engine_replays_and_counts_its_moe_slots_on_card(
+        cuda, name):
+    cfg = _config(name)
+    params = _params(cfg, torch.float32, cuda)
+    runs = []
+    for graphs in (True, False):
+        eng = _engine(params, cfg, cuda)
+        assert isinstance(eng._graphs, DecodeGraphs)
+        if not graphs:
+            eng._graphs = None
+        eng.enable_tracing()
+        _submit(eng, n=4)
+        eng.run()
+        runs.append((eng.metrics.snapshot(), eng.decode_steps, [
+            list(r.generated) for r in sorted(eng.sched.done,
+                                              key=lambda r: r.rid)]))
+    (snap, steps, tokens), (off, _, off_tokens) = runs
+    assert tokens == off_tokens
+    assert snap["trace.launch.decode_step.calls"] == steps > 1
+    assert snap["trace.decode.graph_steps"] == steps - 1
+    assert snap["trace.decode.captures"] == 1
+    for key in ("trace.moe.here", "trace.moe.kept", "trace.moe.slots",
+                "trace.moe.rows"):
+        assert snap[key] == off[key] > 0, key
 
 
 @pytest.mark.cuda
