@@ -27,9 +27,10 @@ from device time.  The :class:`SpanRecorder` here times the host work
     ``model.head`` inside the entry points, and inside a decode step
     served by ``models/decode_graphs.py`` ``model.graph`` (a piece: its
     graph's replay) and ``model.attn`` (the attention kernel called
-    between pieces), which are not kept.  A replayed step runs no
-    ``model.moe`` span; the graphs hand the recorder its MoE dispatches'
-    slot counts instead.
+    between pieces), and around a prefill's replay by
+    ``models/prefill_graphs.py`` ``model.prefill.graph``, which are not
+    kept.  A replayed step or prefill runs no ``model.moe`` span; the
+    graphs hand the recorder its MoE dispatches' slot counts instead.
 
 The admission, residency and table phases open inside ``_admit``,
 ``_settle_residency`` and ``update_tables``, and the model ranges inside
@@ -50,12 +51,13 @@ the device time of the launches by entry point and of the MoE FFN calls
 inside them (their event pairs, read at a snapshot, which waits for
 them), the counters of the ragged step's real rows and the MoE
 dispatch's slots (those routed to the experts held here, and those
-kept), and those of the decode steps served by graph replay and of the
-graph captures, are what :meth:`SpanRecorder.counters` returns;
-``Engine.enable_tracing`` registers them as the ``trace`` namespace of
-the engine's metrics, so they appear in ``metrics.snapshot()`` and the
-exporter only while the recorder is on (:data:`TRACE_SCHEMA`, their
-kinds in :data:`TRACE_KINDS`).
+kept), and those of the decode steps and prefills served by graph
+replay and of their graphs' captures, are what
+:meth:`SpanRecorder.counters` returns; ``Engine.enable_tracing``
+registers them as the ``trace`` namespace of the engine's metrics, so
+they appear in ``metrics.snapshot()`` and the exporter only while the
+recorder is on (:data:`TRACE_SCHEMA`, their kinds in
+:data:`TRACE_KINDS`).
 
 **Off**, an engine holds no recorder, and each phase boundary costs one
 ``is None`` test: no clock read, no allocation, no device work, no
@@ -156,6 +158,10 @@ TRACE_KINDS = {
     # captures of those graphs (recaptures included)
     "trace.decode.captures": "counter",
     "trace.decode.graph_steps": "counter",
+    # monolithic prefills served by replaying a padded length's graph,
+    # and the captures of those graphs (recaptures included)
+    "trace.prefill.captures": "counter",
+    "trace.prefill.graph_calls": "counter",
     # ragged step: real token rows and the t_cap rows computed
     "trace.ragged.rows_cap": "counter",
     "trace.ragged.rows_real": "counter",
@@ -252,6 +258,7 @@ class SpanRecorder:
         self.rows_real = self.rows_cap = 0
         self.moe_slots = self.moe_rows = 0
         self.graph_steps = self.graph_captures = 0
+        self.prefill_graph_calls = self.prefill_captures = 0
         self._moe_kept = None               # device tensors, read at snapshot
         self._moe_here = None
         self._pending: list[Span] = []      # event pairs not yet read
@@ -393,6 +400,15 @@ class SpanRecorder:
         else:
             self.graph_steps += 1
 
+    def prefill_graph(self, captured: bool) -> None:
+        """One monolithic prefill of the graphs: one that captured its
+        padded length's graph (and ran eagerly), or one served by a
+        replay."""
+        if captured:
+            self.prefill_captures += 1
+        else:
+            self.prefill_graph_calls += 1
+
     def counters(self) -> dict:
         """The running totals (the ``trace`` namespace of the metrics); a
         snapshot waits for the MoE slot counts."""
@@ -413,6 +429,8 @@ class SpanRecorder:
                           slots=self.moe_slots)
         out["decode"] = {"captures": self.graph_captures,
                          "graph_steps": self.graph_steps}
+        out["prefill"] = {"captures": self.prefill_captures,
+                          "graph_calls": self.prefill_graph_calls}
         out["ragged"] = {"rows_cap": self.rows_cap,
                          "rows_real": self.rows_real}
         out["spans"] = {"dropped": self._kept - len(self.spans),

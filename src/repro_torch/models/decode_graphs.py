@@ -90,6 +90,13 @@ def _layer_out(lp, cfg, i, x, o, moe_groups):
     return tfm._ffn(lp, x[:, None], cfg, i, moe_groups)[:, 0]
 
 
+def plain_decoder(cfg) -> bool:
+    """A decoder whose layers are all attention or all MLA, with dense or
+    MoE FFNs: no per-slot recurrent state, no encoder."""
+    return (not cfg.enc_dec and set(cfg.mixers) in ({"attn"}, {"mla"})
+            and set(cfg.ffns) <= {"dense", "moe"})
+
+
 class _Counts:
     """Stands in for the span recorder while the pieces are captured:
     each MoE dispatch's slot counts go into static device tensors (the
@@ -144,12 +151,9 @@ class DecodeGraphs:
     @staticmethod
     def takes(cfg, page_impl: str) -> bool:
         """Whether the pieces serve ``cfg``'s decode step: the CUDA
-        kernels over a decoder whose layers are all attention or all MLA,
-        with dense or MoE FFNs (a mesh or a layout is for
+        kernels over a :func:`plain_decoder` (a mesh or a layout is for
         ``transformer.decode_step`` to rule out)."""
-        return (page_impl == "kernel" and not cfg.enc_dec
-                and set(cfg.mixers) in ({"attn"}, {"mla"})
-                and set(cfg.ffns) <= {"dense", "moe"})
+        return page_impl == "kernel" and plain_decoder(cfg)
 
     def _make_pieces(self, params, cfg, st, moe_groups) -> list:
         """The L + 1 pieces over ``self._io``: each reads what the static

@@ -742,7 +742,8 @@ def _decode_step(params, cfg: ModelConfig, state: dict, tokens, *,
 def prefill(params, cfg: ModelConfig, tokens: torch.Tensor, state: dict, *,
             impl: str = "chunked", enc_frames: torch.Tensor | None = None,
             patches: torch.Tensor | None = None, moe_groups: int = 1,
-            mesh=None, batch_axes=(), seq_axes=("model",), layout=None):
+            mesh=None, batch_axes=(), seq_axes=("model",), layout=None,
+            graphs=None):
     """Process a full prompt, write every cache and recurrent state (in
     place), return (last_logits, state).  tokens: (B, S); a vision model's
     ``patches`` (B, P, D) go before the text, so the sequence is S_tot =
@@ -764,9 +765,20 @@ def prefill(params, cfg: ModelConfig, tokens: torch.Tensor, state: dict, *,
     ``tokens``, ``patches``, ``enc_frames``, the state
     (``collectives.local_state(layout=)``) and the logits are the rank's
     batch rows over ``batch_axes``; MoE layers route the reference's
-    ``moe_groups`` groups of the global token stream."""
+    ``moe_groups`` groups of the global token stream.
+
+    ``graphs`` (a ``prefill_graphs.PrefillGraphs``, which its caller
+    keeps from call to call) serves the call through a CUDA graph of its
+    padded length where they take the config and there is no mesh,
+    layout, encoder input or vision prefix; the result is this
+    function's without them."""
     check_supported(cfg)
     _check_impl(impl)
+    if (graphs is not None and mesh is None and layout is None
+            and enc_frames is None and patches is None
+            and graphs.takes(cfg)):
+        return graphs.prefill(params, cfg, tokens, state, impl=impl,
+                              moe_groups=moe_groups)
     kw = dict(impl=impl, enc_frames=enc_frames, patches=patches,
               moe_groups=moe_groups, batch_axes=batch_axes,
               seq_axes=seq_axes)

@@ -50,6 +50,7 @@ from repro_torch.core.events import (FenceIssued, PrefillChunkDone,
 from repro_torch.models import transformer as tfm
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.decode_graphs import DecodeGraphs
+from repro_torch.models.prefill_graphs import PrefillGraphs
 from repro_torch.serving.admission import CapacityError, MemoryGovernor
 from repro_torch.serving.config import EngineConfig
 from repro_torch.serving.kv_cache import PagedKVCache
@@ -225,9 +226,15 @@ class Engine:
         # decode step (models/decode_graphs.py); None where they do not
         # apply: off the card, or another mixer, FFN or page_impl
         self._graphs = None
-        if (torch.device(config.device).type == "cuda"
-                and DecodeGraphs.takes(cfg, config.page_impl)):
+        on_card = torch.device(config.device).type == "cuda"
+        if on_card and DecodeGraphs.takes(cfg, config.page_impl):
             self._graphs = DecodeGraphs()
+        # the monolithic prefill's CUDA graphs, one per padded prompt
+        # length (models/prefill_graphs.py); None off the card, on the
+        # chunked paths and for the mixers and FFNs they do not take
+        self._prefill_graphs = None
+        if on_card and not self._chunked and PrefillGraphs.takes(cfg):
+            self._prefill_graphs = PrefillGraphs()
 
     # -------------------------------------------------------------- tracing
     def enable_tracing(self) -> trace_rec.SpanRecorder:
@@ -598,7 +605,8 @@ class Engine:
             rec.open("engine.launch", {"entry": "prefill", "rids": [r.rid]},
                      events=True)
         # the pools and slot states are written in place
-        logits, _ = tfm.prefill(self.params, self.cfg, toks, view)
+        logits, _ = tfm.prefill(self.params, self.cfg, toks, view,
+                                graphs=self._prefill_graphs)
         if rec is not None:
             rec.close()
         # first generated token comes from position S-1 (prefill is padded;
